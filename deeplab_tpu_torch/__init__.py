@@ -1,0 +1,17 @@
+"""PyTorch + CUDA port of deeplab_tpu (DeepLabV3+ segmentation) for NVIDIA Hopper.
+
+The JAX package ``deeplab_tpu`` is the reference; this package mirrors its
+module names so that each piece has an obvious counterpart, and imports
+neither ``jax`` nor ``deeplab_tpu``.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+
+Ported so far: the serving main path without post-processing,
+``Predictor(net, crf=None, compute_dtype="mixed")`` over the MobileNetV2
+``SegNet`` with the ``'original'`` head; its 14 stride-1 inverted-residual
+blocks run through the hand-written CUDA kernel ``kernels/csrc/fused_mbconv.cu``.
+"""
+
+from deeplab_tpu_torch.models.seg_model import SegNet
+from deeplab_tpu_torch.predictor import Predictor
+
+__all__ = ["SegNet", "Predictor"]
