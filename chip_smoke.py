@@ -7,18 +7,29 @@ Phases, each of which fails the run (exit code 1, no result line):
 
 1. build every CUDA kernel of the main path from ``deeplab_tpu_torch/kernels/
    csrc`` with nvcc (all sources at once);
-2. hold each kernel against its plain PyTorch version at every distinct
-   shape the main path gives it, under "mixed" (f32 in/out) and bf16 at
-   B=2, and under "mixed" at the served batch;
-3. the main path: ``Predictor(SegNet(512x512, 21 classes), "mixed")`` at full
-   MobileNetV2 width with seeded weights serves 3 requests of 8 images; the
-   kernel's launch count must rise by exactly 14 per forward; the logits are
-   compared with the same forward with the plain version in each kernel's
-   place, and with the plain layer composition, on the card; and the float32
-   port on the card with the float32 port on the CPU;
-4. times with CUDA events after warm-up: each kernel launch at the main
-   path's shapes beside its bound and its plain version, model-only img/s at
-   B=16 under "mixed" and float32, and B=1 latency.
+2. hold each kernel against its plain PyTorch version: ``fused_mbconv`` at
+   every distinct shape the main path gives it, under "mixed" (f32 in/out)
+   and bf16 at B=2, and under "mixed" at the served batch; the four CRF
+   kernels on every call of a CRF run over seeded 512x512 scenes, at
+   ``PRODUCTION_CONFIG`` with B=2 and B=8 and at ``FAST_FAITHFUL_CONFIG``
+   and ``THROUGHPUT_CONFIG`` with B=2;
+3. the model path: ``Predictor(SegNet(512x512, 21 classes), "mixed")`` at
+   full MobileNetV2 width with seeded weights serves 3 requests of 8 images;
+   ``fused_mbconv``'s count must rise by exactly 14 per forward; the logits
+   are compared with the same forward with the plain version in each
+   kernel's place, and with the plain layer composition, on the card; and
+   the float32 port on the card with the float32 port on the CPU;
+4. the main path: ``Predictor(net, crf=PRODUCTION_CONFIG, "mixed",
+   return_raw=True)`` serves 3 requests of 8 scenes; per request the counts
+   rise by exactly fused_mbconv 14, splat 6, slice_attrs 1, blur 5, mf_step
+   5; the CRF with the kernels is compared with the CRF with each plain
+   version in its kernel's place, and with the exact-oracle goldens
+   (tests/goldens/crf) at ``FAST_FAITHFUL_CONFIG``;
+5. times with CUDA events after warm-up: each kernel launch at the main
+   path's shapes beside its bound and its plain version (and, for the blur,
+   one depthwise ``F.conv2d``), model-only img/s at B=16 under "mixed" and
+   float32, the CRF alone at B=8, production end to end at B=16, and B=1
+   latency with and without the CRF.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -65,6 +76,16 @@ LOGITS_REL_TOL, ARGMAX_FLOOR, F32_AGREE_MARGIN = 0.5, 0.8, 0.02
 # float32 port on the card (TF32 off) vs on the CPU: summation order only
 F32_REL_TOL = 1e-4
 
+CRF_PER_REQUEST = {"splat_planes": 6, "slice_attrs_planes": 1,
+                   "gaussian_blur_planes": 5, "mf_step_planes": 5}
+# the TPU kernels they replace (file:line of the pl.pallas_call)
+CRF_REPLACES = {"splat_planes": 702, "slice_attrs_planes": 890,
+                "gaussian_blur_planes": 568, "mf_step_planes": 988}
+# (each CRF kernel against its plain version: the PLAIN_*_REL tolerances of
+# deeplab_tpu_torch/kernels/crf_fused.py)
+# CRF masks with the kernels vs with the plain versions; oracle goldens
+CRF_PATH_FLOOR, GOLDEN_FLOOR = 0.99, 0.993
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -83,6 +104,89 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def make_scene(H, W, n_labels, seed, n_blobs=None, speckle=0.06):
+    """A structured scene (image f32 0-255, mask int64): smooth color
+    regions, colored blobs and speckle label noise (the scenes of the
+    committed CRF goldens, tests/crf_scenes.py)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    im = np.stack([120 + 80 * np.sin(yy / 25 + seed),
+                   100 + 60 * np.cos(xx / 19),
+                   90 + 50 * np.sin((xx + yy) / 33)], -1)
+    mask = np.zeros((H, W), np.int64)
+    n_blobs = n_blobs if n_blobs is not None else max(n_labels // 2, 3)
+    for k in range(1, n_blobs + 1):
+        cy = rng.randint(H // 8, H - H // 8)
+        cx = rng.randint(W // 8, W - W // 8)
+        r = rng.randint(min(H, W) // 10, min(H, W) // 4)
+        blob = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        mask[blob] = k % n_labels
+        im[blob] = im[blob] * 0.3 + rng.randint(0, 255, 3) * 0.7
+    sp = rng.rand(H, W) < speckle
+    mask[sp] = rng.randint(0, n_labels, int(sp.sum()))
+    im = np.clip(im + rng.randn(H, W, 3) * 6, 0, 255).astype(np.float32)
+    return im, mask
+
+
+# (name, H, W, n_labels, seed) of the committed goldens
+GOLDEN_SCENES = [("s48_5l", 48, 48, 5, 0), ("s96_21l", 96, 96, 21, 3),
+                 ("s128_21l", 128, 128, 21, 5), ("s80x120_11l", 80, 120, 11, 7),
+                 ("s64x256_21l", 64, 256, 21, 9)]
+
+
+def scene_batch(B, seed, device):
+    """B seeded 512x512 scenes with 21-label masks, on ``device``."""
+    import numpy as np
+    pairs = [make_scene(SIZE, SIZE, CLASSES, seed + i) for i in range(B)]
+    return (torch.from_numpy(np.stack([p[0] for p in pairs])).to(device),
+            torch.from_numpy(np.stack([p[1] for p in pairs])).to(device))
+
+
+def tensors(x):
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tensors(v)]
+    return []
+
+
+def crf_bound_ms(CK, name, args, kw, out):
+    """Least time for one launch: the bytes it must move at 3.35 TB/s (each
+    output written once, each input read once, and of packed attrs planes
+    only the rows the kernel reads: rgb and ATTR_BSCALE for the splat, all
+    but ATTR_BSCALE for mf_step), against the f32 operations the sparse
+    form needs at 67 TFLOP/s (2 per multiply-add: 8 grid corners per
+    (pixel, label) for the splat and the slice, the color-blur stencil per
+    grid value, 2 x 17 taps per blurred value)."""
+    rows_read = {"splat_planes": 4, "mf_step_planes": CK.ATTR_ROWS - 1}
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tensors(args[1:]) + tensors(kw) + tensors(out))
+    first = args[0]
+    share = (rows_read[name] / CK.ATTR_ROWS if name in rows_read
+             and first.shape[1] == CK.ATTR_ROWS else 1)
+    nbytes += first.numel() * first.element_size() * share
+    if name == "gaussian_blur_planes":
+        ops = 2 * (2 * len(kw["taps"]) + 1) * out.numel()
+    else:
+        # (pixel, label) pairs: the values splatted, or the Q sliced
+        if name == "splat_planes":
+            n_pl = args[1].numel()
+        else:
+            n_pl = out[1 if name == "slice_attrs_planes" else 0].numel()
+        ops = 2 * 8 * n_pl
+        if name != "splat_planes":
+            nt = len(kw["ctaps"])
+            grid = args[1]
+            ops += 2 * 2 * n_pl + 2 * (nt * nt + nt) * grid.numel()
+        if name == "mf_step_planes":
+            ops += 20 * n_pl                  # messages, unary, softmax
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
 def seeded_net(image_size, seed, device):
@@ -169,7 +273,10 @@ def main() -> int:
         return 2
     import numpy as np
     from deeplab_tpu_torch import Predictor
+    from deeplab_tpu_torch import crf as CRF
+    from deeplab_tpu_torch.crf import dense_crf as DC
     from deeplab_tpu_torch.kernels import build
+    from deeplab_tpu_torch.kernels import crf_fused as CK
     from deeplab_tpu_torch.kernels import fused_mbconv as FM
     from deeplab_tpu_torch.models import mobilenetv2 as M
     from deeplab_tpu_torch import core
@@ -180,11 +287,23 @@ def main() -> int:
     dev = torch.device("cuda")
     run = Run()
     kernel_report = {}
+    crf_report = {n: {"max_abs_err": 0.0} for n in CK.KERNELS}
+    crf_b8 = {}
+
+    def zero_counts():
+        FM.fused_mbconv.launches = 0
+        for n in CK.KERNELS:
+            getattr(CK, n).launches = 0
+
+    def counts():
+        out = {"fused_mbconv": FM.fused_mbconv.launches}
+        out.update({n: getattr(CK, n).launches for n in CK.KERNELS})
+        return out
 
     # 1. build --------------------------------------------------------------
     def do_build():
         t0 = time.perf_counter()
-        logs = build.build(["fused_mbconv"])
+        logs = build.build(["fused_mbconv", "crf_fused"])
         print(f"build seconds: {time.perf_counter() - t0:.2f}")
         for name, log in logs.items():
             for line in log.splitlines():
@@ -237,16 +356,45 @@ def main() -> int:
         kernel_report["max_abs_err"] = worst
     run.phase("kernel vs plain version", check_kernels)
 
+    def check_crf_kernels():
+        cases = (("PRODUCTION_CONFIG", 2), ("PRODUCTION_CONFIG", SERVE_B),
+                 ("FAST_FAITHFUL_CONFIG", 2), ("THROUGHPUT_CONFIG", 2))
+        for cfg_name, B in cases:
+            imgs, masks = scene_batch(B, SEED + 10, dev)
+            with torch.inference_mode(), CK.plain_versions() as calls:
+                CRF.mean_field_batched(imgs, masks, getattr(CRF, cfg_name),
+                                       CLASSES)
+            for name in CK.KERNELS:
+                kernel = getattr(CK, name)
+                errs = []
+                for args, kw, want in calls[name]:
+                    with torch.inference_mode():
+                        got = kernel(*args, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = CK.max_err_vs_plain(name, got, want)
+                    errs.append(err)
+                    if not ok:
+                        raise AssertionError(f"{name} disagrees at "
+                                             f"{cfg_name} B={B}: {err}")
+                rep = crf_report[name]
+                rep["max_abs_err"] = max(rep["max_abs_err"], max(errs))
+                print(f"  {cfg_name:20s} B={B} {name:20s} {len(errs)} calls: "
+                      f"max_abs {max(errs):.3e} (rel tol: f32 "
+                      f"{CK.PLAIN_F32_REL}, bf16 {CK.PLAIN_BF16_REL:.4g}, "
+                      f"step Q {CK.PLAIN_STEP_REL:.4g}) ok")
+            if cfg_name == "PRODUCTION_CONFIG" and B == SERVE_B:
+                crf_b8.update(calls)
+    run.phase("CRF kernels vs plain versions", check_crf_kernels)
+
     # 3. the main path ---------------------------------------------------
     def serve():
         gen = torch.Generator().manual_seed(SEED + 3)
         reqs = [(torch.rand((SERVE_B, SIZE, SIZE, 3), generator=gen) * 255)
                 .numpy() for _ in range(N_REQUESTS)]
         pred = Predictor(net, compute_dtype="mixed")
-        FM.fused_mbconv.launches = 0
+        zero_counts()
         masks = [pred(r) for r in reqs]
         launches = FM.fused_mbconv.launches
-        kernel_report["launches"] = launches
         print(f"  served {N_REQUESTS} requests of B={SERVE_B}: fused_mbconv "
               f"launches {launches} (want {FUSED_PER_FORWARD * N_REQUESTS})")
         assert launches == FUSED_PER_FORWARD * N_REQUESTS, launches
@@ -303,7 +451,79 @@ def main() -> int:
         print(f"  float32 port, card vs CPU (64x64, B=2): max_abs {err:.3e} "
               f"max|logit| {scale:.3e} (rel tol {F32_REL_TOL})")
         assert err <= F32_REL_TOL * scale
-    run.phase("main path: Predictor(mixed) serving", serve)
+    run.phase("model path: Predictor(mixed) serving", serve)
+
+    def serve_crf():
+        cfg = CRF.PRODUCTION_CONFIG
+        reqs = [scene_batch(SERVE_B, SEED + 100 + 10 * i, "cpu")[0].numpy()
+                for i in range(N_REQUESTS)]
+        pred = Predictor(net, crf=cfg, compute_dtype="mixed", return_raw=True)
+        zero_counts()
+        outs = [pred(r) for r in reqs]
+        got = counts()
+        crf_report["launches"] = got
+        want = {"fused_mbconv": FUSED_PER_FORWARD * N_REQUESTS}
+        want.update({n: k * N_REQUESTS for n, k in CRF_PER_REQUEST.items()})
+        print(f"  served {N_REQUESTS} requests of B={SERVE_B} at "
+              f"PRODUCTION_CONFIG: launches {got} (want {want})")
+        assert got == want, (got, want)
+        for raw, ref in outs:
+            for m in (raw, ref):
+                assert m.shape == (SERVE_B, SIZE, SIZE), m.shape
+                assert m.dtype == np.int32 and m.min() >= 0
+                assert m.max() < CLASSES
+        moved = np.mean([(r != f).mean() for r, f in outs])
+        print(f"  the CRF changed {moved:.4f} of the pixels")
+
+        # the same CRF with each plain version in its kernel's place
+        img = torch.from_numpy(reqs[0]).to(dev)
+        raw0 = torch.from_numpy(outs[0][0]).to(dev)
+
+        def crf_q():
+            plan = DC.cell_plan(*raw0.shape, cfg, dev)
+            with torch.inference_mode(), \
+                    core.precision_flags(core.Policy(torch.float32)):
+                rgb = plan.cells_v(img.permute(0, 3, 1, 2))
+                lab = plan.cells_v(raw0[:, None].to(torch.int32))
+                return DC._mean_field_planes(plan, cfg, CLASSES, rgb,
+                                             lab).float()
+        q_k = crf_q()
+        with CK.plain_versions():
+            q_p = crf_q()
+        agree = (q_k.argmax(1) == q_p.argmax(1)).float().mean().item()
+        err = (q_k - q_p).abs().max().item()
+        print(f"  CRF with kernels vs with plain versions (B={SERVE_B}): Q "
+              f"max_abs {err:.4e}, mask agreement {agree:.6f} (floor "
+              f"{CRF_PATH_FLOOR})")
+        assert agree >= CRF_PATH_FLOOR
+        # the Predictor handed the CRF the raw image and the model's masks
+        agree = float((outs[0][1] == plan_masks(q_k)).mean())
+        print(f"  Predictor's refined masks vs this CRF run: {agree:.6f}")
+        assert agree >= CRF_PATH_FLOOR
+
+        # exact-oracle goldens, the kernels on the card
+        import os
+        gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "goldens", "crf")
+        for name, H, W, L, seed in GOLDEN_SCENES:
+            golden = np.load(os.path.join(gdir, name + ".npz"))["golden"]
+            im, mask = make_scene(H, W, L, seed)
+            with torch.inference_mode():
+                out = CRF.mean_field_batched(
+                    torch.from_numpy(im)[None].to(dev),
+                    torch.from_numpy(mask)[None].to(dev),
+                    CRF.FAST_FAITHFUL_CONFIG, L)[0].cpu().numpy()
+            agree = float((out == golden).mean())
+            print(f"  golden {name} at FAST_FAITHFUL_CONFIG: oracle agreement "
+                  f"{agree:.5f} (floor {GOLDEN_FLOOR})")
+            assert agree >= GOLDEN_FLOOR, (name, agree)
+
+    def plan_masks(q):
+        plan = DC.cell_plan(SERVE_B, SIZE, SIZE, CRF.PRODUCTION_CONFIG, dev)
+        pred = torch.argmax(q, dim=1, keepdim=True)
+        return plan.uncells_v(pred, 1)[:, 0].to(torch.int32).cpu().numpy()
+    run.phase("main path: Predictor(crf=PRODUCTION_CONFIG, mixed) serving",
+              serve_crf)
 
     # 4. times -----------------------------------------------------------
     def times():
@@ -360,18 +580,142 @@ def main() -> int:
               f"{min(lat):.3f} ms [{card}]")
     run.phase("times", times)
 
+    def crf_times():
+        if not crf_b8:
+            raise RuntimeError("no B=8 CRF calls recorded (phase 2 failed)")
+        # launch kinds per request: (call index, launches of that kind)
+        kinds = {"splat_planes": [(0, 1), (1, 5)],
+                 "slice_attrs_planes": [(0, 1)],
+                 "gaussian_blur_planes": [(0, 5)],
+                 "mf_step_planes": [(0, 4), (-1, 1)]}
+        saved = counts()
+        for name, ks in kinds.items():
+            kernel = getattr(CK, name)
+            ref = getattr(CK, name + "_reference")
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+            by = {"bytes": 0.0, "operations": 0.0}
+            for idx, n in ks:
+                args, kw, out = crf_b8[name][idx]
+                with torch.inference_mode():
+                    ms = cuda_ms(lambda: kernel(*args, **kw), 20)
+                    plain = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
+                bms, bb = crf_bound_ms(CK, name, args, kw, out)
+                tot["ms"] += n * ms
+                tot["plain_ms"] += n * plain
+                tot["bound_ms"] += n * bms
+                by[bb] += n * bms
+                shapes = [tuple(t.shape) for t in tensors(args)]
+                print(f"  {name} launch {idx} (x{n} per request) inputs "
+                      f"{shapes}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"bound {bms:.4f} ms ({bb}), {bms / ms:.3f} of bound "
+                      f"[{card}]")
+            crf_report[name].update(tot)
+            crf_report[name]["bound_by"] = max(by, key=by.get)
+            crf_report[name]["library_ms"] = None
+            print(f"  {name} per request (B={SERVE_B}): kernel "
+                  f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+                  f"{tot['bound_ms']:.4f} ms [{card}]")
+        # yardstick for the blur: one depthwise conv with the 17x17
+        # outer-product kernel over the image-layout tensor (not used by
+        # the port)
+        import torch.nn.functional as F
+        args, kw, _ = crf_b8["gaussian_blur_planes"][0]
+        t = torch.tensor(kw["taps"], device=dev).to(torch.bfloat16)
+        k2 = (t[:, None].float() * t[None, :].float()).to(torch.bfloat16)
+        x = torch.rand((SERVE_B, CLASSES, SIZE, SIZE), device=dev).to(
+            torch.bfloat16)
+        wgt = k2.expand(CLASSES, 1, *k2.shape).contiguous()
+        pad = len(kw["taps"]) // 2
+        with torch.inference_mode():
+            lib = cuda_ms(lambda: F.conv2d(x, wgt, padding=pad,
+                                           groups=CLASSES), 10)
+        crf_report["gaussian_blur_planes"]["library_ms"] = 5 * lib
+        print(f"  library yardstick for the blur: F.conv2d groups={CLASSES} "
+              f"17x17 bf16 on ({SERVE_B}, {CLASSES}, {SIZE}, {SIZE}): "
+              f"{lib:.4f} ms per launch, {5 * lib:.4f} ms per request "
+              f"[{card}]")
+
+        cfg = CRF.PRODUCTION_CONFIG
+        img8, m8 = scene_batch(SERVE_B, SEED + 200, dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: CRF.mean_field_batched(img8, m8, cfg,
+                                                        CLASSES), 10,
+                         warmup=2)
+        print(f"  CRF alone (mean_field_batched, PRODUCTION_CONFIG) B="
+              f"{SERVE_B}: {ms:.3f} ms/batch, {1e3 * SERVE_B / ms:.1f} img/s "
+              f"[{card}]")
+        # where the CRF's device time goes: torch.profiler over 3 calls
+        from torch.profiler import ProfilerActivity, profile
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                CRF.mean_field_batched(img8, m8, cfg, CLASSES)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 3
+        # kernel rows only: an aten op's row repeats its kernels' time
+        rows = [(e.key, e.self_device_time_total / 3e3, e.count // 3)
+                for e in pr.key_averages()
+                if e.self_device_time_total > 0
+                and str(e.device_type).endswith("CUDA")]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        print(f"  CRF B={SERVE_B} per call under torch.profiler: device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall (idle share "
+              f"{1 - busy / wall:.3f}) [{card}]")
+        for key, ms_, n in rows[:12]:
+            print(f"    {ms_:8.4f} ms  x{n:<3d} {key[:90]}")
+        img16 = scene_batch(BENCH_B, SEED + 300, dev)[0]
+
+        def production():
+            ids = net.predict_ids(img16, "mixed")
+            return CRF.mean_field_batched(img16, ids, cfg, CLASSES)
+        with torch.inference_mode():
+            ms = cuda_ms(production, 5, warmup=2)
+        print(f"  production end to end (model mixed + CRF) B={BENCH_B}: "
+              f"{ms:.3f} ms/batch, {1e3 * BENCH_B / ms:.1f} img/s [{card}]")
+        pred = Predictor(net, crf=cfg, compute_dtype="mixed")
+        one = img16[:1].cpu().numpy()
+        for _ in range(5):
+            pred(one)
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pred(one)            # returns numpy: includes the device sync
+            lat.append(1e3 * (time.perf_counter() - t0))
+        print(f"  B=1 latency, Predictor(crf=PRODUCTION_CONFIG, mixed), host "
+              f"clock incl. copies: median {sorted(lat)[len(lat) // 2]:.3f} "
+              f"ms, min {min(lat):.3f} ms [{card}]")
+        FM.fused_mbconv.launches = saved["fused_mbconv"]
+        for n in CK.KERNELS:
+            getattr(CK, n).launches = saved[n]
+    run.phase("CRF times", crf_times)
+
     if run.failed:
         print(f"FAILED phases: {run.failed}")
         return 1
-    print(json.dumps({"kernels": [{
+    # launches: from the main path's run; times: per request at B=8
+    launches = crf_report["launches"]
+    line = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "deeplab_tpu_torch/kernels/csrc/fused_mbconv.cu",
         "replaces": "deeplab_tpu/kernels/fused_mbconv.py:121",
-        "launches": kernel_report["launches"],
+        "launches": launches["fused_mbconv"],
         "max_abs_err": kernel_report["max_abs_err"],
         "ms": kernel_report["ms"], "plain_ms": kernel_report["plain_ms"],
         "bound_ms": kernel_report["bound_ms"],
-        "bound_by": kernel_report["bound_by"], "library_ms": None}]}))
+        "bound_by": kernel_report["bound_by"], "library_ms": None}]
+    for n in CK.KERNELS:
+        rep = crf_report[n]
+        line.append({
+            "name": n, "route": "cuda",
+            "source": "deeplab_tpu_torch/kernels/csrc/crf_fused.cu",
+            "replaces": f"deeplab_tpu/kernels/crf_fused.py:{CRF_REPLACES[n]}",
+            "launches": launches[n], "max_abs_err": rep["max_abs_err"],
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"]})
+    print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,12 @@ module names so that each piece has an obvious counterpart, and imports
 neither ``jax`` nor ``deeplab_tpu``.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 
-Ported so far: the serving main path without post-processing,
-``Predictor(net, crf=None, compute_dtype="mixed")`` over the MobileNetV2
-``SegNet`` with the ``'original'`` head; its 14 stride-1 inverted-residual
-blocks run through the hand-written CUDA kernel ``kernels/csrc/fused_mbconv.cu``.
+Ported so far: the production serving path,
+``Predictor(net, crf=crf.PRODUCTION_CONFIG, compute_dtype="mixed")`` over the
+MobileNetV2 ``SegNet`` with the ``'original'`` head.  Its 14 stride-1
+inverted-residual blocks run through the hand-written CUDA kernel
+``kernels/csrc/fused_mbconv.cu``; the dense CRF's splat, slice, spatial blur
+and mean-field step through ``kernels/csrc/crf_fused.cu``.
 """
 
 from deeplab_tpu_torch.models.seg_model import SegNet

@@ -23,6 +23,9 @@ BUILD_DIR = os.path.join(
     "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+# Per-source flags.  The CRF kernels match their plain versions' f32 rounding
+# points, so a*b + c must not contract into one fused multiply-add.
+SOURCE_FLAGS = {"crf_fused": ["-fmad=false"]}
 
 _LOADED: dict = {}
 
@@ -36,9 +39,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -54,7 +61,8 @@ def _start(name: str):
     log = path + ".log"
     with open(log, "w") as lf:
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+            [_nvcc(), *_flags(name), "-o", tmp,
+             os.path.join(CSRC, name + ".cu")],
             stdout=lf, stderr=subprocess.STDOUT)
     return proc, tmp, path, log
 

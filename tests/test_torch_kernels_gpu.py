@@ -11,12 +11,24 @@ reach the edge handling that the main path's 64x64 and 128x128 maps do not.
 Tolerance: both sides take the same bf16 matmul operands and accumulate in
 f32; a summation-order ulp can flip one bf16-rounded depthwise output
 (2^-8 relative) and bf16 outputs round once more: 2e-2 at outputs of order 1.
+
+The CRF kernels are held to their plain versions on the inputs the main path
+gives them: a CRF run with the plain versions records every call, then each
+kernel runs on the recorded inputs and is compared with the recorded output
+(``crf_fused.plain_versions`` and ``max_err_vs_plain``, as chip_smoke.py
+does; tolerances there: f32 outputs 1e-4 of the largest value, bf16 outputs
+2 bf16 ulps, the step's Q 4 ulps).  The geometries: production (nc 15, stride 2), fast-faithful
+(nc 13, stride 1), throughput (nc 9, stride 4) and faithful (nc 21, whose
+blurred grid is too large for shared memory), with padded cells.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from crf_scenes import make_scene
+from deeplab_tpu_torch import crf as CRF
+from deeplab_tpu_torch.kernels import crf_fused as CK
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
 
 
@@ -72,3 +84,64 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):   # non-contiguous input
         FM.fused_mbconv(x.transpose(1, 2), **w, rate=1, skip=True,
                         mxu_bf16=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,H,W,L", [
+    ("PRODUCTION_CONFIG", 128, 256, 21),
+    ("FAST_FAITHFUL_CONFIG", 80, 120, 11),
+    ("THROUGHPUT_CONFIG", 96, 200, 21),
+    ("FAITHFUL_CONFIG", 64, 256, 21),
+])
+def test_crf_kernels_match_reference(cuda, name, H, W, L):
+    scenes = [make_scene(H, W, L, seed) for seed in (1, 2)]
+    imgs = torch.from_numpy(np.stack([s[0] for s in scenes])).to(cuda)
+    masks = torch.from_numpy(np.stack([s[1] for s in scenes])).to(cuda)
+    with CK.plain_versions() as calls:
+        CRF.mean_field_batched(imgs, masks, getattr(CRF, name), L)
+    for kname in CK.KERNELS:
+        kernel = getattr(CK, kname)
+        assert calls[kname], kname
+        for args, kw, want in calls[kname]:
+            before = kernel.launches
+            got = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            err, ok = CK.max_err_vs_plain(kname, got, want)
+            assert ok, (kname, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", [2.0, 3.0, 6.0])
+def test_blur_kernel_matches_reference_at_each_radius(cuda, sigma):
+    """Radius 5 (odd: the halo tile's row pitch is padded to 4 floats), 8
+    (the main path's) and 15, on 2x2 cells of 64x128 with a ragged L."""
+    taps = tuple(float(t) for t in CRF.dense_crf._gauss_taps(sigma))
+    r = np.random.RandomState(4)
+    B, ny, nx, cs_y, cs_x, L = 2, 2, 2, 64, 128, 7
+    Z, P = ny * nx, cs_y * cs_x
+    q = torch.from_numpy(r.rand(B * Z, L, P).astype(np.float32))
+    gn = torch.from_numpy(0.5 + r.rand(Z, 1, P).astype(np.float32))
+    q, gn = q.to(cuda, torch.bfloat16), gn.to(cuda)
+    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+    before = CK.gaussian_blur_planes.launches
+    got = CK.gaussian_blur_planes(q, gn, **kw)
+    want = CK.gaussian_blur_planes_reference(q, gn, **kw)
+    torch.cuda.synchronize()
+    assert CK.gaussian_blur_planes.launches == before + 1
+    err, ok = CK.max_err_vs_plain("gaussian_blur_planes", got, want)
+    assert ok, (sigma, len(taps), err)
+
+
+@pytest.mark.gpu
+def test_crf_wrappers_raise_instead_of_falling_back(cuda):
+    a = torch.zeros(2, 3, 8 * 128, device=cuda)       # f32: not a Q state
+    gn = torch.ones(1, 1, 8 * 128, device=cuda)
+    with pytest.raises(ValueError):
+        CK.gaussian_blur_planes(a, gn, taps=(0.5, 1.0, 0.5), B=2, ny=1,
+                                nx=1, cs_y=8, cs_x=128)
+    rgb = torch.zeros(4, 3, 64, device=cuda)
+    with pytest.raises(ValueError):                   # bf16 values, f32 grid
+        CK.splat_planes(rgb, torch.zeros(4, 2, 64, device=cuda,
+                                         dtype=torch.bfloat16),
+                        nc=15, L=2, inv_step=1 / 19.5)

@@ -20,6 +20,7 @@ from deeplab_tpu.models.seg_model import SegNet as JSegNet
 from deeplab_tpu.params import load_keras_h5 as jload
 from deeplab_tpu.predictor import Predictor as JPredictor
 
+from deeplab_tpu_torch.crf import CrfConfig
 from deeplab_tpu_torch.models.seg_model import SegNet
 from deeplab_tpu_torch.params import load_keras_h5
 from deeplab_tpu_torch.predictor import Predictor
@@ -56,10 +57,13 @@ def test_predictor_masks_match_jax(tiles, jax_masks, policy, floor):
     assert agree >= floor, agree
 
 
-@pytest.mark.parametrize("kw", [dict(crf=object()), dict(mesh=object()),
-                                dict(spatial=True), dict(return_raw=True),
-                                dict(tta_scales=(0.5, 1.0)),
-                                dict(tta_flip=True)])
+@pytest.mark.parametrize("kw", [
+    dict(mesh=object()), dict(spatial=True), dict(tta_scales=(0.5, 1.0)),
+    dict(tta_flip=True),
+    dict(crf=CrfConfig(resolution_scale=2)),
+    dict(crf=CrfConfig(backend="xla")),
+    # small-sigma cells need the spatial blur's image-layout fallback
+    dict(crf=CrfConfig(sxy_bilateral=16.0))])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError):
         Predictor(SegNet((16, 16), 3), device="cpu", **kw)
