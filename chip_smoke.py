@@ -25,11 +25,26 @@ Phases, each of which fails the run (exit code 1, no result line):
    5; the CRF with the kernels is compared with the CRF with each plain
    version in its kernel's place, and with the exact-oracle goldens
    (tests/goldens/crf) at ``FAST_FAITHFUL_CONFIG``;
-5. times with CUDA events after warm-up: each kernel launch at the main
+5. training: the five phase kernels of the training MBConv block
+   (``fused_mbconv_train``) against their plain versions on every call of a
+   bf16 train step of the full-width 512x512 net at B=2 and at B=16; then
+   ``Trainer(SegNet(512x512, 21), compute_dtype=bfloat16,
+   freeze_before=None).fit`` takes 6 steps on one seeded batch of B=16 with a
+   float32 validation pass after each: every phase's count must rise by
+   exactly 14 per step and the loss fall by at least 10%; one step with the
+   kernels is compared with the same step with each phase's plain version in
+   its kernel's place (loss, every parameter's gradient, BN moving
+   statistics); the trained net serves one request through
+   ``Predictor("mixed")``;
+6. times with CUDA events after warm-up: each kernel launch at the main
    path's shapes beside its bound and its plain version (and, for the blur,
    one depthwise ``F.conv2d``), model-only img/s at B=16 under "mixed" and
    float32, the CRF alone at B=8, production end to end at B=16, and B=1
-   latency with and without the CRF.
+   latency with and without the CRF; each training phase per launch and per
+   step beside its bound and plain version, the train step's img/s at B=16
+   (bf16 with the kernels, bf16 through the plain layer composition, and
+   float32) with its peak device memory, and a ``torch.profiler`` table of
+   the bf16 step.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -85,6 +100,24 @@ CRF_REPLACES = {"splat_planes": 702, "slice_attrs_planes": 890,
 # deeplab_tpu_torch/kernels/crf_fused.py)
 # CRF masks with the kernels vs with the plain versions; oracle goldens
 CRF_PATH_FLOOR, GOLDEN_FLOOR = 0.99, 0.993
+
+TRAIN_B, TRAIN_STEPS, TRAIN_PER_STEP = 16, 6, 14
+TRAIN_LOSS_DROP = 0.10
+# (each training phase against its plain version: the PLAIN_*_REL
+# tolerances of deeplab_tpu_torch/kernels/fused_mbconv_train.py, relative
+# to each output's largest magnitude: bf16 outputs 2 bf16 ulps, f32 1e-3)
+# One bf16 step with the phase kernels against the same step with each
+# phase's plain version in its kernel's place, B=16, same weights, batch and
+# dropout mask.  The two differ per launch by summation order (the
+# tolerances above), and both repeat bit for bit from run to run.  Loss and
+# BN moving statistics (relative to each buffer's largest value) within
+# 1e-2.  Gradients: a seeded net far from its trained regime amplifies
+# bf16-level differences through 17 blocks of batch-statistic BN backward
+# (on the card two correct bf16 implementations differ by O(1) per
+# parameter), so the yardstick is the plain bf16 layer composition's step:
+# the kernel step's norm-relative gradient error per parameter (median, 90th
+# percentile, worst) may be no larger than the composition's.
+TRAIN_LOSS_REL, TRAIN_BN_REL = 1e-2, 1e-2
 
 
 def card_line() -> str:
@@ -249,6 +282,30 @@ def bound_ms(B, H, W, cin, ce, cout, act_bytes):
     return 1e3 * t, ("bytes" if t == t_bytes else "operations")
 
 
+def train_bound_ms(name, args, out):
+    """Least time for one training phase launch: its inputs read once and
+    outputs written once at 3.35 TB/s, against its bf16 tensor-core flops at
+    989 TFLOP/s and its f32 flops at 67 TFLOP/s (taps 18 per value, the
+    affines, masks and sums a few more).  Products: F1 and F2 the expand
+    (2 P Cin Ce); F3 the project (2 P Ce Cout); B2 ddh and dW2 (4 P Ce Cout);
+    B34 the expand it needs, dx and dW1^T (6 P Cin Ce) -- its ddh is an
+    input here, B2 made it."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tensors(args) + tensors(out))
+    first = args[0]
+    P = first.numel() // first.shape[-1]
+    if name in ("f1", "f2", "b34"):
+        cin, ce = args[3].shape if name == "b34" else args[1].shape
+        tc = 2 * P * cin * ce * (3 if name == "b34" else 1)
+    else:
+        ce, cout = args[3].shape if name == "f3" else args[7].shape
+        tc = 2 * P * ce * cout * (2 if name == "b2" else 1)
+    f32 = {"f1": 3, "f2": 25, "f3": 4, "b2": 10, "b34": 50}[name] * P * ce
+    t_b, t_tc, t_f = nbytes / HBM_BYTES_S, tc / BF16_TC_FLOP_S, f32 / F32_FLOP_S
+    t = max(t_b, t_tc, t_f)
+    return 1e3 * t, ("bytes" if t == t_b else "operations")
+
+
 class Run:
     def __init__(self):
         self.failed = []
@@ -278,7 +335,10 @@ def main() -> int:
     from deeplab_tpu_torch.kernels import build
     from deeplab_tpu_torch.kernels import crf_fused as CK
     from deeplab_tpu_torch.kernels import fused_mbconv as FM
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     from deeplab_tpu_torch.models import mobilenetv2 as M
+    from deeplab_tpu_torch.data.generator import ArrayBatcher
+    from deeplab_tpu_torch.train import Trainer
     from deeplab_tpu_torch import core
 
     card = card_line()
@@ -290,20 +350,35 @@ def main() -> int:
     crf_report = {n: {"max_abs_err": 0.0} for n in CK.KERNELS}
     crf_b8 = {}
 
+    train_report = {n: {"max_abs_err": 0.0} for n in FMT.PHASES}
+    train = {}
+
     def zero_counts():
         FM.fused_mbconv.launches = 0
         for n in CK.KERNELS:
             getattr(CK, n).launches = 0
+        for n in FMT.PHASES:
+            getattr(FMT, n).launches = 0
 
     def counts():
         out = {"fused_mbconv": FM.fused_mbconv.launches}
         out.update({n: getattr(CK, n).launches for n in CK.KERNELS})
+        out.update({"train_" + n: getattr(FMT, n).launches
+                    for n in FMT.PHASES})
         return out
+
+    def set_counts(saved):
+        FM.fused_mbconv.launches = saved["fused_mbconv"]
+        for n in CK.KERNELS:
+            getattr(CK, n).launches = saved[n]
+        for n in FMT.PHASES:
+            getattr(FMT, n).launches = saved["train_" + n]
 
     # 1. build --------------------------------------------------------------
     def do_build():
         t0 = time.perf_counter()
-        logs = build.build(["fused_mbconv", "crf_fused"])
+        logs = build.build(["fused_mbconv", "crf_fused",
+                            "fused_mbconv_train"])
         print(f"build seconds: {time.perf_counter() - t0:.2f}")
         for name, log in logs.items():
             for line in log.splitlines():
@@ -462,7 +537,8 @@ def main() -> int:
         outs = [pred(r) for r in reqs]
         got = counts()
         crf_report["launches"] = got
-        want = {"fused_mbconv": FUSED_PER_FORWARD * N_REQUESTS}
+        want = {k: 0 for k in got}
+        want["fused_mbconv"] = FUSED_PER_FORWARD * N_REQUESTS
         want.update({n: k * N_REQUESTS for n, k in CRF_PER_REQUEST.items()})
         print(f"  served {N_REQUESTS} requests of B={SERVE_B} at "
               f"PRODUCTION_CONFIG: launches {got} (want {want})")
@@ -525,7 +601,213 @@ def main() -> int:
     run.phase("main path: Predictor(crf=PRODUCTION_CONFIG, mixed) serving",
               serve_crf)
 
-    # 4. times -----------------------------------------------------------
+    # 5. training ---------------------------------------------------------
+    def train_batch(B, seed):
+        """B seeded 512x512 scenes with their 21-label masks as labels, all
+        weights 1, on the card."""
+        imgs, masks = scene_batch(B, seed, dev)
+        return (imgs, masks.reshape(B, -1, 1).to(torch.int32),
+                torch.ones((B, SIZE * SIZE), device=dev))
+
+    def label(args):
+        return " ".join("x".join(map(str, t.shape)) for t in tensors(args)
+                        if t.dim() >= 2)
+
+    def check_train_kernels():
+        tnet = seeded_net((SIZE, SIZE), SEED + 5, dev)
+        train["net"] = tnet
+        train["init"] = {k: v.clone() for k, v in tnet.state_dict().items()}
+        for B in (2, TRAIN_B):
+            X, Y, SW = train_batch(B, SEED + 400)
+            tr = Trainer(tnet, compute_dtype=torch.bfloat16, device=dev,
+                         verbose=0)
+            tr.setup(tnet)
+            with FMT.plain_versions() as calls:
+                tr.train_step(X, Y, SW)
+            for name in FMT.PHASES:
+                kernel = getattr(FMT, name)
+                assert len(calls[name]) == TRAIN_PER_STEP, len(calls[name])
+                worst = (0.0, 0.0)
+                for args, kw, want in calls[name]:
+                    with torch.no_grad():
+                        got = kernel(*args, **kw)
+                    torch.cuda.synchronize()
+                    err, rel, ok = FMT.max_err_vs_plain(got, want)
+                    if B == 2:
+                        print(f"  {name:4s} B=2 {label(args)}: max_abs "
+                              f"{err:.3e}, rel {rel:.3e} "
+                              f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{name} disagrees at B={B}: "
+                                             f"{label(args)} {err} {rel}")
+                    worst = max(worst, (rel, err))
+                    rep = train_report[name]
+                    rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                print(f"  {name:4s} B={B}: {len(calls[name])} calls within "
+                      f"tolerance (rel: bf16 {FMT.PLAIN_BF16_REL:.4g}, f32 "
+                      f"{FMT.PLAIN_F32_REL}); worst rel {worst[0]:.3e}")
+            if B == TRAIN_B:
+                train["calls"] = calls
+            del calls
+    run.phase("training kernels vs plain versions", check_train_kernels)
+
+    def train_path():
+        tnet = train["net"]
+        tnet.load_state_dict(train["init"])
+        X, Y, SW = train_batch(TRAIN_B, SEED + 500)
+        gen = ArrayBatcher(X.cpu().numpy(), Y.cpu().numpy(), TRAIN_B,
+                           n_classes=CLASSES)
+        tr = Trainer(tnet, epochs=TRAIN_STEPS, compute_dtype=torch.bfloat16,
+                     freeze_before=None, verbose=1)
+        zero_counts()
+        hist = tr.fit(tnet, gen, gen)
+        got = counts()
+        want = {k: 0 for k in got}
+        want.update({"train_" + n: TRAIN_PER_STEP * TRAIN_STEPS
+                     for n in FMT.PHASES})
+        train["launches"] = got
+        print(f"  {TRAIN_STEPS} steps at B={TRAIN_B}: launches {got} "
+              f"(want {want})")
+        assert got == want, (got, want)
+        loss = hist["loss"]
+        drop = 1 - loss[-1] / loss[0]
+        print(f"  loss by step {[round(v, 5) for v in loss]}: fell "
+              f"{drop:.4f} (floor {TRAIN_LOSS_DROP}); val_loss (float32) "
+              f"{[round(v, 5) for v in hist['val_loss']]}")
+        assert drop >= TRAIN_LOSS_DROP
+        assert all(math.isfinite(v) for vs in hist.values() for v in vs)
+
+        # one step with the kernels against the same step with each phase's
+        # plain version in its kernel's place
+        snap = {k: v.clone() for k, v in tnet.state_dict().items()}
+
+        def one_step(plain):
+            tnet.load_state_dict(snap)
+            t = Trainer(tnet, compute_dtype=torch.bfloat16, verbose=0,
+                        seed=SEED)
+            t.setup(tnet)
+            saved = counts()
+            if plain:
+                with FMT.plain_versions():
+                    m = t.train_step(X, Y, SW)
+            else:
+                m = t.train_step(X, Y, SW)
+            set_counts(saved)
+            grads = {n: p.grad.float().clone()
+                     for n, p in tnet.named_parameters()}
+            bufs = {n: b.clone() for n, b in tnet.named_buffers()}
+            return m["loss"].item(), grads, bufs
+        lk, gk, bk = one_step(False)
+        lp, gp, bp = one_step(True)
+        tnet.fuse_blocks = False
+        lc, gc, _ = one_step(False)
+        tnet.fuse_blocks = True
+        tnet.load_state_dict(snap)
+
+        def spread(g):
+            r = sorted(((g[n] - gp[n]).norm()
+                        / gp[n].norm().clamp_min(1e-30)).item() for n in gp)
+            return {"median": r[len(r) // 2], "p90": r[int(0.9 * len(r))],
+                    "worst": r[-1]}
+        sk, sc = spread(gk), spread(gc)
+        loss_rel = abs(lk - lp) / abs(lp)
+        bn_rel = max(((bk[n] - bp[n]).abs().max()
+                      / bp[n].abs().max().clamp_min(1e-30)).item()
+                     for n in bp)
+        head = {n: round(((gk[n] - gp[n]).norm() / gp[n].norm()).item(), 6)
+                for n in gp if n.startswith(("conv_upsample", "concat_proj"))}
+        print(f"  kernel step vs plain-version step (B={TRAIN_B}): loss "
+              f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}, tol "
+              f"{TRAIN_LOSS_REL}); BN moving statistics rel {bn_rel:.3e} (tol "
+              f"{TRAIN_BN_REL}); gradient norm-relative error over "
+              f"{len(gp)} parameters {sk}; the plain bf16 layer composition "
+              f"(loss {lc:.6f}) against the same step: {sc} (the kernel "
+              f"step may stray no further); head layers {head}")
+        assert loss_rel <= TRAIN_LOSS_REL and bn_rel <= TRAIN_BN_REL
+        assert all(sk[k] <= sc[k] for k in sk), (sk, sc)
+
+        pred = Predictor(tnet, compute_dtype="mixed")
+        m = pred(X[:1].cpu().numpy())
+        assert m.shape == (1, SIZE, SIZE) and m.dtype == np.int32
+        assert m.min() >= 0 and m.max() < CLASSES
+        agree = float((m.reshape(-1) == Y[0, :, 0].cpu().numpy()).mean())
+        print(f"  the trained net served one request through "
+              f"Predictor(mixed): {len(np.unique(m))} classes, agreement "
+              f"with its training labels {agree:.4f}")
+        train["batch"] = (X, Y, SW)
+    run.phase("training path: Trainer(bf16).fit, 6 steps at B=16", train_path)
+
+    def train_times():
+        calls = train["calls"]
+        saved = counts()
+        for name in FMT.PHASES:
+            kernel = getattr(FMT, name)
+            ref = getattr(FMT, name + "_reference")
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+            by = {"bytes": 0.0, "operations": 0.0}
+            for args, kw, want in calls[name]:
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+                    plain = cuda_ms(lambda: ref(*args, **kw), 2, warmup=1)
+                bms, bb = train_bound_ms(name, args, want)
+                tot["ms"] += ms
+                tot["plain_ms"] += plain
+                tot["bound_ms"] += bms
+                by[bb] += bms
+                print(f"  {name:4s} {label(args)}: kernel {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms, bound {bms:.4f} ms ({bb}), "
+                      f"{bms / ms:.3f} of bound [{card}]")
+            train_report[name].update(tot)
+            train_report[name]["bound_by"] = max(by, key=by.get)
+            print(f"  {name} per step (14 launches, B={TRAIN_B}): kernel "
+                  f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+                  f"{tot['bound_ms']:.4f} ms [{card}]")
+        del train["calls"]
+
+        tnet = train["net"]
+        X, Y, SW = train["batch"]
+        for what, fuse, dt in (("bf16, block kernels", True, torch.bfloat16),
+                               ("bf16, plain layer composition", False,
+                                torch.bfloat16),
+                               ("float32", False, torch.float32)):
+            tnet.fuse_blocks = fuse
+            t = Trainer(tnet, compute_dtype=dt, verbose=0)
+            t.setup(tnet)
+            t.train_step(X, Y, SW)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: t.train_step(X, Y, SW), 5, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"  train step {what} B={TRAIN_B}: {ms:.3f} ms/step, "
+                  f"{1e3 * TRAIN_B / ms:.1f} img/s, peak device memory "
+                  f"{peak:.2f} GiB [{card}]")
+        tnet.fuse_blocks = True
+        t = Trainer(tnet, compute_dtype=torch.bfloat16, verbose=0)
+        t.setup(tnet)
+        t.train_step(X, Y, SW)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                t.train_step(X, Y, SW)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 2
+        rows = [(e.key, e.self_device_time_total / 2e3, e.count // 2)
+                for e in pr.key_averages()
+                if e.self_device_time_total > 0
+                and str(e.device_type).endswith("CUDA")]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        print(f"  bf16 train step B={TRAIN_B} under torch.profiler: device "
+              f"busy {busy:.3f} ms of {wall:.3f} ms wall (idle share "
+              f"{1 - busy / wall:.3f}) [{card}]")
+        for key, ms_, n in rows[:15]:
+            print(f"    {ms_:8.4f} ms  x{n:<3d} {key[:90]}")
+        set_counts(saved)
+
+    # 6. times -----------------------------------------------------------
     def times():
         gen = torch.Generator().manual_seed(SEED + 4)
         pol = core.resolve_compute_dtype("mixed")
@@ -686,10 +968,9 @@ def main() -> int:
         print(f"  B=1 latency, Predictor(crf=PRODUCTION_CONFIG, mixed), host "
               f"clock incl. copies: median {sorted(lat)[len(lat) // 2]:.3f} "
               f"ms, min {min(lat):.3f} ms [{card}]")
-        FM.fused_mbconv.launches = saved["fused_mbconv"]
-        for n in CK.KERNELS:
-            getattr(CK, n).launches = saved[n]
+        set_counts(saved)
     run.phase("CRF times", crf_times)
+    run.phase("training times", train_times)
 
     if run.failed:
         print(f"FAILED phases: {run.failed}")
@@ -715,6 +996,18 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]})
+    # training phases: launches from the training run, times per step at B=16
+    for n in FMT.PHASES:
+        rep = train_report[n]
+        line.append({
+            "name": f"block_train_{n}", "route": "cuda",
+            "source": "deeplab_tpu_torch/kernels/csrc/fused_mbconv_train.cu",
+            "replaces": "deeplab_tpu/kernels/fused_mbconv_train.py:"
+                        f"{FMT.REPLACES[n]}",
+            "launches": train["launches"]["train_" + n],
+            "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ Ported so far: the production serving path,
 MobileNetV2 ``SegNet`` with the ``'original'`` head.  Its 14 stride-1
 inverted-residual blocks run through the hand-written CUDA kernel
 ``kernels/csrc/fused_mbconv.cu``; the dense CRF's splat, slice, spatial blur
-and mean-field step through ``kernels/csrc/crf_fused.cu``.
+and mean-field step through ``kernels/csrc/crf_fused.cu``.  And training on
+one GPU, ``train.Trainer``: under bf16 the same 14 blocks run forward and
+backward through the five phase kernels of
+``kernels/csrc/fused_mbconv_train.cu``.
 """
 
 from deeplab_tpu_torch.models.seg_model import SegNet

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout (listed in
-``.gitignore``), at first use, for ``sm_90a``.  The hash covers the source
-and the flags, so an edited source rebuilds.  Nothing here runs at import
+``.gitignore``), at first use, for ``sm_90a``.  The hash covers the source,
+every header of ``csrc/`` and the flags, so an edited source or shared
+header rebuilds.  Nothing here runs at import
 time: the CPU tests import every module of the port on a machine without
 ``nvcc``.
 """
@@ -25,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 # Per-source flags.  The CRF kernels match their plain versions' f32 rounding
 # points, so a*b + c must not contract into one fused multiply-add.
-SOURCE_FLAGS = {"crf_fused": ["-fmad=false"]}
+SOURCE_FLAGS = {"crf_fused": ["-fmad=false"],
+                "fused_mbconv_train": ["-fmad=false"]}
 
 _LOADED: dict = {}
 
@@ -44,8 +46,11 @@ def _flags(name: str) -> list:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_flags(name)).encode())
+    digest = hashlib.sha1(" ".join(_flags(name)).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

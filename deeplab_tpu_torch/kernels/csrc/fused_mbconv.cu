@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int TH = 8, TW = 8, NO = TH * TW;  // output tile (pixels)
@@ -92,25 +94,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 __device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
 
-__device__ __forceinline__ float relu6(float v) { return fminf(fmaxf(v, 0.f), 6.f); }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A(16x16, row) * B(16x8, col); bf16 operands, f32 accumulate.
-// Fragments (g = lane/4, t = lane%4):
-//   a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
-//   d0,d1 (g, 2t..2t+1)  d2,d3 (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mbconv::ld32;
+using mbconv::mma16816;
+using mbconv::relu6;
 
 // NT: project n-tiles (of 8 output channels) per warp; 8 warps = 4 m-tiles
 // (16 pixels each) x 2 interleaved n-tile groups.

@@ -1,8 +1,9 @@
 """DeepLabV3+ graph, MobileNetV2 branch (deeplab_tpu/models/deeplabv3p.py).
 
 Input contract: raw 0-255 float BGR, normalized in-graph to ``x/127.5 - 1``.
-The Xception trunk, its three atrous SepConv ASPP branches and the decoder
-are a later slice.
+In training, dropout 0.1 follows ASPP, drawn from an explicit
+``torch.Generator`` on the device.  The Xception trunk, its three atrous
+SepConv ASPP branches and the decoder are a later slice.
 """
 
 from __future__ import annotations
@@ -43,13 +44,28 @@ def aspp(net, x, policy, input_hw):
         net.concat_projection(x, policy)))
 
 
-def deeplabv3_forward(net, img, policy):
+def dropout(x, rate: float, gen):
+    """Training-mode dropout (JAX ``deeplabv3p.dropout``): keep each value
+    with probability ``1 - rate`` and scale it by ``1/(1 - rate)``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def deeplabv3_forward(net, img, policy, gen=None):
     """NHWC BGR 0-255 ``img`` -> NCHW features at output stride 8: the JAX
     ``deeplabv3_forward(..., return_features=True)``, i.e. the post-Dropout
-    ASPP projection where SegNet truncates the graph (eval-mode dropout is
-    the identity).  The 21-class ``logits_semantic`` head is not ported."""
+    ASPP projection where SegNet truncates the graph.  Dropout acts in
+    training mode only, with ``gen``; in eval mode it is the identity.  The
+    21-class ``logits_semantic`` head is not ported."""
     input_hw = (img.shape[1], img.shape[2])
     x = img.to(policy.dtype) / 127.5 - 1.0
     x = x.permute(0, 3, 1, 2)          # NCHW view, channels-last memory
     x = mobilenetv2.backbone(net, x, policy)
-    return aspp(net, x, policy, input_hw)
+    x = aspp(net, x, policy, input_hw)
+    if net.training:
+        if gen is None:
+            raise ValueError("a training forward needs a torch.Generator "
+                             "for dropout")
+        x = dropout(x, 0.1, gen)
+    return x

@@ -2,7 +2,12 @@
 
 17 inverted-residual blocks at output stride 8: blocks 7-12 run at rate 2
 and 14-16 at rate 4 instead of striding.  Layer names match the Keras graph
-exactly (the weight contract), as submodule names of the network.
+exactly (the weight contract), as submodule names of the network.  Every BN
+of the trunk has eps 1e-3 and momentum 0.999.
+
+The 14 stride-1 blocks with an expand conv (ids 2, 4-16) take a fused path:
+``fused_mbconv`` in eval mode, ``fused_mbconv_train.block_train`` in bf16
+training (each behind the JAX package's gate).
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
+from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.conv import Conv2D, DepthwiseConv2D, relu6
 
@@ -55,19 +61,20 @@ def build_backbone(add, gen, alpha: float = 1.0) -> int:
     output channel count."""
     c = make_divisible(32 * alpha, 8)
     add("Conv", Conv2D(3, c, 3, stride=2, gen=gen))
-    add("Conv_BN", BatchNorm(c, 1e-3, gen))
+    bn = lambda ch: BatchNorm(ch, 1e-3, gen, momentum=0.999)
+    add("Conv_BN", bn(c))
     for filters, stride, expansion, block_id, _, rate in BLOCK_TABLE:
         p = _prefix(block_id)
         ce = c
         if block_id:
             ce = expansion * c
             add(p + "expand", Conv2D(c, ce, 1, gen=gen))
-            add(p + "expand_BN", BatchNorm(ce, 1e-3, gen))
+            add(p + "expand_BN", bn(ce))
         add(p + "depthwise", DepthwiseConv2D(ce, 3, stride, rate, gen=gen))
-        add(p + "depthwise_BN", BatchNorm(ce, 1e-3, gen))
+        add(p + "depthwise_BN", bn(ce))
         c = make_divisible(int(filters * alpha), 8)
         add(p + "project", Conv2D(ce, c, 1, gen=gen))
-        add(p + "project_BN", BatchNorm(c, 1e-3, gen))
+        add(p + "project_BN", bn(c))
     return c
 
 
@@ -88,6 +95,8 @@ def inverted_res_block(net, x, policy, stride: int, block_id: int,
     p = _prefix(block_id)
     if _use_fused_block(net, x, policy, stride, block_id):
         return FM.fused_block_apply(net, x, p, rate, skip, policy)
+    if FMT.use_fused_train_block(net, x, policy, stride, block_id, p):
+        return FMT.fused_train_block_apply(net, x, p, rate, skip, policy)
     inputs = x
     if block_id:
         x = relu6(getattr(net, p + "expand_BN")(

@@ -45,10 +45,26 @@ class SegNet(nn.Module):
         # fused kernel; 1x1 convs are then (pixels x C) products
         self.to(memory_format=torch.channels_last)
 
-    def _logits_nchw(self, img, policy):
-        feats = deeplabv3p.deeplabv3_forward(self, img, policy)
+    @property
+    def layer_order(self):
+        """Layer names in Keras graph order (JAX ``SegNet.layer_order``),
+        which the freeze policy counts from."""
+        return tuple(name for name, _ in self.named_children())
+
+    def _logits_nchw(self, img, policy, gen=None):
+        feats = deeplabv3p.deeplabv3_forward(self, img, policy, gen)
         x = self.conv_upsample(feats, policy)
         return resize_bilinear_tf1(x, self.sz)
+
+    def apply_logits(self, img: torch.Tensor, compute_dtype="float32",
+                     gen=None):
+        """(B, H, W, 3) BGR 0-255 -> (B, H, W, n) head logits in the compute
+        dtype, under autograd (JAX ``SegNet.apply_logits``).  In training
+        mode BN uses batch statistics and updates its moving statistics,
+        and dropout draws from ``gen``."""
+        policy = core.resolve_compute_dtype(compute_dtype)
+        with core.precision_flags(policy):
+            return self._logits_nchw(img, policy, gen).permute(0, 2, 3, 1)
 
     @torch.inference_mode()
     def logits(self, img: torch.Tensor, compute_dtype="float32"):

@@ -1,8 +1,15 @@
-"""Eval-mode BatchNormalization with Keras semantics (deeplab_tpu/ops/bn.py).
+"""BatchNormalization with Keras semantics (deeplab_tpu/ops/bn.py).
 
-Per-layer epsilon: 1e-3 in the MobileNetV2 trunk, 1e-5 in ASPP.  ``gamma`` and
-``beta`` are parameters; the moving statistics are buffers.  Training-mode
-BN (batch statistics, the momentum-0.999 EMA) belongs to the training slice.
+Per-layer epsilon and momentum: eps 1e-3 and momentum 0.999 in the
+MobileNetV2 trunk, eps 1e-5 and the Keras default momentum 0.99 in ASPP.
+``gamma`` and ``beta`` are parameters; the moving statistics are buffers.
+
+Eval mode normalizes with the moving statistics.  Training mode normalizes
+with the batch mean and biased variance (f32) and updates the moving
+statistics as ``moving*momentum + batch*(1 - momentum)``.  A frozen layer
+(``frozen = True``, set by the Trainer's freeze policy) normalizes with its
+moving statistics and leaves them alone, as Keras does for
+``trainable=False``.  The affine is rounded to the activation dtype.
 """
 
 from __future__ import annotations
@@ -20,19 +27,33 @@ def bn_scale_shift(bn: "BatchNorm"):
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, channels: int, eps: float = 1e-3, gen=None):
+    frozen = False
+
+    def __init__(self, channels: int, eps: float = 1e-3, gen=None,
+                 momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.gamma = nn.Parameter(inits.ones(gen, (channels,)))
         self.beta = nn.Parameter(inits.zeros(gen, (channels,)))
         self.register_buffer("moving_mean", torch.zeros(channels))
         self.register_buffer("moving_variance", torch.ones(channels))
 
+    @torch.no_grad()
+    def update_moving(self, mean, var):
+        m = self.momentum
+        self.moving_mean.copy_(self.moving_mean * m + mean * (1.0 - m))
+        self.moving_variance.copy_(self.moving_variance * m + var * (1.0 - m))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: NCHW.  Normalizes with the moving statistics."""
-        if self.training:
-            raise NotImplementedError("training-mode BatchNorm is not ported "
-                                      "yet (training slice); call .eval()")
-        scale, shift = bn_scale_shift(self)
+        """x: NCHW."""
+        if self.training and not self.frozen:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            self.update_moving(mean.detach(), var.detach())
+            scale = self.gamma * torch.rsqrt(var + self.eps)
+            shift = self.beta - mean * scale
+        else:
+            scale, shift = bn_scale_shift(self)
         return (x * scale.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])

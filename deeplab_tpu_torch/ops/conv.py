@@ -9,7 +9,8 @@ and (kh, kw, C, 1) on load.
 Precision (core.Policy): float32 convs run in f32; under "mixed" both
 operands are rounded to bf16 and the conv runs in f32 (f32 accumulation and
 output, like JAX's DEFAULT-precision f32 conv); under bfloat16 the conv takes
-and returns bf16.
+and returns bf16, also under autograd (its gradient reaches the f32 kernel
+through the cast).
 """
 
 from __future__ import annotations
@@ -67,10 +68,18 @@ def depthwise_conv2d(x, kernel, policy: Policy, stride: int = 1,
 
 
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    """``min(relu(x), 6)`` with JAX's derivative: 0 at 0 (relu) and 1/2 at
+    exactly 6 (``jnp.minimum`` splits a tie; ``torch.minimum`` does too,
+    while ``torch.clamp`` would pass 1 at both ends).  In bf16 an activation
+    of exactly 6.0 is common.  Without autograd, the one-pass clamp."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, 0.0, 6.0)
+    return torch.minimum(torch.relu(x), x.new_tensor(6.0))
 
 
 class Conv2D(nn.Module):
+    frozen = False   # set by the Trainer's freeze policy (read by the gates)
+
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
                  rate: int = 1, use_bias: bool = False, gen=None):
         super().__init__()
@@ -86,6 +95,8 @@ class Conv2D(nn.Module):
 
 
 class DepthwiseConv2D(nn.Module):
+    frozen = False
+
     def __init__(self, channels: int, kernel_size: int = 3, stride: int = 1,
                  rate: int = 1, gen=None):
         super().__init__()

@@ -8,7 +8,8 @@ is a walk over names that converts two layouts on the way:
 - ``depthwise_kernel``: Keras (kh, kw, C, 1) -> (C, 1, kh, kw).
 
 ``moving_mean`` and ``moving_variance`` land in BN buffers, the rest in
-parameters.
+parameters.  ``trees_from_net`` is the way back: the net's parameters and
+buffers (or its gradients) as Keras-layout trees.
 """
 
 from __future__ import annotations
@@ -24,6 +25,29 @@ def _to_port_layout(var: str, arr: np.ndarray) -> torch.Tensor:
     if var == "depthwise_kernel":
         return t.permute(2, 3, 0, 1)
     return t
+
+
+def to_keras_layout(var: str, t: torch.Tensor) -> np.ndarray:
+    """The inverse of ``_to_port_layout``: a float32 numpy array in the
+    Keras layout."""
+    t = t.detach().float().cpu()
+    if var == "kernel":
+        t = t.permute(2, 3, 1, 0)
+    elif var == "depthwise_kernel":
+        t = t.permute(2, 3, 0, 1)
+    return np.ascontiguousarray(t.numpy())
+
+
+def trees_from_net(net):
+    """``(params, state)`` of ``net`` as ``{layer: {var: ndarray}}`` trees
+    in the Keras layouts (the JAX package's trees)."""
+    params, state = {}, {}
+    for layer, mod in net.named_children():
+        for var, p in mod.named_parameters(recurse=False):
+            params.setdefault(layer, {})[var] = to_keras_layout(var, p)
+        for var, b in mod.named_buffers(recurse=False):
+            state.setdefault(layer, {})[var] = to_keras_layout(var, b)
+    return params, state
 
 
 def _assign(net, trees, strict: bool) -> int:

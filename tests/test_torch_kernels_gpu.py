@@ -145,3 +145,73 @@ def test_crf_wrappers_raise_instead_of_falling_back(cuda):
         CK.splat_planes(rgb, torch.zeros(4, 2, 64, device=cuda,
                                          dtype=torch.bfloat16),
                         nc=15, L=2, inv_step=1 / 19.5)
+
+
+def _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W, B=2, seed=5):
+    """Run one training block forward and backward with the plain versions
+    on ``dev``; returns the recorded {phase: [(args, kw, out)]}."""
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    r = np.random.RandomState(seed)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (r.randn(*s) * sc).astype(np.float32)).to(dev)
+    x = t(B, H, W, Cin).to(torch.bfloat16).requires_grad_()
+    w = [t(Cin, Ce, sc=0.3), 1 + t(Ce, sc=0.1), t(Ce, sc=0.1),
+         t(9, Ce, sc=0.3), 1 + t(Ce, sc=0.1), t(Ce, sc=0.1),
+         t(Ce, Cout, sc=0.2), 1 + t(Cout, sc=0.1), t(Cout, sc=0.1)]
+    w = [v.requires_grad_() for v in w]
+    with FMT.plain_versions() as calls:
+        out, _ = FMT.block_train(x, *w, rate=rate, skip=skip)
+        (out.float() * t(B, H, W, Cout)).sum().backward()
+    return calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate,skip,Cin,Ce,Cout,H,W", [
+    (1, True, 24, 144, 24, 20, 36),    # ragged tiles and pixel groups
+    (2, False, 32, 200, 64, 16, 13),   # Ce not a multiple of the chunk
+    (4, True, 16, 96, 16, 8, 8),       # halo wider than the map
+    (4, False, 160, 960, 320, 16, 16),  # the widest block of the net
+])
+def test_train_phase_kernels_match_reference(cuda, rate, skip, Cin, Ce, Cout,
+                                             H, W):
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    calls = _train_block_calls(cuda, rate, skip, Cin, Ce, Cout, H, W)
+    for name in FMT.PHASES:
+        kernel = getattr(FMT, name)
+        assert len(calls[name]) == 1, name
+        args, kw, want = calls[name][0]
+        before = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err, rel, ok = FMT.max_err_vs_plain(got, want)
+        assert ok, (name, err, rel)
+
+
+@pytest.mark.gpu
+def test_train_phase_sums_repeat_bit_for_bit(cuda):
+    """Per-block partials and a fixed-order second pass: no atomics."""
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    calls = _train_block_calls(cuda, 2, True, 32, 192, 32, 24, 24)
+    for name in ("f1", "b2", "b34"):
+        args, kw, _ = calls[name][0]
+        a = getattr(FMT, name)(*args, **kw)
+        b = getattr(FMT, name)(*args, **kw)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), name
+
+
+@pytest.mark.gpu
+def test_train_wrappers_raise_instead_of_falling_back(cuda):
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    x = torch.zeros(2, 8, 8, 16, device=cuda)              # f32: no kernel
+    w1 = torch.zeros(16, 96, device=cuda, dtype=torch.bfloat16)
+    before = FMT.f1.launches
+    with pytest.raises(ValueError):
+        FMT.f1(x, w1)
+    with pytest.raises(ValueError):                         # Cin not x8
+        FMT.f1(torch.zeros(2, 8, 8, 12, device=cuda, dtype=torch.bfloat16),
+               torch.zeros(12, 96, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                         # non-contiguous
+        FMT.f1(x.to(torch.bfloat16).transpose(1, 2), w1)
+    assert FMT.f1.launches == before
