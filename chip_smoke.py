@@ -25,7 +25,23 @@ Phases, each of which fails the run (exit code 1, no result line):
    5; the CRF with the kernels is compared with the CRF with each plain
    version in its kernel's place, and with the exact-oracle goldens
    (tests/goldens/crf) at ``FAST_FAITHFUL_CONFIG``;
-5. training: the five phase kernels of the training MBConv block
+5. the Xception path: ``fused_sepconv`` against its plain version at every
+   distinct shape of the output-stride-16 512x512 net, under "mixed" and
+   bf16 at B=2 and "mixed" at B=8;
+   ``Predictor(SegNet(512x512, 21, "xception", OS=16), "mixed")`` with
+   seeded weights serves 3 requests of 8 images: ``fused_sepconv``'s count
+   must rise by exactly 65 per forward and no other kernel's; the logits
+   are compared with the same forward with the plain version in the
+   kernel's place, with the plain layer composition and with float32; one
+   request through ``Predictor(..., crf=PRODUCTION_CONFIG)`` (sepconv 65,
+   splat 6, slice_attrs 1, blur 5, mf_step 5); then
+   ``Predictor(SegNet(512x512, 21, "mobilenetv2", "subpixel"), "mixed")``
+   serves one request of 8 (``fused_mbconv`` 14), its logits against the
+   plain-version forward; then, with CUDA events, ``fused_sepconv`` per
+   Xception forward at B=8 (each launch shape beside its bound and plain
+   version) and the Xception net's model-only img/s at B=16 under "mixed"
+   with the kernel, through the plain composition, and in float32;
+6. training: the five phase kernels of the training MBConv block
    (``fused_mbconv_train``) against their plain versions on every call of a
    bf16 train step of the full-width 512x512 net at B=2 and at B=16; then
    ``Trainer(SegNet(512x512, 21), compute_dtype=bfloat16,
@@ -36,7 +52,7 @@ Phases, each of which fails the run (exit code 1, no result line):
    its kernel's place (loss, every parameter's gradient, BN moving
    statistics); the trained net serves one request through
    ``Predictor("mixed")``;
-6. times with CUDA events after warm-up: each kernel launch at the main
+7. times with CUDA events after warm-up: each kernel launch at the main
    path's shapes beside its bound and its plain version (and, for the blur,
    one depthwise ``F.conv2d``), model-only img/s at B=16 under "mixed" and
    float32, the CRF alone at B=8, production end to end at B=16, and B=1
@@ -90,6 +106,18 @@ KERNEL_PATH_REL_TOL, KERNEL_PATH_FLOOR = 0.05, 0.95
 LOGITS_REL_TOL, ARGMAX_FLOOR, F32_AGREE_MARGIN = 0.5, 0.8, 0.02
 # float32 port on the card (TF32 off) vs on the CPU: summation order only
 F32_REL_TOL = 1e-4
+
+# the Xception path: eval-mode stride-1 SepConv_BNs per forward at OS 16
+XCEPTION_OS, SEPCONV_PER_FORWARD = 16, 65
+# Xception kernel path vs the same forward with the plain version in the
+# kernel's place: the per-launch differences of KERNEL_REL_TOL carried
+# through 65 layers (as KERNEL_PATH_* for the 14 MBConv blocks).  Against
+# float32: the kernel path rounds the BN-folded pointwise weights and the f32
+# depthwise output to bf16, the composition rounds the raw weights and both
+# convs' inputs; neither is ordered before the other, so the kernel path may
+# be at most 1.5x as far from float32 as the composition (max |error|) and
+# trail its argmax agreement with float32 by at most F32_AGREE_MARGIN.
+SEPCONV_F32_RATIO = 1.5
 
 CRF_PER_REQUEST = {"splat_planes": 6, "slice_attrs_planes": 1,
                    "gaussian_blur_planes": 5, "mf_step_planes": 5}
@@ -222,15 +250,23 @@ def crf_bound_ms(CK, name, args, kw, out):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def seeded_net(image_size, seed, device):
+def seeded_net(image_size, seed, device, backbone="mobilenetv2",
+               head="original", OS=16, var_floor=1e-3):
     """Full-width SegNet with seeded weights and non-trivial BN statistics.
     Glorot weights alone shrink the signal through 60 layers, so each BN
     takes its moving statistics from its own input on one seeded batch
-    (layer by layer, in one forward) times a seeded jitter, and seeded
-    gamma/beta: every layer then carries activations of order 1."""
+    (layer by layer, in one forward), the variance times a seeded jitter
+    plus ``var_floor``, and seeded gamma/beta: every layer then carries
+    activations of order 1.  The Xception net takes a floor of 0.1: its
+    SepConvs ReLU their input, channels that are nearly constant on the
+    batch are common, and a BN that scales one up by 1/sqrt(1e-3) through
+    65 such layers turns bf16 rounding into O(1) differences between any two
+    correct paths (measured: two paths that differ only in summation order
+    disagreed on 16% of the argmax)."""
     from deeplab_tpu_torch import SegNet
     from deeplab_tpu_torch.ops.bn import BatchNorm
-    net = SegNet(image_size, CLASSES, seed=seed, fuse_blocks=False)
+    net = SegNet(image_size, CLASSES, backbone, head, OS=OS, seed=seed,
+                 fuse_blocks=False)
     gen = torch.Generator().manual_seed(seed + 1)
     bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
     with torch.no_grad():
@@ -246,7 +282,7 @@ def seeded_net(image_size, seed, device):
         x = args[0].float()
         bn.moving_mean.copy_(x.mean(dim=(0, 2, 3)))
         bn.moving_variance.copy_(x.var(dim=(0, 2, 3), unbiased=False)
-                                 * jitter[bn].to(x.device) + 1e-3)
+                                 * jitter[bn].to(x.device) + var_floor)
 
     hooks = [bn.register_forward_pre_hook(calibrate) for bn in bns]
     img = torch.rand((2,) + tuple(image_size) + (3,), generator=gen) * 255
@@ -279,6 +315,20 @@ def bound_ms(B, H, W, cin, ce, cout, act_bytes):
     t_tc = 2 * px * (cin * ce + ce * cout) / BF16_TC_FLOP_S
     t_fp32 = 18 * px * ce / F32_FLOP_S
     t = max(t_bytes, t_tc, t_fp32)
+    return 1e3 * t, ("bytes" if t == t_bytes else "operations")
+
+
+def sepconv_bound_ms(B, H, W, cin, cout, act_bytes):
+    """Least time for one fused_sepconv launch: the activations read and
+    written once, the folded weights read once, at 3.35 TB/s, against the
+    pointwise's 2 px Cin Cout bf16 tensor-core flops at 989 TFLOP/s and the
+    depthwise's 18 px Cin f32 flops at 67 TFLOP/s."""
+    px = B * H * W
+    bytes_ = px * (cin + cout) * act_bytes + 2 * cin * cout + 4 * (10 * cin
+                                                                   + cout)
+    t_bytes = bytes_ / HBM_BYTES_S
+    t = max(t_bytes, 2 * px * cin * cout / BF16_TC_FLOP_S,
+            18 * px * cin / F32_FLOP_S)
     return 1e3 * t, ("bytes" if t == t_bytes else "operations")
 
 
@@ -353,15 +403,20 @@ def main() -> int:
     train_report = {n: {"max_abs_err": 0.0} for n in FMT.PHASES}
     train = {}
 
+    sepconv_report = {}
+    xc = {}
+
     def zero_counts():
         FM.fused_mbconv.launches = 0
+        FM.fused_sepconv.launches = 0
         for n in CK.KERNELS:
             getattr(CK, n).launches = 0
         for n in FMT.PHASES:
             getattr(FMT, n).launches = 0
 
     def counts():
-        out = {"fused_mbconv": FM.fused_mbconv.launches}
+        out = {"fused_mbconv": FM.fused_mbconv.launches,
+               "fused_sepconv": FM.fused_sepconv.launches}
         out.update({n: getattr(CK, n).launches for n in CK.KERNELS})
         out.update({"train_" + n: getattr(FMT, n).launches
                     for n in FMT.PHASES})
@@ -369,6 +424,7 @@ def main() -> int:
 
     def set_counts(saved):
         FM.fused_mbconv.launches = saved["fused_mbconv"]
+        FM.fused_sepconv.launches = saved["fused_sepconv"]
         for n in CK.KERNELS:
             getattr(CK, n).launches = saved[n]
         for n in FMT.PHASES:
@@ -378,7 +434,7 @@ def main() -> int:
     def do_build():
         t0 = time.perf_counter()
         logs = build.build(["fused_mbconv", "crf_fused",
-                            "fused_mbconv_train"])
+                            "fused_mbconv_train", "fused_sepconv"])
         print(f"build seconds: {time.perf_counter() - t0:.2f}")
         for name, log in logs.items():
             for line in log.splitlines():
@@ -462,6 +518,9 @@ def main() -> int:
     run.phase("CRF kernels vs plain versions", check_crf_kernels)
 
     # 3. the main path ---------------------------------------------------
+    def agree(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
     def serve():
         gen = torch.Generator().manual_seed(SEED + 3)
         reqs = [(torch.rand((SERVE_B, SIZE, SIZE, 3), generator=gen) * 255)
@@ -496,7 +555,6 @@ def main() -> int:
             f32 = net.logits(img, "float32").float()
         finally:
             net.fuse_blocks = True
-        agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()
         scale = f32.abs().max().item()
         err_k = (fused - in_situ).abs().max().item()
         err_p = (fused - plain).abs().max().item()
@@ -601,7 +659,236 @@ def main() -> int:
     run.phase("main path: Predictor(crf=PRODUCTION_CONFIG, mixed) serving",
               serve_crf)
 
-    # 5. training ---------------------------------------------------------
+    # 5. the Xception path and the subpixel head --------------------------
+    def record_sepconv(xnet, img, policy):
+        """Every fused_sepconv call of one forward, with the plain version
+        in the kernel's place: {(Cin, Cout, rate, H, W, pre_relu, act):
+        [weights, keyword arguments, calls]} in graph order."""
+        calls = {}
+        kernel = FM.fused_sepconv
+
+        def record(x, *w, **kw):
+            _, H, W, cin = x.shape
+            key = (cin, w[2].shape[1], kw["rate"], H, W, kw["pre_relu"],
+                   kw["act_out"])
+            calls.setdefault(key, [w, kw, 0])[2] += 1
+            return FM.fused_sepconv_reference(x, *w, **kw)
+        FM.fused_sepconv = record
+        try:
+            xnet.logits(img, policy)
+        finally:
+            FM.fused_sepconv = kernel
+        return calls
+
+    def sepconv_label(key):
+        cin, cout, rate, H, W, pre, act = key
+        return (f"{cin}->{cout} rate {rate} {H}x{W} pre_relu {int(pre)} "
+                f"act {int(act)}")
+
+    def xception_setup():
+        xnet = seeded_net((SIZE, SIZE), SEED + 6, dev, "xception",
+                          "original", XCEPTION_OS, var_floor=0.1)
+        gen = torch.Generator(dev).manual_seed(SEED + 7)
+        img = torch.rand((2, SIZE, SIZE, 3), generator=gen, device=dev) * 255
+        calls = record_sepconv(xnet, img, "mixed")
+        n = sum(c[2] for c in calls.values())
+        print(f"  {len(calls)} distinct fused_sepconv shapes, {n} calls per "
+              f"forward (want {SEPCONV_PER_FORWARD}):")
+        for key, c in calls.items():
+            print(f"    {sepconv_label(key)} x{c[2]}")
+        assert n == SEPCONV_PER_FORWARD, n
+        xc.update(net=xnet, calls=calls)
+    run.phase(f"seeded 512x512 Xception net (OS {XCEPTION_OS})",
+              xception_setup)
+
+    def check_sepconv():
+        gen = torch.Generator(dev).manual_seed(SEED + 8)
+        worst = 0.0
+        for pol_name, B in (("mixed", 2), ("bfloat16", 2),
+                            ("mixed", SERVE_B)):
+            pol = core.resolve_compute_dtype(pol_name)
+            for key, (w, kw, _) in xc["calls"].items():
+                cin, _, _, H, W = key[:5]
+                x = torch.randn((B, H, W, cin), generator=gen,
+                                device=dev).to(pol.dtype)
+                kw = dict(kw, mxu_bf16=pol.mxu_bf16)
+                got = FM.fused_sepconv(x, *w, **kw)
+                ref = FM.fused_sepconv_reference(x, *w, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                rel = err / max(scale, 1e-30)
+                tol = KERNEL_REL_TOL[pol_name]
+                ok = math.isfinite(err) and rel <= tol
+                print(f"  {pol_name:8s} {sepconv_label(key)} B={B}: max_abs "
+                      f"{err:.3e} max|ref| {scale:.3e} rel {rel:.3e} (tol "
+                      f"{tol}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"fused_sepconv disagrees at {key}")
+                worst = max(worst, err)
+        sepconv_report["max_abs_err"] = worst
+    run.phase("fused_sepconv vs plain version", check_sepconv)
+
+    def serve_xception():
+        xnet = xc["net"]
+        gen = torch.Generator().manual_seed(SEED + 9)
+        reqs = [(torch.rand((SERVE_B, SIZE, SIZE, 3), generator=gen) * 255)
+                .numpy() for _ in range(N_REQUESTS)]
+        pred = Predictor(xnet, compute_dtype="mixed")
+        zero_counts()
+        masks = [pred(r) for r in reqs]
+        got = counts()
+        sepconv_report["launches"] = got["fused_sepconv"]
+        want = {k: 0 for k in got}
+        want["fused_sepconv"] = SEPCONV_PER_FORWARD * N_REQUESTS
+        print(f"  served {N_REQUESTS} requests of B={SERVE_B}: launches "
+              f"{got} (want {want})")
+        assert got == want, (got, want)
+        for m in masks:
+            assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
+            assert m.min() >= 0 and m.max() < CLASSES
+        print(f"  classes present in the masks: "
+              f"{len(np.unique(np.concatenate(masks)))}")
+
+        img = torch.from_numpy(reqs[0]).to(dev)
+        fused = xnet.logits(img, "mixed").float()
+        assert torch.isfinite(fused).all()
+        kernel = FM.fused_sepconv
+        FM.fused_sepconv = FM.fused_sepconv_reference
+        try:
+            in_situ = xnet.logits(img, "mixed").float()
+        finally:
+            FM.fused_sepconv = kernel
+        xnet.fuse_blocks = False
+        try:
+            plain = xnet.logits(img, "mixed").float()
+            f32 = xnet.logits(img, "float32").float()
+        finally:
+            xnet.fuse_blocks = True
+        scale = f32.abs().max().item()
+        err_k = (fused - in_situ).abs().max().item()
+        err_kf = (fused - f32).abs().max().item()
+        err_pf = (plain - f32).abs().max().item()
+        print(f"  B={SERVE_B}, mixed, max|logit| {scale:.4e}:")
+        print(f"    kernel path vs plain version in its place: max_abs "
+              f"{err_k:.4e} (rel tol {KERNEL_PATH_REL_TOL}), argmax agreement "
+              f"{agree(fused, in_situ):.5f} (floor {KERNEL_PATH_FLOOR})")
+        print(f"    against float32: kernel path max_abs {err_kf:.4e}, "
+              f"argmax agreement {agree(fused, f32):.5f}; plain composition "
+              f"max_abs {err_pf:.4e}, agreement {agree(plain, f32):.5f} "
+              f"(kernel path at most {SEPCONV_F32_RATIO}x as far, agreement "
+              f"trailing by at most {F32_AGREE_MARGIN})")
+        assert err_k <= KERNEL_PATH_REL_TOL * scale
+        assert agree(fused, in_situ) >= KERNEL_PATH_FLOOR
+        assert err_kf <= SEPCONV_F32_RATIO * err_pf
+        assert agree(fused, f32) >= agree(plain, f32) - F32_AGREE_MARGIN
+
+        # one request through the production CRF: the CRF is net-agnostic
+        pred = Predictor(xnet, crf=CRF.PRODUCTION_CONFIG,
+                         compute_dtype="mixed", return_raw=True)
+        req = scene_batch(SERVE_B, SEED + 600, "cpu")[0].numpy()
+        zero_counts()
+        raw, refined = pred(req)
+        got = counts()
+        want = {k: 0 for k in got}
+        want["fused_sepconv"] = SEPCONV_PER_FORWARD
+        want.update(CRF_PER_REQUEST)
+        print(f"  one request of B={SERVE_B} at PRODUCTION_CONFIG: launches "
+              f"{got} (want {want}); the CRF changed "
+              f"{(raw != refined).mean():.4f} of the pixels")
+        assert got == want, (got, want)
+        for m in (raw, refined):
+            assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
+            assert m.min() >= 0 and m.max() < CLASSES
+    run.phase("Xception path: Predictor(mixed) and Predictor(crf=PRODUCTION_"
+              "CONFIG) serving", serve_xception)
+
+    def serve_subpixel():
+        snet = seeded_net((SIZE, SIZE), SEED + 11, dev, "mobilenetv2",
+                          "subpixel")
+        gen = torch.Generator().manual_seed(SEED + 12)
+        req = (torch.rand((SERVE_B, SIZE, SIZE, 3), generator=gen) * 255
+               ).numpy()
+        pred = Predictor(snet, compute_dtype="mixed")
+        zero_counts()
+        m = pred(req)
+        got = counts()
+        want = {k: 0 for k in got}
+        want["fused_mbconv"] = FUSED_PER_FORWARD
+        print(f"  served one request of B={SERVE_B}: launches {got} (want "
+              f"{want})")
+        assert got == want, (got, want)
+        assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
+        assert m.min() >= 0 and m.max() < CLASSES
+        img = torch.from_numpy(req).to(dev)
+        fused = snet.logits(img, "mixed").float()
+        kernel = FM.fused_mbconv
+        FM.fused_mbconv = FM.fused_mbconv_reference
+        try:
+            in_situ = snet.logits(img, "mixed").float()
+        finally:
+            FM.fused_mbconv = kernel
+        scale = snet.logits(img, "float32").abs().max().item()
+        err = (fused - in_situ).abs().max().item()
+        print(f"  kernel path vs plain version in its place: max_abs "
+              f"{err:.4e}, max|float32 logit| {scale:.4e} (rel tol "
+              f"{KERNEL_PATH_REL_TOL}), argmax agreement "
+              f"{agree(fused, in_situ):.5f} (floor {KERNEL_PATH_FLOOR}); "
+              f"{len(np.unique(m))} classes in the masks")
+        assert torch.isfinite(fused).all()
+        assert err <= KERNEL_PATH_REL_TOL * scale
+        assert agree(fused, in_situ) >= KERNEL_PATH_FLOOR
+    run.phase("subpixel head: Predictor(SegNet(mobilenetv2, subpixel), mixed)",
+              serve_subpixel)
+
+    def xception_times():
+        xnet = xc["net"]
+        gen = torch.Generator(dev).manual_seed(SEED + 13)
+        saved = counts()
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        by = {"bytes": 0.0, "operations": 0.0}
+        per_shape = []
+        for key, (w, kw, n) in xc["calls"].items():
+            cin, cout, _, H, W = key[:5]
+            x = torch.randn((SERVE_B, H, W, cin), generator=gen, device=dev)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: FM.fused_sepconv(x, *w, **kw), 20)
+                plain = cuda_ms(lambda: FM.fused_sepconv_reference(
+                    x, *w, **kw), 5, warmup=1)
+            bms, bb = sepconv_bound_ms(SERVE_B, H, W, cin, cout, 4)
+            tot["ms"] += n * ms
+            tot["plain_ms"] += n * plain
+            tot["bound_ms"] += n * bms
+            by[bb] += n * bms
+            per_shape.append((n * ms, key, n))
+            print(f"  fused_sepconv {sepconv_label(key)} x{n} B={SERVE_B} f32 "
+                  f"io: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bms:.4f} ms ({bb}), {bms / ms:.3f} of bound [{card}]")
+        print(f"  per forward ({SEPCONV_PER_FORWARD} launches, B={SERVE_B}): "
+              f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"bound {tot['bound_ms']:.4f} ms [{card}]")
+        for t, key, n in sorted(per_shape, key=lambda r: -r[0])[:4]:
+            print(f"    slowest: {sepconv_label(key)} x{n}: {t:.4f} ms per "
+                  f"forward")
+        sepconv_report.update(tot)
+        sepconv_report["bound_by"] = max(by, key=by.get)
+
+        img = torch.rand((BENCH_B, SIZE, SIZE, 3), generator=gen, device=dev
+                         ) * 255
+        for what, fuse, policy in (("mixed, fused_sepconv", True, "mixed"),
+                                   ("mixed, plain layer composition", False,
+                                    "mixed"),
+                                   ("float32", True, "float32")):
+            xnet.fuse_blocks = fuse
+            ms = cuda_ms(lambda: xnet.predict_ids(img, policy), 10, warmup=2)
+            print(f"  Xception model-only {what} B={BENCH_B}: {ms:.3f} "
+                  f"ms/batch, {1e3 * BENCH_B / ms:.1f} img/s [{card}]")
+        xnet.fuse_blocks = True
+        set_counts(saved)
+    run.phase("Xception times", xception_times)
+    xc.clear()   # the later phases' peak device memory is their own
+
+    # 6. training ---------------------------------------------------------
     def train_batch(B, seed):
         """B seeded 512x512 scenes with their 21-label masks as labels, all
         weights 1, on the card."""
@@ -807,7 +1094,7 @@ def main() -> int:
             print(f"    {ms_:8.4f} ms  x{n:<3d} {key[:90]}")
         set_counts(saved)
 
-    # 6. times -----------------------------------------------------------
+    # 7. times -----------------------------------------------------------
     def times():
         gen = torch.Generator().manual_seed(SEED + 4)
         pol = core.resolve_compute_dtype("mixed")
@@ -975,7 +1262,8 @@ def main() -> int:
     if run.failed:
         print(f"FAILED phases: {run.failed}")
         return 1
-    # launches: from the main path's run; times: per request at B=8
+    # launches: from the main path's run (fused_sepconv: the Xception
+    # path's); times: per request at B=8
     launches = crf_report["launches"]
     line = [{
         "name": "fused_mbconv", "route": "cuda",
@@ -985,7 +1273,15 @@ def main() -> int:
         "max_abs_err": kernel_report["max_abs_err"],
         "ms": kernel_report["ms"], "plain_ms": kernel_report["plain_ms"],
         "bound_ms": kernel_report["bound_ms"],
-        "bound_by": kernel_report["bound_by"], "library_ms": None}]
+        "bound_by": kernel_report["bound_by"], "library_ms": None}, {
+        "name": "fused_sepconv", "route": "cuda",
+        "source": "deeplab_tpu_torch/kernels/csrc/fused_sepconv.cu",
+        "replaces": "deeplab_tpu/kernels/fused_mbconv.py:208",
+        "launches": sepconv_report["launches"],
+        "max_abs_err": sepconv_report["max_abs_err"],
+        "ms": sepconv_report["ms"], "plain_ms": sepconv_report["plain_ms"],
+        "bound_ms": sepconv_report["bound_ms"],
+        "bound_by": sepconv_report["bound_by"], "library_ms": None}]
     for n in CK.KERNELS:
         rep = crf_report[n]
         line.append({

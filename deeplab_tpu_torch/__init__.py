@@ -13,7 +13,10 @@ inverted-residual blocks run through the hand-written CUDA kernel
 and mean-field step through ``kernels/csrc/crf_fused.cu``.  And training on
 one GPU, ``train.Trainer``: under bf16 the same 14 blocks run forward and
 backward through the five phase kernels of
-``kernels/csrc/fused_mbconv_train.cu``.
+``kernels/csrc/fused_mbconv_train.cu``.  And serving the Xception
+``SegNet(..., backbone="xception", OS=16 | 8)`` and both nets with the
+``'subpixel'`` head: every eval-mode stride-1 SepConv_BN of the Xception net
+runs through ``kernels/csrc/fused_sepconv.cu``.
 """
 
 from deeplab_tpu_torch.models.seg_model import SegNet

@@ -1,9 +1,15 @@
-"""SegNet with the ``'original'`` head (deeplab_tpu/models/seg_model.py).
+"""SegNet (deeplab_tpu/models/seg_model.py): the DeepLabV3+ graph with a
+MobileNetV2 or Xception trunk, truncated where the reference's SegModel
+truncates it (models/deeplabv3p.py), then one of two heads:
 
-The MobileNetV2 DeepLabV3+ trunk, truncated at the post-Dropout ASPP
-projection, then the 1x1 ``conv_upsample`` to ``n_classes`` and a TF1
-bilinear resize to the input size.  Every layer is a submodule named after
-its Keras layer, so loading weights is a walk over names (params.py).
+- ``'original'``: the 1x1 ``conv_upsample`` to ``n_classes`` and a TF1
+  bilinear resize to the input size;
+- ``'subpixel'``: the 1x1 ``subpixel`` conv (bias, ICNR init) to
+  ``n_classes * r^2`` channels and the reference's phase shift by
+  ``r = scale`` (8 for MobileNetV2, 4 for Xception).
+
+Every layer is a submodule named after its Keras layer, so loading weights
+is a walk over names (params.py).
 """
 
 from __future__ import annotations
@@ -12,35 +18,48 @@ import torch
 from torch import nn
 
 from deeplab_tpu_torch import core
-from deeplab_tpu_torch.models import deeplabv3p, mobilenetv2
+from deeplab_tpu_torch.models import deeplabv3p
+from deeplab_tpu_torch.ops import init as inits
 from deeplab_tpu_torch.ops.conv import Conv2D
+from deeplab_tpu_torch.ops.pixel_shuffle import phase_shift
 from deeplab_tpu_torch.ops.resize import resize_bilinear_tf1
 
 
 class SegNet(nn.Module):
-    """``SegNet(image_size, n_classes)``; weights are glorot-uniform from
-    ``torch.Generator().manual_seed(seed)`` with BN at identity statistics,
-    like a fresh Keras model, until params.py loads real ones.
+    """``SegNet(image_size, n_classes, backbone="mobilenetv2" | "xception",
+    net="original" | "subpixel", OS=16 | 8)``.  ``OS`` is the Xception
+    trunk's output stride; MobileNetV2 always runs at 8 (as in the JAX
+    package).  Weights are glorot from ``torch.Generator().manual_seed(seed)``
+    (ICNR for the subpixel conv) with BN at identity statistics, like a
+    fresh Keras model, until params.py loads real ones.
 
-    ``fuse_blocks=False`` keeps every block on the plain layer composition
-    (the yardstick the fused kernel path is compared with)."""
+    ``fuse_blocks=False`` keeps every fused layer (MBConv block, SepConv_BN)
+    on the plain layer composition (the yardstick the kernel path is
+    compared with)."""
 
     def __init__(self, image_size, n_classes: int, backbone: str = "mobilenetv2",
-                 net: str = "original", alpha: float = 1.0, seed: int = 0,
-                 fuse_blocks: bool = True):
+                 net: str = "original", OS: int = 16, alpha: float = 1.0,
+                 seed: int = 0, fuse_blocks: bool = True):
         super().__init__()
-        if backbone != "mobilenetv2" or net != "original":
-            raise NotImplementedError(
-                "only the MobileNetV2 trunk with the 'original' head is "
-                "ported; Xception and the subpixel head are a later slice")
+        if backbone not in ("mobilenetv2", "xception"):
+            raise ValueError(f"unknown backbone {backbone!r}")
+        if net not in ("original", "subpixel"):
+            raise ValueError(f"unknown net {net!r}")
         self.sz = tuple(image_size)
         self.n_classes = n_classes
-        self.backbone, self.net, self.alpha = backbone, net, alpha
+        self.backbone, self.net, self.OS, self.alpha = backbone, net, OS, alpha
+        self.scale = 4 if backbone == "xception" else 8
         self.fuse_blocks = fuse_blocks
         gen = torch.Generator().manual_seed(seed)
-        c = mobilenetv2.build_backbone(self.add_module, gen, alpha)
-        c = deeplabv3p.build_aspp(self.add_module, gen, c)
-        self.conv_upsample = Conv2D(c, n_classes, 1, use_bias=True, gen=gen)
+        c = deeplabv3p.build(self.add_module, gen, backbone, OS, alpha)
+        if net == "original":
+            self.conv_upsample = Conv2D(c, n_classes, 1, use_bias=True,
+                                        gen=gen)
+        else:
+            r = self.scale
+            self.subpixel = Conv2D(
+                c, n_classes * r * r, 1, use_bias=True, gen=gen,
+                kernel_init=lambda g, shape: inits.icnr(g, shape, r))
         # channels-last memory: NHWC is the layout of the inputs and of the
         # fused kernel; 1x1 convs are then (pixels x C) products
         self.to(memory_format=torch.channels_last)
@@ -53,6 +72,8 @@ class SegNet(nn.Module):
 
     def _logits_nchw(self, img, policy, gen=None):
         feats = deeplabv3p.deeplabv3_forward(self, img, policy, gen)
+        if self.net == "subpixel":
+            return phase_shift(self.subpixel(feats, policy), self.scale)
         x = self.conv_upsample(feats, policy)
         return resize_bilinear_tf1(x, self.sz)
 

@@ -1,7 +1,9 @@
-"""TF1 ``resize_bilinear`` (``align_corners=False``, no half-pixel centers),
-as in deeplab_tpu/ops/resize.py.  ``F.interpolate`` uses half-pixel centers
-and does not match, so the resize is two products with the same dense
-(out, in) interpolation matrices, in full float32."""
+"""TF1 ``resize_bilinear`` and ``resize_nearest_neighbor``
+(``align_corners=False``, no half-pixel centers), as in
+deeplab_tpu/ops/resize.py.  ``F.interpolate`` uses half-pixel centers and
+does not match, so the bilinear resize is two products with the same dense
+(out, in) interpolation matrices, in full float32, and the nearest one a
+gather at ``floor(d * in / out)``."""
 
 from __future__ import annotations
 
@@ -24,6 +26,21 @@ def _bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
         m[d, lo] += 1.0 - frac
         m[d, hi] += frac
     return m
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int64)
+    return np.minimum(idx, in_size - 1)
+
+
+def resize_nearest_tf1(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW tensor, TF1
+    ``align_corners=False``: output pixel d takes input ``floor(d * in /
+    out)``."""
+    ih = torch.from_numpy(_nearest_index(x.shape[-2], int(size[0])))
+    iw = torch.from_numpy(_nearest_index(x.shape[-1], int(size[1])))
+    return x[..., ih.to(x.device), :][..., iw.to(x.device)]
 
 
 def resize_bilinear_tf1(x: torch.Tensor, size) -> torch.Tensor:

@@ -8,8 +8,11 @@ is a walk over names that converts two layouts on the way:
 - ``depthwise_kernel``: Keras (kh, kw, C, 1) -> (C, 1, kh, kw).
 
 ``moving_mean`` and ``moving_variance`` land in BN buffers, the rest in
-parameters.  ``trees_from_net`` is the way back: the net's parameters and
-buffers (or its gradients) as Keras-layout trees.
+parameters.  The Keras Subpixel layer is auto-named (``subpixel_1`` in the
+shipped ``weights/mobilenetv2_subpixel.h5``): a file layer named
+``subpixel*`` loads onto the ``subpixel`` layer, whose kernel already has
+the phase shift's channel order.  ``trees_from_net`` is the way back: the
+net's parameters and buffers (or its gradients) as Keras-layout trees.
 """
 
 from __future__ import annotations
@@ -112,6 +115,14 @@ def _strip(name: str) -> str:
     return name[:-2] if name.endswith(":0") else name
 
 
+def _canonical_layer(lname: str, net) -> str:
+    children = dict(net.named_children())
+    if (lname not in children and lname.startswith("subpixel")
+            and "subpixel" in children):
+        return "subpixel"
+    return lname
+
+
 def load_keras_h5(path: str, net):
     """Load a legacy Keras-2 weights file into ``net`` by layer name, like
     Keras ``load_weights(by_name=True)``: file layers the model lacks are
@@ -138,7 +149,7 @@ def load_keras_h5(path: str, net):
                     _strip(name), np.asarray(obj))
                     if hasattr(obj, "shape") else None)
             if out:
-                tree[lname] = out
+                tree[_canonical_layer(lname, net)] = out
     if _assign(net, (tree,), strict=False) == 0:
         raise ValueError(f"no weights matched the model in {path}")
     return net

@@ -8,8 +8,9 @@ the 14 stride-1 expand blocks run forward and backward through
 Step metrics accumulate on the device and are read once per epoch, so no
 step waits for the host.
 
-Meshes, spatial sharding, DDP, remat, profiling, train-state checkpoints and
-multiprocess workers raise ``NotImplementedError`` and name their slice.
+Meshes, spatial sharding, DDP, remat, profiling, train-state checkpoints,
+multiprocess workers and training an Xception or subpixel net raise
+``NotImplementedError`` and name their slice.
 """
 
 from __future__ import annotations
@@ -43,7 +44,13 @@ class Trainer:
                                  "the rest of the training slice (A7)"),
                  "multiprocess workers": (workers > 1 or use_multiprocessing,
                                           "the data slice "
-                                          "(SegmentationGenerator, A7)")}
+                                          "(SegmentationGenerator, A7)"),
+                 "for an Xception or subpixel net": (
+                     (getattr(model, "backbone", "mobilenetv2"),
+                      getattr(model, "net", "original"))
+                     != ("mobilenetv2", "original"),
+                     "the training half of the Xception and subpixel "
+                     "slice (A8)")}
         for name, (asked, where) in later.items():
             if asked:
                 raise NotImplementedError(f"Trainer {name} "

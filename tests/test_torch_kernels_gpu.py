@@ -11,6 +11,8 @@ reach the edge handling that the main path's 64x64 and 128x128 maps do not.
 Tolerance: both sides take the same bf16 matmul operands and accumulate in
 f32; a summation-order ulp can flip one bf16-rounded depthwise output
 (2^-8 relative) and bf16 outputs round once more: 2e-2 at outputs of order 1.
+``fused_sepconv`` is held, as in chip_smoke.py, to 2e-3 ("mixed") and 1e-2
+(bf16) of its largest output at the Xception net's ragged widths.
 
 The CRF kernels are held to their plain versions on the inputs the main path
 gives them: a CRF run with the plain versions records every call, then each
@@ -84,6 +86,63 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):   # non-contiguous input
         FM.fused_mbconv(x.transpose(1, 2), **w, rate=1, skip=True,
                         mxu_bf16=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pre_relu", [True, False])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cin,Cout,rate,H,W", [
+    (728, 728, 1, 16, 16),      # middle flow: Cin = 22 chunks of 32 + 24
+    (1536, 2048, 2, 12, 12),    # exit flow, the widest layer
+    (2048, 256, 18, 32, 32),    # ASPP at OS 16: the rate passes the map
+    (304, 256, 1, 128, 128),    # decoder: Cin = 9 chunks of 32 + 16
+])
+def test_sepconv_kernel_matches_reference(cuda, x_dtype, pre_relu, Cin, Cout,
+                                          rate, H, W):
+    r = np.random.RandomState(7)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (r.randn(*s) * sc).astype(np.float32)).to(cuda)
+    wdw, bdw = t(9, Cin, sc=0.3), t(Cin, sc=0.1)
+    wpw, bpw = t(Cin, Cout, sc=Cin ** -0.5).bfloat16(), t(Cout, sc=0.1)
+    x = t(1, H, W, Cin).to(x_dtype)
+    kw = dict(rate=rate, pre_relu=pre_relu, act_mid=not pre_relu,
+              act_out=not pre_relu, mxu_bf16=x_dtype == torch.float32)
+    before = FM.fused_sepconv.launches
+    got = FM.fused_sepconv(x, wdw, bdw, wpw, bpw, **kw)
+    ref = FM.fused_sepconv_reference(x, wdw, bdw, wpw, bpw, **kw)
+    torch.cuda.synchronize()
+    assert FM.fused_sepconv.launches == before + 1
+    assert got.dtype == x_dtype and got.shape == (1, H, W, Cout)
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = 2e-3 if x_dtype == torch.float32 else 1e-2
+    assert scale > 0 and err <= tol * scale, (err, scale)
+
+
+@pytest.mark.gpu
+def test_sepconv_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
+    wdw = torch.zeros(9, 16, device=cuda)
+    bdw = torch.zeros(16, device=cuda)
+    wpw = torch.zeros(16, 24, device=cuda, dtype=torch.bfloat16)
+    bpw = torch.zeros(24, device=cuda)
+    x = torch.zeros(1, 8, 8, 16, device=cuda)
+    kw = dict(rate=1, pre_relu=True, act_mid=False, act_out=False)
+    before = FM.fused_sepconv.launches
+    with pytest.raises(ValueError):   # f32 without mxu_bf16: no kernel mode
+        FM.fused_sepconv(x, wdw, bdw, wpw, bpw, **kw)
+
+    class FailedLaunch:               # the library reports a launch error
+        @staticmethod
+        def fused_sepconv_launch(*args):
+            return 9                  # cudaErrorInvalidConfiguration
+
+        @staticmethod
+        def fused_sepconv_error(code):
+            return b"invalid configuration argument"
+    monkeypatch.setattr(FM, "_lib", lambda name: FailedLaunch)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FM.fused_sepconv(x, wdw, bdw, wpw, bpw, mxu_bf16=True, **kw)
+    assert FM.fused_sepconv.launches == before
 
 
 @pytest.mark.gpu
