@@ -60,7 +60,24 @@ Phases, each of which fails the run (exit code 1, no result line):
    step beside its bound and plain version, the train step's img/s at B=16
    (bf16 with the kernels, bf16 through the plain layer composition, and
    float32) with its peak device memory, and a ``torch.profiler`` table of
-   the bf16 step.
+   the bf16 step;
+8. the evaluation slice: ``fused_dw_bn_relu6`` (MobileNetV2 block 0, one
+   launch per forward beside the 14 ``fused_mbconv``) against its plain
+   version at block 0's shape, 64x64x384 at rate 2 and a ragged shape, under
+   "mixed" and bf16; ``slice_planes`` and the f32 splat against their plain
+   versions on every call of the XLA engine's 512x512 ``mean_field`` at
+   ``FAITHFUL_CONFIG`` and ``PRODUCTION_CONFIG``; the notebook CRF:
+   ``do_crf`` per 512x512 image with 2, 5 and 21 sparse label ids,
+   ``zero_unsure`` both ways, on the plane engine (6 splat, 1 slice_attrs,
+   5 blur, 5 explicit-unary mf_step per image; every step call held to its
+   plain version) and the XLA engine (6 splat, 6 slice_planes), masks
+   against the plain versions' and the oracle goldens; then the slice's main
+   path, ``viz.calculate_iou`` over 4 batches of 8 seeded 512x512 scenes
+   through ``Predictor(net, crf=PRODUCTION_CONFIG)`` (per batch 1 + 14 +
+   6/1/5/5 launches), against the same run with every plain version in its
+   kernel's place; times of both new kernels beside their bounds, block 0
+   through the layer composition, ``do_crf`` ms per image on each engine and
+   the evaluation loop's ms per image.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -70,6 +87,8 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -121,9 +140,12 @@ SEPCONV_F32_RATIO = 1.5
 
 CRF_PER_REQUEST = {"splat_planes": 6, "slice_attrs_planes": 1,
                    "gaussian_blur_planes": 5, "mf_step_planes": 5}
+# the XLA engine per image: the norm pass and 5 iterations
+XLA_PER_IMAGE = {"splat_planes": 6, "slice_planes": 6}
 # the TPU kernels they replace (file:line of the pl.pallas_call)
 CRF_REPLACES = {"splat_planes": 702, "slice_attrs_planes": 890,
-                "gaussian_blur_planes": 568, "mf_step_planes": 988}
+                "gaussian_blur_planes": 568, "mf_step_planes": 988,
+                "slice_planes": 731}
 # (each CRF kernel against its plain version: the PLAIN_*_REL tolerances of
 # deeplab_tpu_torch/kernels/crf_fused.py)
 # CRF masks with the kernels vs with the plain versions; oracle goldens
@@ -147,6 +169,22 @@ TRAIN_LOSS_DROP = 0.10
 # percentile, worst) may be no larger than the composition's.
 TRAIN_LOSS_REL, TRAIN_BN_REL = 1e-2, 1e-2
 
+# fused_dw_bn_relu6 against its plain version, relative to the largest
+# output: both sum the 9 taps in f32 in the same order with the same
+# roundings and should agree bit for bit; the bounds are those of a
+# summation-order difference (f32 outputs) and one flipped bf16 rounding
+# (bf16 outputs, 2 ulps)
+DW_REL_TOL = {"mixed": 1e-5, "bfloat16": 2 * 2.0 ** -8}
+# (B, H, W, C, rate): block 0 at 512x512 and the served batch, the JAX
+# kernel's documented shape, and a ragged one
+DW_SHAPES = ((SERVE_B, 256, 256, 32, 1), (SERVE_B, 64, 64, 384, 2),
+             (2, 37, 53, 24, 4))
+# the notebook CRF: label counts of the 512x512 do_crf scenes; the oracle
+# floors of tests/test_crf_goldens.py for do_crf at CrfConfig() and
+# FAST_FAITHFUL_CONFIG (the latter is CRF_PATH_FLOOR's neighbour above)
+DO_CRF_LABELS, GOLDEN_DEFAULT_FLOOR = (2, 5, 21), 0.97
+EVAL_BATCHES = 4
+EVAL_MEAN_TOL = 0.01
 
 def card_line() -> str:
     out = subprocess.run(
@@ -238,7 +276,8 @@ def crf_bound_ms(CK, name, args, kw, out):
         if name == "splat_planes":
             n_pl = args[1].numel()
         else:
-            n_pl = out[1 if name == "slice_attrs_planes" else 0].numel()
+            n_pl = tensors(out)[1 if name == "slice_attrs_planes"
+                                else 0].numel()
         ops = 2 * 8 * n_pl
         if name != "splat_planes":
             nt = len(kw["ctaps"])
@@ -332,6 +371,23 @@ def sepconv_bound_ms(B, H, W, cin, cout, act_bytes):
     return 1e3 * t, ("bytes" if t == t_bytes else "operations")
 
 
+def dw_bound_ms(x):
+    """Least time for one fused_dw_bn_relu6 launch: x read once and the
+    output written once (the taps and affine are 11 C floats) at 3.35 TB/s,
+    against 20 f32 flops per output (9 multiply-adds and the affine) at 67
+    TFLOP/s."""
+    nbytes = 2 * x.numel() * x.element_size() + 4 * 11 * x.shape[-1]
+    t_b, t_o = nbytes / HBM_BYTES_S, 20 * x.numel() / F32_FLOP_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def sparse_mask(mask, n_labels, seed):
+    """The scene mask's ids 0..n-1 mapped onto n sparse ids in 0..255."""
+    import numpy as np
+    ids = np.sort(np.random.RandomState(seed).choice(256, n_labels, False))
+    return ids[mask]
+
+
 def train_bound_ms(name, args, out):
     """Least time for one training phase launch: its inputs read once and
     outputs written once at 3.35 TB/s, against its bf16 tensor-core flops at
@@ -384,12 +440,15 @@ def main() -> int:
     from deeplab_tpu_torch.crf import dense_crf as DC
     from deeplab_tpu_torch.kernels import build
     from deeplab_tpu_torch.kernels import crf_fused as CK
+    from deeplab_tpu_torch.kernels import fused_dw as FDW
     from deeplab_tpu_torch.kernels import fused_mbconv as FM
     from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     from deeplab_tpu_torch.models import mobilenetv2 as M
+    from deeplab_tpu_torch.ops.bn import bn_scale_shift
     from deeplab_tpu_torch.data.generator import ArrayBatcher
     from deeplab_tpu_torch.train import Trainer
     from deeplab_tpu_torch import core
+    from deeplab_tpu_torch import viz
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -397,8 +456,11 @@ def main() -> int:
     dev = torch.device("cuda")
     run = Run()
     kernel_report = {}
-    crf_report = {n: {"max_abs_err": 0.0} for n in CK.KERNELS}
+    CRF_KERNELS = CK.KERNELS + ("slice_planes",)
+    crf_report = {n: {"max_abs_err": 0.0} for n in CRF_KERNELS}
     crf_b8 = {}
+    dw_report = {}
+    notebook = {}
 
     train_report = {n: {"max_abs_err": 0.0} for n in FMT.PHASES}
     train = {}
@@ -409,15 +471,17 @@ def main() -> int:
     def zero_counts():
         FM.fused_mbconv.launches = 0
         FM.fused_sepconv.launches = 0
-        for n in CK.KERNELS:
+        FDW.fused_dw_bn_relu6.launches = 0
+        for n in CRF_KERNELS:
             getattr(CK, n).launches = 0
         for n in FMT.PHASES:
             getattr(FMT, n).launches = 0
 
     def counts():
         out = {"fused_mbconv": FM.fused_mbconv.launches,
-               "fused_sepconv": FM.fused_sepconv.launches}
-        out.update({n: getattr(CK, n).launches for n in CK.KERNELS})
+               "fused_sepconv": FM.fused_sepconv.launches,
+               "fused_dw_bn_relu6": FDW.fused_dw_bn_relu6.launches}
+        out.update({n: getattr(CK, n).launches for n in CRF_KERNELS})
         out.update({"train_" + n: getattr(FMT, n).launches
                     for n in FMT.PHASES})
         return out
@@ -425,7 +489,8 @@ def main() -> int:
     def set_counts(saved):
         FM.fused_mbconv.launches = saved["fused_mbconv"]
         FM.fused_sepconv.launches = saved["fused_sepconv"]
-        for n in CK.KERNELS:
+        FDW.fused_dw_bn_relu6.launches = saved["fused_dw_bn_relu6"]
+        for n in CRF_KERNELS:
             getattr(CK, n).launches = saved[n]
         for n in FMT.PHASES:
             getattr(FMT, n).launches = saved["train_" + n]
@@ -434,7 +499,8 @@ def main() -> int:
     def do_build():
         t0 = time.perf_counter()
         logs = build.build(["fused_mbconv", "crf_fused",
-                            "fused_mbconv_train", "fused_sepconv"])
+                            "fused_mbconv_train", "fused_sepconv",
+                            "fused_dw"])
         print(f"build seconds: {time.perf_counter() - t0:.2f}")
         for name, log in logs.items():
             for line in log.splitlines():
@@ -487,6 +553,36 @@ def main() -> int:
         kernel_report["max_abs_err"] = worst
     run.phase("kernel vs plain version", check_kernels)
 
+    def check_fused_dw():
+        gen = torch.Generator(dev).manual_seed(SEED + 20)
+        worst = 0.0
+        for pol_name in ("mixed", "bfloat16"):
+            dt = core.resolve_compute_dtype(pol_name).dtype
+            for B, H, W, C, rate in DW_SHAPES:
+                x = torch.randn((B, H, W, C), generator=gen, device=dev)
+                k = 0.3 * torch.randn((3, 3, C, 1), generator=gen, device=dev)
+                scale = 1 + 0.2 * torch.randn(C, generator=gen, device=dev)
+                shift = 0.5 * torch.randn(C, generator=gen, device=dev)
+                x = x.to(dt)
+                got = FDW.fused_dw_bn_relu6(x, k, scale, shift, rate=rate)
+                ref = FDW.fused_dw_bn_relu6_reference(x, k, scale, shift,
+                                                      rate=rate)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                scale_ = ref.float().abs().max().item()
+                rel = err / max(scale_, 1e-30)
+                tol = DW_REL_TOL[pol_name]
+                ok = math.isfinite(err) and got.dtype == dt and rel <= tol
+                print(f"  {pol_name:8s} ({B}, {H}, {W}, {C}) rate {rate}: "
+                      f"max_abs {err:.3e} max|ref| {scale_:.3e} rel "
+                      f"{rel:.3e} (tol {tol:.4g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"fused_dw_bn_relu6 disagrees at "
+                                         f"{(B, H, W, C, rate)}")
+                worst = max(worst, err)
+        dw_report["max_abs_err"] = worst
+    run.phase("fused_dw_bn_relu6 vs plain version", check_fused_dw)
+
     def check_crf_kernels():
         cases = (("PRODUCTION_CONFIG", 2), ("PRODUCTION_CONFIG", SERVE_B),
                  ("FAST_FAITHFUL_CONFIG", 2), ("THROUGHPUT_CONFIG", 2))
@@ -517,7 +613,56 @@ def main() -> int:
                 crf_b8.update(calls)
     run.phase("CRF kernels vs plain versions", check_crf_kernels)
 
+    def check_xla_kernels():
+        """slice_planes and the f32 splat at L = 21 on every call of the XLA
+        engine's 512x512 mean_field (the first call of each the norm pass,
+        L = 1)."""
+        im, mask = make_scene(SIZE, SIZE, CLASSES, SEED + 30)
+        im = torch.from_numpy(im).to(dev)
+        U = DC.unary_from_labels(torch.from_numpy(mask).reshape(-1).to(dev),
+                                 CLASSES, 0.7, zero_unsure=False)
+        for cfg_name in ("FAITHFUL_CONFIG", "PRODUCTION_CONFIG"):
+            cfg = dataclasses.replace(getattr(CRF, cfg_name), backend="xla")
+            with torch.inference_mode(), \
+                    CK.plain_versions(CK.XLA_KERNELS) as calls:
+                CRF.mean_field(im, U, cfg, CLASSES)
+            for name in CK.XLA_KERNELS:
+                kernel = getattr(CK, name)
+                assert len(calls[name]) == XLA_PER_IMAGE[name], name
+                errs = []
+                for args, kw, want in calls[name]:
+                    with torch.inference_mode():
+                        got = kernel(*args, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = CK.max_err_vs_plain(name, got, want)
+                    errs.append(err)
+                    if not ok:
+                        raise AssertionError(f"{name} disagrees at {cfg_name}"
+                                             f" L={kw['L']}: {err}")
+                rep = crf_report[name]
+                rep["max_abs_err"] = max(rep["max_abs_err"], max(errs))
+                geo = [tuple(t.shape) for t in tensors(calls[name][1][0])]
+                print(f"  XLA engine {cfg_name:17s} {name:13s} "
+                      f"{len(errs)} calls (L 1, then {CLASSES}; inputs of "
+                      f"an iteration {geo}): max_abs {max(errs):.3e} ok")
+            if cfg_name == "FAITHFUL_CONFIG":
+                notebook["xla_calls"] = calls
+    run.phase("XLA-engine kernels (slice_planes, f32 splat) vs plain "
+              "versions", check_xla_kernels)
+
     # 3. the main path ---------------------------------------------------
+    @contextlib.contextmanager
+    def model_plain_versions():
+        """The MobileNetV2 forward with each kernel wrapper replaced by its
+        plain version (launch counts untouched)."""
+        kernels = FM.fused_mbconv, FDW.fused_dw_bn_relu6
+        FM.fused_mbconv = FM.fused_mbconv_reference
+        FDW.fused_dw_bn_relu6 = FDW.fused_dw_bn_relu6_reference
+        try:
+            yield
+        finally:
+            FM.fused_mbconv, FDW.fused_dw_bn_relu6 = kernels
+
     def agree(a, b):
         return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
@@ -528,10 +673,13 @@ def main() -> int:
         pred = Predictor(net, compute_dtype="mixed")
         zero_counts()
         masks = [pred(r) for r in reqs]
-        launches = FM.fused_mbconv.launches
-        print(f"  served {N_REQUESTS} requests of B={SERVE_B}: fused_mbconv "
-              f"launches {launches} (want {FUSED_PER_FORWARD * N_REQUESTS})")
-        assert launches == FUSED_PER_FORWARD * N_REQUESTS, launches
+        got = counts()
+        want = {k: 0 for k in got}
+        want["fused_mbconv"] = FUSED_PER_FORWARD * N_REQUESTS
+        want["fused_dw_bn_relu6"] = N_REQUESTS
+        print(f"  served {N_REQUESTS} requests of B={SERVE_B}: launches "
+              f"{got} (want {want})")
+        assert got == want, (got, want)
         for m in masks:
             assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
             assert m.min() >= 0 and m.max() < CLASSES
@@ -542,12 +690,8 @@ def main() -> int:
         fused = net.logits(img, "mixed").float()
         assert torch.isfinite(fused).all()
         # the same forward with each kernel call replaced by its plain version
-        kernel = FM.fused_mbconv
-        FM.fused_mbconv = FM.fused_mbconv_reference
-        try:
+        with model_plain_versions():
             in_situ = net.logits(img, "mixed").float()
-        finally:
-            FM.fused_mbconv = kernel
         # the plain layer composition, under "mixed" and under float32
         net.fuse_blocks = False
         try:
@@ -597,6 +741,7 @@ def main() -> int:
         crf_report["launches"] = got
         want = {k: 0 for k in got}
         want["fused_mbconv"] = FUSED_PER_FORWARD * N_REQUESTS
+        want["fused_dw_bn_relu6"] = N_REQUESTS
         want.update({n: k * N_REQUESTS for n, k in CRF_PER_REQUEST.items()})
         print(f"  served {N_REQUESTS} requests of B={SERVE_B} at "
               f"PRODUCTION_CONFIG: launches {got} (want {want})")
@@ -658,6 +803,277 @@ def main() -> int:
         return plan.uncells_v(pred, 1)[:, 0].to(torch.int32).cpu().numpy()
     run.phase("main path: Predictor(crf=PRODUCTION_CONFIG, mixed) serving",
               serve_crf)
+
+    # 8. the evaluation slice --------------------------------------------
+    engines = (("plane", CRF.CrfConfig(), CK.KERNELS, CRF_PER_REQUEST),
+               ("xla", CRF.CrfConfig(backend="xla"), CK.XLA_KERNELS,
+                XLA_PER_IMAGE))
+
+    def notebook_crf():
+        cases = []
+        for L in DO_CRF_LABELS:
+            im, mask = make_scene(SIZE, SIZE, L, SEED + 40 + L)
+            cases += [(im, sparse_mask(mask, L, SEED + L), L, zu)
+                      for zu in (False, True)]
+        outs = {}
+        zero_counts()
+        for eng, cfg, _, per_image in engines:
+            for i, (im, mask, L, zu) in enumerate(cases):
+                before = counts()
+                out = CRF.do_crf(im, mask, zero_unsure=zu, cfg=cfg,
+                                 device=dev)
+                moved = {k: v - before[k] for k, v in counts().items()}
+                want = {k: 0 for k in moved}
+                want.update(per_image)
+                assert moved == want, (eng, L, zu, moved, want)
+                assert out.shape == mask.shape and out.dtype == mask.dtype
+                assert set(np.unique(out)) <= set(np.unique(mask))
+                outs[eng, i] = out
+        got = counts()
+        notebook["launches"] = got
+        print(f"  do_crf on {len(cases)} 512x512 images per engine (label "
+              f"ids {DO_CRF_LABELS}, zero_unsure both ways): launches {got}")
+        # the same runs with each plain version in its kernel's place
+        saved = counts()
+        for eng, cfg, names, _ in engines:
+            for i, (im, mask, L, zu) in enumerate(cases):
+                with CK.plain_versions(names) as calls:
+                    ref = CRF.do_crf(im, mask, zero_unsure=zu, cfg=cfg,
+                                     device=dev)
+                a = float((outs[eng, i] == ref).mean())
+                moved = float((outs[eng, i] != mask).mean())
+                print(f"  {eng:5s} engine L={L:2d} zero_unsure={zu!s:5s}: "
+                      f"masks with kernels vs plain versions {a:.6f} "
+                      f"(floor {CRF_PATH_FLOOR}); the CRF changed "
+                      f"{moved:.4f} of the pixels")
+                assert a >= CRF_PATH_FLOOR, (eng, L, zu, a)
+                if eng == "plane" and L == CLASSES and not zu:
+                    # every call of this run against its plain version, the
+                    # explicit-unary step's in particular
+                    for name in CK.KERNELS:
+                        errs = []
+                        for args, kw, want in calls[name]:
+                            with torch.inference_mode():
+                                got = getattr(CK, name)(*args, **kw)
+                            torch.cuda.synchronize()
+                            err, ok = CK.max_err_vs_plain(name, got, want)
+                            errs.append(err)
+                            assert ok, (name, err)
+                        rep = crf_report[name]
+                        rep["max_abs_err"] = max(rep["max_abs_err"],
+                                                 max(errs))
+                        print(f"    {name:20s} {len(errs)} calls: max_abs "
+                              f"{max(errs):.3e} ok")
+                    # the step took the unary stream on every call
+                    assert len(calls["mf_step_planes"]) == 5
+                    assert all(c[0][4] is not None
+                               for c in calls["mf_step_planes"])
+                    notebook["unary_calls"] = calls["mf_step_planes"]
+        set_counts(saved)
+
+        # the oracle goldens through do_crf, both engines
+        import os
+        gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "goldens", "crf")
+        for name, H, W, L, seed in GOLDEN_SCENES:
+            golden = np.load(os.path.join(gdir, name + ".npz"))["golden"]
+            im, mask = make_scene(H, W, L, seed)
+            line = []
+            for eng, cfg, _, _ in engines:
+                for cname, c, floor in (
+                        ("CrfConfig()", cfg, GOLDEN_DEFAULT_FLOOR),
+                        ("FAST_FAITHFUL", dataclasses.replace(
+                            CRF.FAST_FAITHFUL_CONFIG, backend=cfg.backend),
+                         GOLDEN_FLOOR)):
+                    out = CRF.do_crf(im, mask, zero_unsure=False, cfg=c,
+                                     device=dev)
+                    a = float((out == golden).mean())
+                    line.append(f"{eng} {cname} {a:.5f}")
+                    assert a >= floor, (name, eng, cname, a)
+            print(f"  golden {name} (do_crf): {', '.join(line)} (floors "
+                  f"{GOLDEN_DEFAULT_FLOOR} / {GOLDEN_FLOOR})")
+        set_counts(saved)
+    run.phase("notebook CRF: do_crf on both engines", notebook_crf)
+
+    def evaluation():
+        cfg = CRF.PRODUCTION_CONFIG
+
+        class Batches:
+            """4 batches of 8 seeded 512x512 scenes with their label maps,
+            the top 8 rows void, as ``(X, Y, None)``."""
+            def __init__(self):
+                self.items = []
+                for i in range(EVAL_BATCHES):
+                    imgs, masks = scene_batch(SERVE_B, SEED + 700 + 10 * i,
+                                              "cpu")
+                    Y = masks.numpy().astype(np.int32)
+                    Y[:, :8] = CLASSES
+                    self.items.append((imgs.numpy(),
+                                       Y.reshape(SERVE_B, -1, 1), None))
+
+            def __len__(self):
+                return len(self.items)
+
+            def __getitem__(self, i):
+                return self.items[i]
+        batches = Batches()
+        pred = Predictor(net, crf=cfg, compute_dtype="mixed")
+
+        def recorded(sink):
+            def predict(X):
+                sink.append(pred(X))
+                return sink[-1]
+            return predict
+        masks = []
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conf, iou, mean = viz.calculate_iou(net, batches, CLASSES,
+                                            predict_fn=recorded(masks))
+        wall = time.perf_counter() - t0
+        got = counts()
+        notebook["eval_launches"] = got
+        want = {k: 0 for k in got}
+        want["fused_mbconv"] = FUSED_PER_FORWARD * EVAL_BATCHES
+        want["fused_dw_bn_relu6"] = EVAL_BATCHES
+        want.update({n: k * EVAL_BATCHES for n, k in CRF_PER_REQUEST.items()})
+        print(f"  calculate_iou over {EVAL_BATCHES} batches of B={SERVE_B} "
+              f"through Predictor(crf=PRODUCTION_CONFIG, mixed): launches "
+              f"{got} (want {want})")
+        assert got == want, (got, want)
+        valid = sum(int((b[1] < CLASSES).sum()) for b in batches.items)
+        assert conf.shape == (CLASSES, CLASSES) and conf.sum() == valid
+        assert np.isfinite(iou).all() and 0 <= mean <= 1
+        ms = 1e3 * wall / (EVAL_BATCHES * SERVE_B)
+        notebook["eval_ms"] = ms
+        print(f"  confusion matrix counts all {valid} non-void pixels; "
+              f"published mean IoU {mean:.5f}; the loop took {ms:.3f} ms per "
+              f"512x512 image (host clock, first pass) [{card}]")
+        plain = []
+        saved = counts()
+        with model_plain_versions(), CK.plain_versions():
+            pconf, _, pmean = viz.calculate_iou(net, batches, CLASSES,
+                                                predict_fn=recorded(plain))
+        set_counts(saved)
+        agree = float(np.mean([(a == b).mean() for a, b in zip(masks,
+                                                                plain)]))
+        print(f"  the same loop with every plain version in its kernel's "
+              f"place: masks agree {agree:.6f} (floor {CRF_PATH_FLOOR}), "
+              f"published mean {pmean:.5f} (kernels {mean:.5f}, tol "
+              f"{EVAL_MEAN_TOL})")
+        assert agree >= CRF_PATH_FLOOR
+        assert abs(mean - pmean) <= EVAL_MEAN_TOL
+        with torch.inference_mode():
+            ms2 = cuda_ms(lambda: viz.calculate_iou(net, batches, CLASSES,
+                                                    predict_fn=pred), 2,
+                          warmup=1)
+        print(f"  the loop again, warm: {ms2 / (EVAL_BATCHES * SERVE_B):.3f} "
+              f"ms per image (CUDA events around the whole loop) [{card}]")
+    run.phase("evaluation: viz.calculate_iou through Predictor(crf="
+              "PRODUCTION_CONFIG)", evaluation)
+
+    def slice_times():
+        """The evaluation slice's kernels beside their bounds: fused_dw at
+        block 0 of a B=8 forward (its folded weights), with block 0 through
+        the layer composition beside it; slice_planes per 512x512 image of
+        the XLA engine; do_crf per image on each engine."""
+        saved = counts()
+        pol = core.resolve_compute_dtype("mixed")
+        gen = torch.Generator(dev).manual_seed(SEED + 50)
+        p = M._prefix(0)
+        C = net.Conv.kernel.shape[0]
+        x = torch.rand((SERVE_B, C, SIZE // 2, SIZE // 2), generator=gen,
+                       device=dev) * 6
+        x = x.contiguous(memory_format=torch.channels_last)
+        scale, shift = (t.contiguous() for t in bn_scale_shift(
+            getattr(net, p + "depthwise_BN")))
+        taps = getattr(net, p + "depthwise").depthwise_kernel.float() \
+            .permute(2, 3, 0, 1).contiguous()
+        xh = x.permute(0, 2, 3, 1)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: FDW.fused_dw_bn_relu6(xh, taps, scale,
+                                                       shift), 50)
+            plain = cuda_ms(lambda: FDW.fused_dw_bn_relu6_reference(
+                xh, taps, scale, shift), 20)
+            with core.precision_flags(pol):
+                comp = cuda_ms(lambda: M.relu6(
+                    getattr(net, p + "depthwise_BN")(
+                        getattr(net, p + "depthwise")(x, pol))), 50)
+        bms, bb = dw_bound_ms(xh)
+        dw_report.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bb,
+                         composition_ms=comp)
+        print(f"  fused_dw_bn_relu6 block 0, ({SERVE_B}, {SIZE // 2}, "
+              f"{SIZE // 2}, {C}) f32 io: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bms:.4f} ms ({bb}), {bms / ms:.3f} "
+              f"of bound; the layer composition (grouped conv, BN affine, "
+              f"clamp, under mixed) {comp:.4f} ms [{card}]")
+
+        calls = notebook.pop("xla_calls")
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        by = {"bytes": 0.0, "operations": 0.0}
+        for idx, n in ((0, 1), (1, 5)):
+            args, kw, out = calls["slice_planes"][idx]
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: CK.slice_planes(*args, **kw), 20)
+                plain = cuda_ms(lambda: CK.slice_planes_reference(
+                    *args, **kw), 3, warmup=1)
+            bms, bb = crf_bound_ms(CK, "slice_planes", args, kw, out)
+            tot["ms"] += n * ms
+            tot["plain_ms"] += n * plain
+            tot["bound_ms"] += n * bms
+            by[bb] += n * bms
+            print(f"  slice_planes L={kw['L']} (x{n} per image) inputs "
+                  f"{[tuple(t.shape) for t in tensors(args)]}: kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+                  f"({bb}), {bms / ms:.3f} of bound [{card}]")
+        crf_report["slice_planes"].update(tot)
+        crf_report["slice_planes"]["bound_by"] = max(by, key=by.get)
+        crf_report["slice_planes"]["library_ms"] = None
+        # the explicit-unary step per plane-engine do_crf image (its 5 calls)
+        unary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for args, kw, out in notebook.pop("unary_calls"):
+            with torch.inference_mode():
+                unary["ms"] += cuda_ms(lambda: CK.mf_step_planes(*args, **kw),
+                                       20)
+                unary["plain_ms"] += cuda_ms(
+                    lambda: CK.mf_step_planes_reference(*args, **kw), 2,
+                    warmup=1)
+            unary["bound_ms"] += crf_bound_ms(CK, "mf_step_planes", args, kw,
+                                              out)[0]
+        notebook["unary_times"] = unary
+        print(f"  mf_step_planes, explicit unary, per 512x512 plane-engine "
+              f"do_crf image (5 launches, {CLASSES} labels): kernel "
+              f"{unary['ms']:.4f} ms, plain {unary['plain_ms']:.4f} ms, "
+              f"bound {unary['bound_ms']:.4f} ms [{card}]")
+        print(f"  slice_planes per 512x512 image (XLA engine, "
+              f"FAITHFUL_CONFIG): kernel {tot['ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+              f"[{card}]")
+
+        im, mask = make_scene(SIZE, SIZE, CLASSES, SEED + 60)
+        mask = sparse_mask(mask, CLASSES, SEED + 61)
+        for eng, cfg, _, _ in engines:
+            for _ in range(2):
+                CRF.do_crf(im, mask, zero_unsure=False, cfg=cfg, device=dev)
+            host = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                CRF.do_crf(im, mask, zero_unsure=False, cfg=cfg, device=dev)
+                host.append(1e3 * (time.perf_counter() - t0))
+            colors, labels = np.unique(mask, return_inverse=True)
+            U = DC.unary_from_labels(torch.from_numpy(labels.reshape(-1))
+                                     .to(dev), len(colors), 0.7, False)
+            imd = torch.from_numpy(im).to(dev)
+            dms = cuda_ms(lambda: CRF.mean_field(imd, U, cfg, len(colors)),
+                          5, warmup=1)
+            notebook[eng + "_ms"] = (dms, sorted(host)[2])
+            print(f"  do_crf {eng} engine, 512x512, 21 labels: mean_field "
+                  f"{dms:.3f} ms (CUDA events); do_crf {sorted(host)[2]:.3f} "
+                  f"ms median, {min(host):.3f} min (host clock incl. "
+                  f"np.unique and copies) [{card}]")
+        set_counts(saved)
+
+    run.phase("evaluation-slice times", slice_times)
 
     # 5. the Xception path and the subpixel head --------------------------
     def record_sepconv(xnet, img, policy):
@@ -815,6 +1231,7 @@ def main() -> int:
         got = counts()
         want = {k: 0 for k in got}
         want["fused_mbconv"] = FUSED_PER_FORWARD
+        want["fused_dw_bn_relu6"] = 1
         print(f"  served one request of B={SERVE_B}: launches {got} (want "
               f"{want})")
         assert got == want, (got, want)
@@ -822,12 +1239,8 @@ def main() -> int:
         assert m.min() >= 0 and m.max() < CLASSES
         img = torch.from_numpy(req).to(dev)
         fused = snet.logits(img, "mixed").float()
-        kernel = FM.fused_mbconv
-        FM.fused_mbconv = FM.fused_mbconv_reference
-        try:
+        with model_plain_versions():
             in_situ = snet.logits(img, "mixed").float()
-        finally:
-            FM.fused_mbconv = kernel
         scale = snet.logits(img, "float32").abs().max().item()
         err = (fused - in_situ).abs().max().item()
         print(f"  kernel path vs plain version in its place: max_abs "
@@ -1263,7 +1676,8 @@ def main() -> int:
         print(f"FAILED phases: {run.failed}")
         return 1
     # launches: from the main path's run (fused_sepconv: the Xception
-    # path's); times: per request at B=8
+    # path's; slice_planes: the XLA engine's do_crf runs); times: per
+    # request at B=8 (slice_planes: per XLA-engine do_crf image)
     launches = crf_report["launches"]
     line = [{
         "name": "fused_mbconv", "route": "cuda",
@@ -1281,17 +1695,36 @@ def main() -> int:
         "max_abs_err": sepconv_report["max_abs_err"],
         "ms": sepconv_report["ms"], "plain_ms": sepconv_report["plain_ms"],
         "bound_ms": sepconv_report["bound_ms"],
-        "bound_by": sepconv_report["bound_by"], "library_ms": None}]
-    for n in CK.KERNELS:
+        "bound_by": sepconv_report["bound_by"], "library_ms": None}, {
+        "name": "fused_dw_bn_relu6", "route": "cuda",
+        "source": "deeplab_tpu_torch/kernels/csrc/fused_dw.cu",
+        "replaces": "deeplab_tpu/kernels/fused_dw.py:66",
+        "launches": launches["fused_dw_bn_relu6"],
+        "max_abs_err": dw_report["max_abs_err"], "ms": dw_report["ms"],
+        "plain_ms": dw_report["plain_ms"], "bound_ms": dw_report["bound_ms"],
+        "bound_by": dw_report["bound_by"], "library_ms": None,
+        "composition_ms": dw_report["composition_ms"]}]
+    for n in CRF_KERNELS:
         rep = crf_report[n]
-        line.append({
+        entry = {
             "name": n, "route": "cuda",
             "source": "deeplab_tpu_torch/kernels/csrc/crf_fused.cu",
             "replaces": f"deeplab_tpu/kernels/crf_fused.py:{CRF_REPLACES[n]}",
-            "launches": launches[n], "max_abs_err": rep["max_abs_err"],
+            "launches": (notebook["launches"][n] if n == "slice_planes"
+                         else launches[n]),
+            "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"]})
+            "library_ms": rep["library_ms"]}
+        if n == "mf_step_planes":
+            ut = notebook["unary_times"]
+            entry["forms"] = {
+                "labels": launches[n],
+                "explicit_unary": notebook["launches"][n],
+                "explicit_unary_ms_per_image": ut["ms"],
+                "explicit_unary_bound_ms": ut["bound_ms"],
+                "explicit_unary_plain_ms": ut["plain_ms"]}
+        line.append(entry)
     # training phases: launches from the training run, times per step at B=16
     for n in FMT.PHASES:
         rep = train_report[n]

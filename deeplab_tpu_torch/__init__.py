@@ -16,7 +16,11 @@ backward through the five phase kernels of
 ``kernels/csrc/fused_mbconv_train.cu``.  And serving the Xception
 ``SegNet(..., backbone="xception", OS=16 | 8)`` and both nets with the
 ``'subpixel'`` head: every eval-mode stride-1 SepConv_BN of the Xception net
-runs through ``kernels/csrc/fused_sepconv.cu``.
+runs through ``kernels/csrc/fused_sepconv.cu``.  And the evaluation path:
+``viz.calculate_iou`` and the confusion-matrix metrics, ``crf.mean_field`` and
+``crf.do_crf`` on both CRF engines (the XLA engine's color blur and slice in
+``kernels/csrc/crf_fused.cu``); MobileNetV2 block 0 runs through
+``kernels/csrc/fused_dw.cu``.
 """
 
 from deeplab_tpu_torch.models.seg_model import SegNet

@@ -1,7 +1,9 @@
-"""Dense CRF post-processing (deeplab_tpu/crf/__init__.py): the cell-plane
-mean field and its four named configurations."""
+"""Dense CRF post-processing (deeplab_tpu/crf/__init__.py): the batched mean
+field over hard masks, the reference-API ``mean_field`` and ``do_crf``, and
+the four named configurations."""
 
 from deeplab_tpu_torch.crf.dense_crf import (CrfConfig, color_band_taps,
+                                             do_crf, mean_field,
                                              mean_field_batched,
                                              unary_from_labels)
 
@@ -24,6 +26,6 @@ THROUGHPUT_CONFIG = CrfConfig(color_step=2.5, color_taps="lsq",
 PRODUCTION_CONFIG = CrfConfig(color_step=1.5, color_taps="nnls",
                               splat_stride=2)
 
-__all__ = ["CrfConfig", "color_band_taps", "mean_field_batched",
-           "unary_from_labels", "FAITHFUL_CONFIG", "FAST_FAITHFUL_CONFIG",
+__all__ = ["CrfConfig", "color_band_taps", "do_crf", "mean_field",
+           "mean_field_batched", "unary_from_labels", "FAITHFUL_CONFIG", "FAST_FAITHFUL_CONFIG",
            "THROUGHPUT_CONFIG", "PRODUCTION_CONFIG"]

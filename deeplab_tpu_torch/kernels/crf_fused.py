@@ -1,12 +1,15 @@
-"""The dense CRF's four kernels on cell planes: splat, norm-pass slice,
-spatial blur and mean-field step, each beside its plain PyTorch version.
+"""The dense CRF's kernels on cell planes: splat, norm-pass slice, spatial
+blur, mean-field step, and the plain color blur and slice of the XLA
+engine, each beside its plain PyTorch version.
 
 Replaces the TPU kernels of ``deeplab_tpu/kernels/crf_fused.py``:
 
 - ``splat_planes`` (its ``pl.pallas_call`` at line 702),
 - ``slice_attrs_planes`` (line 890),
 - ``gaussian_blur_planes`` (line 568, the fused row kernel),
-- ``mf_step_planes`` (line 988).
+- ``mf_step_planes`` (line 988), with the unary rebuilt from the label row
+  or read from an explicit (Z, L, P) stream,
+- ``slice_planes`` (line 731).
 
 The CUDA source is ``csrc/crf_fused.cu``; its header says what bounds each
 kernel on the H100 and how the design deals with it.  The TPU forms the
@@ -45,15 +48,17 @@ ATTR_LABEL = 6    # hard label (exact small ints in f32)
 ATTR_BSCALE = 7   # splat-side scale: b_norm * valid * stride^2
 ATTR_ROWS = 8
 
+# the plane engine's kernels, and the XLA engine's (crf/dense_crf.py)
 KERNELS = ("splat_planes", "slice_attrs_planes", "gaussian_blur_planes",
            "mf_step_planes")
+XLA_KERNELS = ("splat_planes", "slice_planes")
 
 # A kernel against its plain version on the same inputs, relative to the
 # largest value of each output (of each attrs row): both take the same
 # bf16-rounded operands, whose products are exact in f32, and differ in
-# summation order.  f32 outputs 1e-4; bf16 outputs, and the b_norm/b_scale
-# rows sliced from a bf16-rounded grid, 2 bf16 ulps (one rounding may
-# flip); the step's Q 4 ulps (a flipped grid rounding moves a logit by
+# summation order.  f32 outputs 1e-4; bf16 outputs, and the f32 values sliced
+# from a bf16-rounded grid (the b_norm/b_scale rows, slice_planes), 2 bf16
+# ulps (one rounding may flip); the step's Q 4 ulps (a flipped grid rounding moves a logit by
 # cb * b_norm * 2^-8 of the slice).
 PLAIN_F32_REL, PLAIN_BF16_REL, PLAIN_STEP_REL = 1e-4, 2.0 ** -7, 2.0 ** -6
 
@@ -138,7 +143,7 @@ def splat_planes_reference(rgb, values, *, nc: int, L: int, inv_step: float,
     return out
 
 
-def _blur_slice_reference(grid, coords, *, nc: int, L: int, ctaps):
+def _blur_slice(grid, coords, *, nc: int, L: int, ctaps):
     """Color blur of the cell grids and slice at each pixel, as the TPU's
     ``_blur_slice``: bf16(grid) @ bf16(Brg) in f32, the b band in f32,
     rounded to bf16, @ t_rg in f32, then the b hat weights in f32.
@@ -168,6 +173,14 @@ def _blur_slice_reference(grid, coords, *, nc: int, L: int, ctaps):
     return out
 
 
+def slice_planes_reference(rgb, grid, *, nc: int, L: int, inv_step: float,
+                           ctaps):
+    """Color blur and slice of a z-blurred grid (Z, nc*L, nc*nc) f32 at the
+    pixels of the rgb planes (Z, 3, P) f32 0-255 (the TPU's ``_blur_slice``).
+    Returns (Z, L, P) f32."""
+    return _blur_slice(grid, rgb.float() * inv_step, nc=nc, L=L, ctaps=ctaps)
+
+
 def _subsample(x, stride: int, cs_y: int, cs_x: int):
     Z, R, _ = x.shape
     sub = x.reshape(Z, R, cs_y, cs_x)[:, :, ::stride, ::stride]
@@ -194,7 +207,7 @@ def slice_attrs_planes_reference(rgb, grid, gn, labels, *, nc: int, L: int,
     BZ, _, P = rgb.shape
     rgb = rgb.float()
     coords = rgb * inv_step
-    filt = _blur_slice_reference(grid, coords, nc=nc, L=1, ctaps=ctaps)
+    filt = _blur_slice(grid, coords, nc=nc, L=1, ctaps=ctaps)
     frac = coords - torch.floor(coords)
     s0, s1 = 1.0 - frac, frac
     R = len(ctaps) // 2
@@ -243,24 +256,29 @@ def gaussian_blur_planes_reference(a, gn, *, taps, B: int, ny: int,
             .reshape(BZ, L, P).contiguous())
 
 
-def mf_step_planes_reference(attrs, grid, f_gauss, q, *, nc: int, L: int,
-                             inv_step: float, ctaps, cg: float, cb: float,
-                             n_energy: float, p_energy: float,
-                             sub_stride: int = 1, cs_y: int = 0,
-                             cs_x: int = 0):
+def mf_step_planes_reference(attrs, grid, f_gauss, q, unary=None, *, nc: int,
+                             L: int, inv_step: float, ctaps, cg: float,
+                             cb: float, n_energy: float = 0.0,
+                             p_energy: float = 0.0, sub_stride: int = 1,
+                             cs_y: int = 0, cs_x: int = 0):
     """One mean-field iteration tail: color blur and slice of the
     z-blurred grid (Z, D, C) bf16, spatial and bilateral messages, the
-    two-level unary from the label row, softmax over L.  Returns (Q_next,)
-    (Z, L, P) in q's dtype, plus Q_next subsampled when ``sub_stride`` > 1."""
+    unary, softmax over L.  The unary is the two-level one rebuilt from the
+    label row with ``(n_energy, p_energy)`` (the serving path), or the
+    explicit energies ``unary`` (Z, L, P) bf16.  Returns (Q_next,) (Z, L, P)
+    in q's dtype, plus Q_next subsampled when ``sub_stride`` > 1."""
     coords = attrs[:, :3] * inv_step
-    filt = _blur_slice_reference(grid, coords, nc=nc, L=L, ctaps=ctaps)
+    filt = _blur_slice(grid, coords, nc=nc, L=L, ctaps=ctaps)
     qf = q.float()
     gn = attrs[:, ATTR_GN:ATTR_GN + 1]
     bn = attrs[:, ATTR_BN:ATTR_BN + 1]
-    lab = attrs[:, ATTR_LABEL:ATTR_LABEL + 1]
-    iota = torch.arange(L, dtype=_F32, device=q.device)[None, :, None]
-    u = torch.where(iota == lab, torch.tensor(p_energy, dtype=_F32),
-                    torch.tensor(n_energy, dtype=_F32))
+    if unary is None:
+        lab = attrs[:, ATTR_LABEL:ATTR_LABEL + 1]
+        iota = torch.arange(L, dtype=_F32, device=q.device)[None, :, None]
+        u = torch.where(iota == lab, torch.tensor(p_energy, dtype=_F32),
+                        torch.tensor(n_energy, dtype=_F32))
+    else:
+        u = unary.float()
     msg_g = (f_gauss.float() - qf * gn) * gn
     msg_b = torch.clamp(
         filt - attrs[:, ATTR_BSELF:ATTR_BSELF + 1] * bn * qf, min=0.0) * bn
@@ -281,8 +299,9 @@ _SIGS = {
     "crf_slice_attrs_launch": [_VOID] * 10 + [_INT] * 12 + [_FLT] * 3
                               + [_VOID],
     "crf_blur_launch": [_VOID] * 4 + [_INT] * 7 + [_VOID],
-    "crf_mf_step_launch": [_VOID] * 8 + [_INT] * 7 + [_FLT] * 5
+    "crf_mf_step_launch": [_VOID] * 9 + [_INT] * 7 + [_FLT] * 5
                           + [_VOID],
+    "crf_slice_launch": [_VOID] * 5 + [_INT] * 5 + [_FLT, _VOID],
 }
 
 
@@ -454,16 +473,16 @@ def gaussian_blur_planes(a, gn, *, taps, B: int, ny: int, nx: int,
     return out
 
 
-def mf_step_planes(attrs, grid, f_gauss, q, *, nc: int, L: int,
+def mf_step_planes(attrs, grid, f_gauss, q, unary=None, *, nc: int, L: int,
                    inv_step: float, ctaps, cg: float, cb: float,
-                   n_energy: float, p_energy: float, sub_stride: int = 1,
-                   cs_y: int = 0, cs_x: int = 0):
+                   n_energy: float = 0.0, p_energy: float = 0.0,
+                   sub_stride: int = 1, cs_y: int = 0, cs_x: int = 0):
     """Same arguments as :func:`mf_step_planes_reference`."""
     kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps, cg=cg, cb=cb,
               n_energy=n_energy, p_energy=p_energy, sub_stride=sub_stride,
               cs_y=cs_y, cs_x=cs_x)
     if not _on_cuda(attrs, "mf_step_planes"):
-        return mf_step_planes_reference(attrs, grid, f_gauss, q, **kw)
+        return mf_step_planes_reference(attrs, grid, f_gauss, q, unary, **kw)
     Z, _, P = attrs.shape
     dev = attrs.device
     _check_grid(nc, inv_step, L)
@@ -476,6 +495,8 @@ def mf_step_planes(attrs, grid, f_gauss, q, *, nc: int, L: int,
     _check("grid", grid, (Z, D, C), (_BF16,), dev)
     _check("f_gauss", f_gauss, (Z, L, P), (_BF16,), dev)
     _check("q", q, (Z, L, P), (_BF16,), dev)
+    if unary is not None:
+        _check("unary", unary, (Z, L, P), (_BF16,), dev)
     pack = _color_taps_host(tuple(ctaps))
     out = torch.empty_like(q)
     sub = None
@@ -488,6 +509,7 @@ def mf_step_planes(attrs, grid, f_gauss, q, *, nc: int, L: int,
         attrs.data_ptr(), grid.data_ptr(), scratch.data_ptr(),
         f_gauss.data_ptr(), q.data_ptr(), out.data_ptr(),
         sub.data_ptr() if sub is not None else None,
+        unary.data_ptr() if unary is not None else None,
         pack.ctypes.data, len(ctaps), Z, P, L, nc, max(sub_stride, 1),
         cs_x, inv_step, cg, cb, n_energy, p_energy, _stream(attrs))
     _ok(lib, rc, "mf_step_planes")
@@ -497,22 +519,47 @@ def mf_step_planes(attrs, grid, f_gauss, q, *, nc: int, L: int,
     return (out,)
 
 
+def slice_planes(rgb, grid, *, nc: int, L: int, inv_step: float, ctaps):
+    """Same arguments as :func:`slice_planes_reference`."""
+    kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps)
+    if not _on_cuda(rgb, "slice_planes"):
+        return slice_planes_reference(rgb, grid, **kw)
+    Z, _, P = rgb.shape
+    dev = rgb.device
+    _check_grid(nc, inv_step, L)
+    C, D = nc * nc, nc * L
+    _check("rgb", rgb, (Z, 3, P), (_F32,), dev)
+    _check("grid", grid, (Z, D, C), (_F32,), dev)
+    pack = _color_taps_host(tuple(ctaps))
+    out = torch.empty((Z, L, P), dtype=_F32, device=dev)
+    scratch = torch.empty((Z, D, C), dtype=_BF16, device=dev)
+    lib = _lib()
+    rc = lib.crf_slice_launch(
+        rgb.data_ptr(), grid.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        pack.ctypes.data, len(ctaps), Z, P, L, nc, inv_step, _stream(rgb))
+    _ok(lib, rc, "slice_planes")
+    slice_planes.launches += 1
+    return out
+
+
 splat_planes.launches = 0
 slice_attrs_planes.launches = 0
 gaussian_blur_planes.launches = 0
 mf_step_planes.launches = 0
+slice_planes.launches = 0
 
 
 # ---------------------------------------- kernels against plain versions ----
 
 @contextlib.contextmanager
-def plain_versions():
-    """Within the block each wrapper of this module runs its plain version,
-    on any device, and records the call: yields {name: [(args, kw, out)]}
-    in call order.  The launch counts do not move."""
+def plain_versions(names=KERNELS):
+    """Within the block each wrapper named (by default the plane engine's;
+    ``XLA_KERNELS`` for the XLA engine's) runs its plain version, on any
+    device, and records the call: yields {name: [(args, kw, out)]} in call
+    order.  The launch counts do not move."""
     mod = sys.modules[__name__]
-    calls = {n: [] for n in KERNELS}
-    saved = {n: getattr(mod, n) for n in KERNELS}
+    calls = {n: [] for n in names}
+    saved = {n: getattr(mod, n) for n in names}
 
     def recorder(name):
         ref = getattr(mod, name + "_reference")
@@ -522,7 +569,7 @@ def plain_versions():
             calls[name].append((args, kw, out))
             return out
         return call
-    for n in KERNELS:
+    for n in names:
         setattr(mod, n, recorder(n))
     try:
         yield calls
@@ -548,6 +595,8 @@ def max_err_vs_plain(name: str, got, want):
             pairs = [(g[:, k], w[:, k], PLAIN_BF16_REL if k in (
                 ATTR_BN, ATTR_BSCALE) else PLAIN_F32_REL)
                 for k in range(ATTR_ROWS)]
+        elif name == "slice_planes":
+            pairs = [(g, w, PLAIN_BF16_REL)]
         elif g.dtype == _F32:
             pairs = [(g, w, PLAIN_F32_REL)]
         else:

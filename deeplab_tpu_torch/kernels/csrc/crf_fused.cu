@@ -1,11 +1,14 @@
 // The dense CRF's cell-plane kernels for Hopper (sm_90a): splat, norm-pass
-// slice, spatial blur and mean-field step.
+// slice, spatial blur, mean-field step, and the plain color blur and slice.
 //
 // Replaces the TPU kernels of deeplab_tpu/kernels/crf_fused.py:
 //   splat_planes          (pl.pallas_call at line 702)
 //   slice_attrs_planes    (line 890)
 //   gaussian_blur_planes  (line 568, the fused row kernel)
-//   mf_step_planes        (line 988)
+//   mf_step_planes        (line 988; both forms: the unary rebuilt from the
+//                          label row, or read from an explicit (Z, L, P)
+//                          stream)
+//   slice_planes          (line 731)
 //
 // Layouts (deeplab_tpu_torch/kernels/crf_fused.py): a cell plane is (Z, ch, P)
 // with P = cs_y * cs_x pixels, row-major in the cell; a cell's bilateral grid
@@ -35,12 +38,17 @@
 //    then the b band in f32, and writes the blurred grid in bf16 to device
 //    memory (scratch, L2-resident at the main path's sizes).  Once per cell,
 //    not once per pixel chunk as on the TPU.
-//  - slice_attrs / mf_step pixel pass: one thread per pixel works out its 8
-//    corners once, gathers them for each label from the blurred grid in
+//  - slice_attrs / mf_step / slice pixel pass: one thread per pixel works out
+//    its 8 corners once, gathers them for each label from the blurred grid in
 //    device memory (the neighbouring pixels of a block share most corners,
 //    so the gathers hit L1), and does the messages and the softmax in f32
 //    with its L logits in shared memory.  Staging a cell's grid in shared
 //    memory (142 KB at nc = 15, L = 21) measured slower: one block per SM.
+//    The explicit-unary step reads one more bf16 (L, P) stream; it is its
+//    own instantiation, so the labels form's inner loop carries no test of
+//    it (a runtime test there measured 9% slower).  slice_planes
+//    (the XLA engine's color blur and slice) is the grid blur of an f32 grid
+//    followed by the same gather, with f32 outputs and no messages.
 //  - spatial blur: one block per (cell, label, strip of TY rows) stages
 //    bf16(Q * gn) with an r-pixel halo from the neighbouring cells (zero
 //    outside the image), runs the y pass into a bf16 strip (4 rows a thread,
@@ -352,10 +360,13 @@ struct StepArgs {
   const bf16* q;          // (Z, L, P)
   bf16* out;              // (Z, L, P)
   bf16* out_sub;          // (Z, L, Ps) or null
+  const bf16* unary;      // (Z, L, P) explicit energies, or null: the
+                          // two-level unary from the label row
   int P, L, nc, stride, cs_x;
   float inv_step, cg, cb, n_energy, p_energy;
 };
 
+template <bool UNARY>
 __global__ void __launch_bounds__(256) mf_step_kernel(StepArgs a) {
   const int z = blockIdx.x, P = a.P, L = a.L, C = a.nc * a.nc;
   // gathers from the cell's blurred grid in device memory (L2-resident);
@@ -381,7 +392,8 @@ __global__ void __launch_bounds__(256) mf_step_kernel(StepArgs a) {
       const float q = __bfloat162float(a.q[o]);
       const float msg_g = (__bfloat162float(a.fg[o]) - q * gn) * gn;
       const float msg_b = fmaxf(filt - bself * bn * q, 0.f) * bn;
-      const float u = (float)l == lab ? a.p_energy : a.n_energy;
+      const float u = UNARY ? __bfloat162float(a.unary[o])
+                            : ((float)l == lab ? a.p_energy : a.n_energy);
       const float v = -u + a.cg * msg_g + a.cb * msg_b;
       lg[l * T] = v;
       mx = fmaxf(mx, v);
@@ -400,6 +412,30 @@ __global__ void __launch_bounds__(256) mf_step_kernel(StepArgs a) {
       a.out[((size_t)z * L + l) * P + p] = v;
       if (on_sub) a.out_sub[((size_t)z * L + l) * Ps + ps] = v;
     }
+  }
+}
+
+// ------------------------------------------------------------- slice pass ----
+// out[z, l, p] = the slice at pixel p of the blurred grid's label-l planes, f32
+struct SliceArgs {
+  const float* rgb;       // (Z, 3, P)
+  const bf16* gblur;      // (Z, D, C) blurred grid
+  float* out;             // (Z, L, P)
+  int P, L, nc;
+  float inv_step;
+};
+
+__global__ void __launch_bounds__(256) slice_kernel(SliceArgs a) {
+  const int z = blockIdx.x, P = a.P, L = a.L, C = a.nc * a.nc;
+  const bf16* gb = a.gblur + (size_t)z * a.nc * L * C;
+  const float* px = a.rgb + (size_t)z * 3 * P;
+  const int p = blockIdx.y * blockDim.x + threadIdx.x;
+  if (p < P) {
+    const Hat hr = hat(px[p] * a.inv_step), hg = hat(px[P + p] * a.inv_step),
+              hb = hat(px[2 * P + p] * a.inv_step);
+    const Corners k = corners(hr, hg, hb, L, a.nc);
+    float* o = a.out + (size_t)z * L * P + p;
+    for (int l = 0; l < L; ++l) o[(size_t)l * P] = slice_at(gb, k, l * C);
   }
 }
 
@@ -624,8 +660,9 @@ int crf_blur_launch(const void* a, const float* gn, void* out,
 
 int crf_mf_step_launch(const float* attrs, const void* grid, void* scratch,
                        const void* fg, const void* q, void* out, void* out_sub,
-                       const float* ctaps, int ntaps, int Z, int P, int L,
-                       int nc, int stride, int cs_x, float inv_step, float cg,
+                       const void* unary, const float* ctaps, int ntaps,
+                       int Z, int P, int L, int nc, int stride, int cs_x,
+                       float inv_step, float cg,
                        float cb, float n_energy, float p_energy,
                        void* stream) {
   ColorTaps taps;
@@ -641,14 +678,40 @@ int crf_mf_step_launch(const float* attrs, const void* grid, void* scratch,
   a.attrs = attrs; a.gblur = (const bf16*)scratch; a.fg = (const bf16*)fg;
   a.q = (const bf16*)q; a.out = (bf16*)out;
   a.out_sub = stride > 1 ? (bf16*)out_sub : nullptr;
+  a.unary = (const bf16*)unary;
   a.P = P; a.L = L; a.nc = nc; a.stride = stride; a.cs_x = cs_x > 0 ? cs_x : P;
   a.inv_step = inv_step; a.cg = cg; a.cb = cb; a.n_energy = n_energy;
   a.p_energy = p_energy;
   const size_t smem = sizeof(float) * (size_t)L * 256;
   if (smem > (size_t)SMEM_MAX) return ERR_SMEM;
-  e = set_smem((const void*)mf_step_kernel, smem);
+  const dim3 blocks(Z, (P + 255) / 256);
+  if (unary) {
+    e = set_smem((const void*)mf_step_kernel<true>, smem);
+    if (e != cudaSuccess) return e;
+    mf_step_kernel<true><<<blocks, 256, smem, st>>>(a);
+  } else {
+    e = set_smem((const void*)mf_step_kernel<false>, smem);
+    if (e != cudaSuccess) return e;
+    mf_step_kernel<false><<<blocks, 256, smem, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+int crf_slice_launch(const float* rgb, const float* grid, void* scratch,
+                     float* out, const float* ctaps, int ntaps, int Z, int P,
+                     int L, int nc, float inv_step, void* stream) {
+  ColorTaps taps;
+  if (!read_color_taps(ctaps, ntaps, &taps) || Z <= 0 || P <= 0 || L < 1 ||
+      nc < 1)
+    return ERR_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e =
+      launch_grid_blur<float>(grid, (bf16*)scratch, Z, L, nc, taps, st);
   if (e != cudaSuccess) return e;
-  mf_step_kernel<<<dim3(Z, (P + 255) / 256), 256, smem, st>>>(a);
+  SliceArgs a;
+  a.rgb = rgb; a.gblur = (const bf16*)scratch; a.out = out;
+  a.P = P; a.L = L; a.nc = nc; a.inv_step = inv_step;
+  slice_kernel<<<dim3(Z, (P + 255) / 256), 256, 0, st>>>(a);
   return cudaGetLastError();
 }
 

@@ -7,16 +7,20 @@ of the trunk has eps 1e-3 and momentum 0.999.
 
 The 14 stride-1 blocks with an expand conv (ids 2, 4-16) take a fused path:
 ``fused_mbconv`` in eval mode, ``fused_mbconv_train.block_train`` in bf16
-training (each behind the JAX package's gate).
+training (each behind the JAX package's gate).  Block 0 (expansion 1, no
+expand conv) runs its depthwise -> BN -> relu6 through ``fused_dw_bn_relu6``
+in eval mode under the same policies; its project conv and BN stay the
+composition.  The JAX package leaves that kernel unwired.
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeplab_tpu_torch.kernels import fused_dw as FDW
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
 from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
-from deeplab_tpu_torch.ops.bn import BatchNorm
+from deeplab_tpu_torch.ops.bn import BatchNorm, bn_scale_shift
 from deeplab_tpu_torch.ops.conv import Conv2D, DepthwiseConv2D, relu6
 
 
@@ -90,9 +94,38 @@ def _use_fused_block(net, x, policy, stride: int, block_id: int) -> bool:
                 and x.shape[2] % 8 == 0)
 
 
+def _use_fused_dw(net, policy, stride: int, block_id: int) -> bool:
+    """Block 0's depthwise -> BN -> relu6 runs ``fused_dw_bn_relu6`` in eval
+    mode under the bf16 and "mixed" policies (the conditions of
+    :func:`_use_fused_block`; the kernel takes any map size).  float32,
+    training and ``fuse_blocks=False`` keep the composition."""
+    return bool(net.fuse_blocks and block_id == 0 and stride == 1
+                and not net.training
+                and (policy.dtype == torch.bfloat16
+                     or (policy.dtype == torch.float32 and policy.mxu_bf16)))
+
+
+def fused_dw_apply(net, x, prefix: str, rate: int, policy):
+    """``relu6(BN(depthwise(x)))`` of block ``prefix`` through
+    :func:`fused_dw_bn_relu6`, the eval BN folded with its own eps
+    (``bn_scale_shift``, as ``fold_block`` folds it).  ``x`` is NCHW; the
+    result is NCHW in channels-last memory."""
+    scale, shift = bn_scale_shift(getattr(net, prefix + "depthwise_BN"))
+    kd = getattr(net, prefix + "depthwise").depthwise_kernel     # (C,1,3,3)
+    taps = kd.float().permute(2, 3, 0, 1).contiguous()           # (3,3,C,1)
+    xh = x.permute(0, 2, 3, 1).to(policy.dtype).contiguous()
+    out = FDW.fused_dw_bn_relu6(xh, taps, scale.contiguous(),
+                                shift.contiguous(), rate=rate)
+    return out.permute(0, 3, 1, 2)
+
+
 def inverted_res_block(net, x, policy, stride: int, block_id: int,
                        skip: bool, rate: int = 1):
     p = _prefix(block_id)
+    if _use_fused_dw(net, policy, stride, block_id):
+        x = fused_dw_apply(net, x, p, rate, policy)
+        return getattr(net, p + "project_BN")(
+            getattr(net, p + "project")(x, policy))
     if _use_fused_block(net, x, policy, stride, block_id):
         return FM.fused_block_apply(net, x, p, rate, skip, policy)
     if FMT.use_fused_train_block(net, x, policy, stride, block_id, p):

@@ -11,7 +11,9 @@ is a walk over names that converts two layouts on the way:
 parameters.  The Keras Subpixel layer is auto-named (``subpixel_1`` in the
 shipped ``weights/mobilenetv2_subpixel.h5``): a file layer named
 ``subpixel*`` loads onto the ``subpixel`` layer, whose kernel already has
-the phase shift's channel order.  ``trees_from_net`` is the way back: the
+the phase shift's channel order.  Keras 3's legacy-h5 writer stores a
+depthwise layer's kernel as ``<layer>/kernel`` (the same file): the h5
+loader reads it as that layer's ``depthwise_kernel``.  ``trees_from_net`` is the way back: the
 net's parameters and buffers (or its gradients) as Keras-layout trees.
 """
 
@@ -123,6 +125,17 @@ def _canonical_layer(lname: str, net) -> str:
     return lname
 
 
+def _depthwise_names(out: dict, mod) -> dict:
+    """A depthwise layer's ``kernel`` in the file is its
+    ``depthwise_kernel``."""
+    if ("kernel" in out and "depthwise_kernel" not in out
+            and isinstance(getattr(mod, "depthwise_kernel", None),
+                           torch.Tensor)):
+        out = dict(out)
+        out["depthwise_kernel"] = out.pop("kernel")
+    return out
+
+
 def load_keras_h5(path: str, net):
     """Load a legacy Keras-2 weights file into ``net`` by layer name, like
     Keras ``load_weights(by_name=True)``: file layers the model lacks are
@@ -149,7 +162,8 @@ def load_keras_h5(path: str, net):
                     _strip(name), np.asarray(obj))
                     if hasattr(obj, "shape") else None)
             if out:
-                tree[_canonical_layer(lname, net)] = out
+                layer = _canonical_layer(lname, net)
+                tree[layer] = _depthwise_names(out, getattr(net, layer, None))
     if _assign(net, (tree,), strict=False) == 0:
         raise ValueError(f"no weights matched the model in {path}")
     return net

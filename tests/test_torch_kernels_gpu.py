@@ -14,6 +14,10 @@ f32; a summation-order ulp can flip one bf16-rounded depthwise output
 ``fused_sepconv`` is held, as in chip_smoke.py, to 2e-3 ("mixed") and 1e-2
 (bf16) of its largest output at the Xception net's ragged widths.
 
+``fused_dw_bn_relu6`` is held to its plain version within 1e-5 (f32) and 2
+bf16 ulps (bf16) of its largest output, at ragged maps and channel counts,
+an odd C (one channel a thread) and a rate past the map.
+
 The CRF kernels are held to their plain versions on the inputs the main path
 gives them: a CRF run with the plain versions records every call, then each
 kernel runs on the recorded inputs and is compared with the recorded output
@@ -21,8 +25,13 @@ kernel runs on the recorded inputs and is compared with the recorded output
 does; tolerances there: f32 outputs 1e-4 of the largest value, bf16 outputs
 2 bf16 ulps, the step's Q 4 ulps).  The geometries: production (nc 15, stride 2), fast-faithful
 (nc 13, stride 1), throughput (nc 9, stride 4) and faithful (nc 21, whose
-blurred grid is too large for shared memory), with padded cells.
+blurred grid is too large for shared memory), with padded cells.  The
+reference-API CRF the same way: ``slice_planes`` (tolerance 2 bf16 ulps)
+and the splat through the XLA engine, the explicit-unary step through the
+plane engine's ``mean_field``, each with exact launch counts.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,6 +40,7 @@ import torch
 from crf_scenes import make_scene
 from deeplab_tpu_torch import crf as CRF
 from deeplab_tpu_torch.kernels import crf_fused as CK
+from deeplab_tpu_torch.kernels import fused_dw as FDW
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
 
 
@@ -274,3 +284,122 @@ def test_train_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                         # non-contiguous
         FMT.f1(x.to(torch.bfloat16).transpose(1, 2), w1)
     assert FMT.f1.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,rate", [
+    (2, 37, 53, 24, 4),      # ragged map, C not a multiple of the chunk
+    (1, 64, 64, 384, 2),     # 12 chunks of 32 channels
+    (2, 20, 36, 7, 1),       # odd C: one channel a thread
+    (1, 32, 32, 16, 18),     # the halo passes the map
+])
+def test_fused_dw_kernel_matches_reference(cuda, relu, x_dtype, B, H, W, C,
+                                           rate):
+    r = np.random.RandomState(C + rate)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (r.randn(*s) * sc).astype(np.float32)).to(cuda)
+    x = t(B, H, W, C).to(x_dtype)
+    k, scale, shift = t(3, 3, C, 1, sc=0.3), 1 + t(C, sc=0.2), t(C, sc=0.5)
+    before = FDW.fused_dw_bn_relu6.launches
+    got = FDW.fused_dw_bn_relu6(x, k, scale, shift, rate=rate, relu6=relu)
+    ref = FDW.fused_dw_bn_relu6_reference(x, k, scale, shift, rate=rate,
+                                          relu6=relu)
+    torch.cuda.synchronize()
+    assert FDW.fused_dw_bn_relu6.launches == before + 1
+    assert got.dtype == x_dtype and got.shape == x.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    scale_ = ref.float().abs().max().item()
+    tol = 1e-5 if x_dtype == torch.float32 else 2 * 2.0 ** -8
+    assert scale_ > 0 and err <= tol * scale_, (err, scale_)
+
+
+@pytest.mark.gpu
+def test_fused_dw_wrapper_raises_instead_of_falling_back(cuda):
+    x = torch.zeros(1, 8, 8, 16, device=cuda)
+    k = torch.zeros(3, 3, 16, 1, device=cuda)
+    s = torch.ones(16, device=cuda)
+    before = FDW.fused_dw_bn_relu6.launches
+    with pytest.raises(ValueError):                 # no fp16 mode
+        FDW.fused_dw_bn_relu6(x.half(), k, s, s)
+    with pytest.raises(ValueError):                 # non-contiguous input
+        FDW.fused_dw_bn_relu6(x.transpose(1, 2), k, s, s)
+    with pytest.raises(ValueError):                 # bf16 taps
+        FDW.fused_dw_bn_relu6(x, k.bfloat16(), s, s)
+    assert FDW.fused_dw_bn_relu6.launches == before
+
+
+def _scene_on(cuda, H, W, L, seed):
+    im, mask = make_scene(H, W, L, seed)
+    U = CRF.dense_crf.unary_from_labels(torch.from_numpy(mask).reshape(-1),
+                                        L, 0.7, zero_unsure=False)
+    U = U + torch.from_numpy(np.random.RandomState(seed).rand(*U.shape)
+                             .astype(np.float32)) * 0.5
+    return torch.from_numpy(im).to(cuda), U.to(cuda)
+
+
+def _counts():
+    return {n: getattr(CK, n).launches
+            for n in CK.KERNELS + ("slice_planes",)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,H,W,L", [
+    (CRF.CrfConfig(backend="xla"), 96, 200, 21),          # nc 21, padded
+    # nc 15, nnls taps, stride 2
+    (dataclasses.replace(CRF.PRODUCTION_CONFIG, backend="xla"), 80, 120, 11),
+    (CRF.CrfConfig(sxy_bilateral=15.0, backend="xla"), 30, 30, 5),  # P = 225
+])
+def test_xla_engine_kernels_match_reference(cuda, cfg, H, W, L):
+    im, U = _scene_on(cuda, H, W, L, 3)
+    with CK.plain_versions(CK.XLA_KERNELS) as calls:
+        q_plain = CRF.mean_field(im, U, cfg, L)
+    assert {n: len(c) for n, c in calls.items()} == {
+        "splat_planes": 6, "slice_planes": 6}
+    for kname in CK.XLA_KERNELS:
+        kernel = getattr(CK, kname)
+        for args, kw, want in calls[kname]:
+            before = kernel.launches
+            got = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            err, ok = CK.max_err_vs_plain(kname, got, want)
+            assert ok, (kname, err)
+    before = _counts()
+    q = CRF.mean_field(im, U, cfg, L)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in _counts().items()}
+    assert moved == {"splat_planes": 6, "slice_attrs_planes": 0,
+                     "gaussian_blur_planes": 0, "mf_step_planes": 0,
+                     "slice_planes": 6}, moved
+    agree = (q.argmax(-1) == q_plain.argmax(-1)).float().mean().item()
+    assert agree >= 0.99, agree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,H,W,L", [("FAITHFUL_CONFIG", 128, 256, 21),
+                                        ("PRODUCTION_CONFIG", 80, 120, 11)])
+def test_explicit_unary_step_matches_reference(cuda, name, H, W, L):
+    cfg = getattr(CRF, name)
+    im, U = _scene_on(cuda, H, W, L, 4)
+    with CK.plain_versions() as calls:
+        q_plain = CRF.mean_field(im, U, cfg, L)
+    assert len(calls["mf_step_planes"]) == cfg.n_iters
+    for args, kw, want in calls["mf_step_planes"]:
+        assert args[4] is not None and args[4].dtype == torch.bfloat16
+        before = CK.mf_step_planes.launches
+        got = CK.mf_step_planes(*args, **kw)
+        torch.cuda.synchronize()
+        assert CK.mf_step_planes.launches == before + 1
+        err, ok = CK.max_err_vs_plain("mf_step_planes", got, want)
+        assert ok, err
+    before = _counts()
+    q = CRF.mean_field(im, U, cfg, L)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in _counts().items()}
+    assert moved == {"splat_planes": 6, "slice_attrs_planes": 1,
+                     "gaussian_blur_planes": 5, "mf_step_planes": 5,
+                     "slice_planes": 0}, moved
+    agree = (q.argmax(-1) == q_plain.argmax(-1)).float().mean().item()
+    assert agree >= 0.99, agree

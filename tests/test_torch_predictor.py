@@ -61,9 +61,21 @@ def test_predictor_masks_match_jax(tiles, jax_masks, policy, floor):
     dict(mesh=object()), dict(spatial=True), dict(tta_scales=(0.5, 1.0)),
     dict(tta_flip=True),
     dict(crf=CrfConfig(resolution_scale=2)),
-    dict(crf=CrfConfig(backend="xla")),
-    # small-sigma cells need the spatial blur's image-layout fallback
+    dict(crf=CrfConfig(backend="xla", resolution_scale=2)),
+    # small-sigma cells need the plane engine's image-layout blur fallback
     dict(crf=CrfConfig(sxy_bilateral=16.0))])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError):
         Predictor(SegNet((16, 16), 3), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("cfg", [CrfConfig(backend="xla"),
+                                 CrfConfig(sxy_bilateral=16.0,
+                                           backend="xla")])
+def test_xla_engine_takes_any_cell_geometry(cfg):
+    """The XLA engine's square cells take the small-sigma geometry the
+    plane engine does not (the notebook's CrfConfig(sxy_bilateral=16))."""
+    pred = Predictor(SegNet((32, 32), 3), crf=cfg, device="cpu")
+    out = pred(np.random.RandomState(0).rand(2, 32, 32, 3) * 255)
+    assert out.shape == (2, 32, 32) and out.dtype == np.int32
+    assert out.min() >= 0 and out.max() < 3
