@@ -77,7 +77,26 @@ Phases, each of which fails the run (exit code 1, no result line):
    6/1/5/5 launches), against the same run with every plain version in its
    kernel's place; times of both new kernels beside their bounds, block 0
    through the layer composition, ``do_crf`` ms per image on each engine and
-   the evaluation loop's ms per image.
+   the evaluation loop's ms per image;
+9. the rest of the CRF: the spatial blur's y and x kernels against their
+   plain versions at the VOC cell heights 75, 50 and 72 (r = 8), radii 20
+   and 32 on 64x128 cells, a ragged L and both forms of gn, and on every
+   blur call of the runs below; ``mean_field_batched`` at
+   ``PRODUCTION_CONFIG`` on seeded (8, 375, 500) and (8, 500, 375) scenes
+   (per run splat 6, slice_attrs 1, y 5, x 5, row blur 0, mf_step 5) and
+   ``do_crf`` at ``CrfConfig()`` on 375x500 and 500x375 scenes with 2, 5
+   and 21 labels, each against the same run with the plain versions;
+   ``Predictor(net, crf=PRODUCTION_CONFIG at resolution_scale 2, "mixed")``
+   serving 3 requests of 8 (per request 1 + 14 model launches and the CRF
+   6 / 1 / 5 with no blur kernel: its 32x40 cells take the image-layout
+   blur), ``do_crf`` on the XLA engine at ``resolution_scale`` 2 and the
+   oracle golden of tests/test_crf_pallas.py's resolution_scale test (floor
+   0.90); the notebook's ``CrfConfig(sxy_bilateral=16)`` and
+   ``CrfConfig(sxy_gaussian=8)`` through ``do_crf`` at 512x512; then, with
+   CUDA events, each pass per launch at the (8, 375, 500) shapes beside its
+   bound, its plain version, one depthwise ``F.conv2d`` and the row kernel
+   launched on the same input, ``mean_field_batched`` per (8, 375, 500)
+   batch, and production end to end at ``resolution_scale`` 2, B=16.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -145,7 +164,8 @@ XLA_PER_IMAGE = {"splat_planes": 6, "slice_planes": 6}
 # the TPU kernels they replace (file:line of the pl.pallas_call)
 CRF_REPLACES = {"splat_planes": 702, "slice_attrs_planes": 890,
                 "gaussian_blur_planes": 568, "mf_step_planes": 988,
-                "slice_planes": 731}
+                "slice_planes": 731, "gaussian_blur_y_planes": 628,
+                "gaussian_blur_x_planes": 638}
 # (each CRF kernel against its plain version: the PLAIN_*_REL tolerances of
 # deeplab_tpu_torch/kernels/crf_fused.py)
 # CRF masks with the kernels vs with the plain versions; oracle goldens
@@ -185,6 +205,25 @@ DW_SHAPES = ((SERVE_B, 256, 256, 32, 1), (SERVE_B, 64, 64, 384, 2),
 DO_CRF_LABELS, GOLDEN_DEFAULT_FLOOR = (2, 5, 21), 0.97
 EVAL_BATCHES = 4
 EVAL_MEAN_TOL = 0.01
+# the rest of the CRF: VOC image sizes (their cell heights 75 and 50 take
+# the blur's y and x passes), per run of the plane engine
+VOC_SIZES = ((375, 500), (500, 375))
+VOC_PER_RUN = {"splat_planes": 6, "slice_attrs_planes": 1,
+               "gaussian_blur_y_planes": 5, "gaussian_blur_x_planes": 5,
+               "mf_step_planes": 5}
+# resolution_scale 2 at 512x512: 32x40 cells, the image-layout blur
+RS2_PER_REQUEST = {"splat_planes": 6, "slice_attrs_planes": 1,
+                   "mf_step_planes": 5}
+# the oracle floor of tests/test_crf_pallas.py::test_resolution_scale_quality
+RS2_GOLDEN_FLOOR = 0.90
+# the y and x kernels against their plain versions: (B, ny, nx, cs_y, cs_x,
+# L, sigma, gn per image); sigma 8 and 12.5 give radii 20 and 32
+BLUR_PASS_SHAPES = ((SERVE_B, 5, 4, 75, 128, 21, 3.0, False),
+                    (SERVE_B, 10, 3, 50, 128, 21, 3.0, True),
+                    (SERVE_B, 5, 4, 72, 128, 21, 3.0, False),
+                    (SERVE_B, 8, 4, 64, 128, 21, 8.0, False),
+                    (SERVE_B, 8, 4, 64, 128, 21, 12.5, True),
+                    (2, 5, 4, 75, 128, 7, 3.0, True))
 
 def card_line() -> str:
     out = subprocess.run(
@@ -261,7 +300,8 @@ def crf_bound_ms(CK, name, args, kw, out):
     but ATTR_BSCALE for mf_step), against the f32 operations the sparse
     form needs at 67 TFLOP/s (2 per multiply-add: 8 grid corners per
     (pixel, label) for the splat and the slice, the color-blur stencil per
-    grid value, 2 x 17 taps per blurred value)."""
+    grid value, 2 x 17 taps per blurred value; 17 taps a pass for the y and
+    x passes, and the y pass's gn multiply)."""
     rows_read = {"splat_planes": 4, "mf_step_planes": CK.ATTR_ROWS - 1}
     nbytes = sum(t.numel() * t.element_size()
                  for t in tensors(args[1:]) + tensors(kw) + tensors(out))
@@ -271,6 +311,10 @@ def crf_bound_ms(CK, name, args, kw, out):
     nbytes += first.numel() * first.element_size() * share
     if name == "gaussian_blur_planes":
         ops = 2 * (2 * len(kw["taps"]) + 1) * out.numel()
+    elif name == "gaussian_blur_y_planes":     # the taps and the gn multiply
+        ops = (2 * len(kw["taps"]) + 1) * out.numel()
+    elif name == "gaussian_blur_x_planes":
+        ops = 2 * len(kw["taps"]) * out.numel()
     else:
         # (pixel, label) pairs: the values splatted, or the Q sliced
         if name == "splat_planes":
@@ -412,6 +456,32 @@ def train_bound_ms(name, args, out):
     return 1e3 * t, ("bytes" if t == t_b else "operations")
 
 
+def device_table(fn, what, calls=3, top=12):
+    """Where ``fn``'s device time goes: ``torch.profiler`` over ``calls``
+    calls, the busy share of the wall time and the top kernels per call."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+    # kernel rows only: an aten op's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / (1e3 * calls),
+             e.count // calls)
+            for e in pr.key_averages()
+            if e.self_device_time_total > 0
+            and str(e.device_type).endswith("CUDA")]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"  {what} per call under torch.profiler: device busy {busy:.3f} "
+          f"ms of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f}) "
+          f"[{card_line()}]")
+    for key, ms_, n in rows[:top]:
+        print(f"    {ms_:8.4f} ms  x{n:<3d} {key[:90]}")
+
+
 class Run:
     def __init__(self):
         self.failed = []
@@ -456,11 +526,12 @@ def main() -> int:
     dev = torch.device("cuda")
     run = Run()
     kernel_report = {}
-    CRF_KERNELS = CK.KERNELS + ("slice_planes",)
+    CRF_KERNELS = CK.KERNELS + CK.BLUR_PASSES + ("slice_planes",)
     crf_report = {n: {"max_abs_err": 0.0} for n in CRF_KERNELS}
     crf_b8 = {}
     dw_report = {}
     notebook = {}
+    geo = {}
 
     train_report = {n: {"max_abs_err": 0.0} for n in FMT.PHASES}
     train = {}
@@ -1075,6 +1146,282 @@ def main() -> int:
 
     run.phase("evaluation-slice times", slice_times)
 
+    # 9. the rest of the CRF ---------------------------------------------
+    def blur_pass_check(a, gn, kw, where):
+        """The y and x kernels against their plain versions on one blur
+        input; the x kernel takes the y pass's plain output, so both sides
+        of each comparison take the same input."""
+        y_ref = CK.gaussian_blur_y_planes_reference(a, gn, **kw)
+        x_ref = CK.gaussian_blur_x_planes_reference(y_ref, **kw)
+        with torch.inference_mode():
+            got = (CK.gaussian_blur_y_planes(a, gn, **kw),
+                   CK.gaussian_blur_x_planes(y_ref, **kw))
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(CK.BLUR_PASSES, got, (y_ref, x_ref)):
+            err, ok = CK.max_err_vs_plain(name, g, w)
+            rep = crf_report[name]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            errs.append(err)
+            if not ok:
+                raise AssertionError(f"{name} disagrees at {where}: {err} "
+                                     f"(max |plain| "
+                                     f"{w.float().abs().max().item()})")
+        return errs
+
+    def check_calls(calls, where, names=CK.KERNELS):
+        """Each kernel against its plain version on every call of a run
+        recorded with the plain versions; a spatial blur outside the row
+        kernel's geometry as its y and x passes.  The launches made here do
+        not count."""
+        saved = counts()
+        seen = {}
+        for name in names:
+            for args, kw, want in calls[name]:
+                if name == "gaussian_blur_planes" and not CK.row_kernel_fits(
+                        kw["taps"], kw["cs_y"]):
+                    blur_pass_check(*args, kw, where)
+                    seen["y and x passes"] = seen.get("y and x passes",
+                                                      0) + 1
+                    continue
+                with torch.inference_mode():
+                    got = getattr(CK, name)(*args, **kw)
+                torch.cuda.synchronize()
+                err, ok = CK.max_err_vs_plain(name, got, want)
+                rep = crf_report[name]
+                rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                if not ok:
+                    raise AssertionError(f"{name} disagrees at {where}: "
+                                         f"{err}")
+                seen[name] = seen.get(name, 0) + 1
+        set_counts(saved)
+        print(f"    every kernel call against its plain version ({where}): "
+              f"{seen} ok")
+
+    def check_blur_passes():
+        gen = torch.Generator(dev).manual_seed(SEED + 70)
+        for B, ny, nx, cs_y, cs_x, L, sigma, per_image in BLUR_PASS_SHAPES:
+            taps = tuple(float(t) for t in DC._gauss_taps(sigma))
+            Z, P = ny * nx, cs_y * cs_x
+            a = torch.rand((B * Z, L, P), generator=gen, device=dev).to(
+                torch.bfloat16)
+            gn = 0.5 + torch.rand((B * Z if per_image else Z, 1, P),
+                                  generator=gen, device=dev)
+            kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+            before = counts()
+            ey, ex = blur_pass_check(a, gn, kw, (B, ny, nx, cs_y, L, sigma))
+            moved = {k: v - before[k] for k, v in counts().items() if
+                     v != before[k]}
+            assert moved == {n: 1 for n in CK.BLUR_PASSES}, moved
+            set_counts(before)
+            form = "per image" if per_image else "shared"
+            print(f"  {B * Z} cells of {cs_y}x{cs_x}, L={L}, r="
+                  f"{len(taps) // 2}, gn {form}: y max_abs {ey:.3e}, x "
+                  f"max_abs {ex:.3e} (rel tol {CK.PLAIN_BF16_REL:.4g}) ok")
+    run.phase("spatial blur y and x kernels vs plain versions",
+              check_blur_passes)
+
+    def voc_scenes(H, W, L, seed, B):
+        pairs = [make_scene(H, W, L, seed + k) for k in range(B)]
+        return (torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev),
+                torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev))
+
+    def voc_batches():
+        cfg = CRF.PRODUCTION_CONFIG
+        runs = []
+        zero_counts()
+        for i, (H, W) in enumerate(VOC_SIZES):
+            imgs, masks = voc_scenes(H, W, CLASSES, SEED + 800 + 10 * i,
+                                     SERVE_B)
+            before = counts()
+            with torch.inference_mode():
+                out = CRF.mean_field_batched(imgs, masks, cfg, CLASSES)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in counts().items()}
+            want = {k: 0 for k in moved}
+            want.update(VOC_PER_RUN)
+            plan = DC.cell_plan(SERVE_B, H, W, cfg, dev)
+            print(f"  ({SERVE_B}, {H}, {W}) at PRODUCTION_CONFIG: cells "
+                  f"{plan.cs_y}x{plan.cs_x}, Z = {plan.Z}, splat stride "
+                  f"{plan.stride} (the config's {cfg.splat_stride}; "
+                  f"{plan.cs_y} {'is odd' if plan.cs_y % 2 else 'is even'}); "
+                  f"launches {moved} (want {want})")
+            assert moved == want, (moved, want)
+            assert out.shape == (SERVE_B, H, W) and out.dtype == torch.int32
+            assert out.min() >= 0 and out.max() < CLASSES
+            runs.append((H, W, imgs, masks, out))
+        geo["voc_launches"] = counts()
+        saved = counts()
+        for H, W, imgs, masks, out in runs:
+            with torch.inference_mode(), CK.plain_versions() as calls:
+                ref = CRF.mean_field_batched(imgs, masks, cfg, CLASSES)
+            agree = (out == ref).float().mean().item()
+            moved = (out != masks).float().mean().item()
+            print(f"  ({SERVE_B}, {H}, {W}): masks with kernels vs plain "
+                  f"versions {agree:.6f} (floor {CRF_PATH_FLOOR}); the CRF "
+                  f"changed {moved:.4f} of the pixels")
+            assert agree >= CRF_PATH_FLOOR, (H, W, agree)
+            check_calls(calls, f"({SERVE_B}, {H}, {W})")
+            if (H, W) == VOC_SIZES[0]:
+                geo["voc_blur"] = calls["gaussian_blur_planes"][0]
+                geo["voc_batch"] = (imgs, masks)
+        set_counts(saved)
+    run.phase("VOC-size batches: mean_field_batched at (8, 375, 500) and "
+              "(8, 500, 375)", voc_batches)
+
+    def voc_do_crf():
+        cfg = CRF.CrfConfig()
+        cases = []
+        for H, W in VOC_SIZES:
+            for L in DO_CRF_LABELS:
+                im, mask = make_scene(H, W, L, SEED + 900 + H + L)
+                cases.append((H, W, L, im, sparse_mask(mask, L, SEED + L)))
+        outs = []
+        zero_counts()
+        for H, W, L, im, mask in cases:
+            before = counts()
+            out = CRF.do_crf(im, mask, zero_unsure=False, cfg=cfg,
+                             device=dev)
+            moved = {k: v - before[k] for k, v in counts().items()}
+            want = {k: 0 for k in moved}
+            want.update(VOC_PER_RUN)
+            assert moved == want, (H, W, L, moved, want)
+            assert out.shape == mask.shape and out.dtype == mask.dtype
+            assert set(np.unique(out)) <= set(np.unique(mask))
+            outs.append(out)
+        geo["do_crf_launches"] = counts()
+        print(f"  do_crf at CrfConfig() on {len(cases)} images ({VOC_SIZES}, "
+              f"{DO_CRF_LABELS} labels): launches {counts()}")
+        saved = counts()
+        for (H, W, L, im, mask), out in zip(cases, outs):
+            with CK.plain_versions() as calls:
+                ref = CRF.do_crf(im, mask, zero_unsure=False, cfg=cfg,
+                                 device=dev)
+            a = float((out == ref).mean())
+            moved = float((out != mask).mean())
+            print(f"  {H}x{W} L={L:2d}: masks with kernels vs plain versions "
+                  f"{a:.6f} (floor {CRF_PATH_FLOOR}); the CRF changed "
+                  f"{moved:.4f} of the pixels")
+            assert a >= CRF_PATH_FLOOR, (H, W, L, a)
+            check_calls(calls, f"do_crf {H}x{W} L={L}")
+        set_counts(saved)
+    run.phase("do_crf at VOC size (375x500, 500x375)", voc_do_crf)
+
+    def resolution_scale():
+        cfg = dataclasses.replace(CRF.PRODUCTION_CONFIG, resolution_scale=2)
+        reqs = [scene_batch(SERVE_B, SEED + 1000 + 10 * i, "cpu")[0].numpy()
+                for i in range(N_REQUESTS)]
+        pred = Predictor(net, crf=cfg, compute_dtype="mixed",
+                         return_raw=True)
+        zero_counts()
+        outs = [pred(r) for r in reqs]
+        got = counts()
+        geo["rs2_launches"] = got
+        want = {k: 0 for k in got}
+        want["fused_mbconv"] = FUSED_PER_FORWARD * N_REQUESTS
+        want["fused_dw_bn_relu6"] = N_REQUESTS
+        want.update({n: k * N_REQUESTS for n, k in RS2_PER_REQUEST.items()})
+        plan = DC.cell_plan(SERVE_B, SIZE // 2, SIZE // 2, DC._at_scale(cfg),
+                            dev)
+        print(f"  served {N_REQUESTS} requests of B={SERVE_B} at "
+              f"PRODUCTION_CONFIG, resolution_scale 2 (the CRF at "
+              f"{SIZE // 2}x{SIZE // 2}, cells {plan.cs_y}x{plan.cs_x}, "
+              f"splat stride {plan.stride}): launches {got} (want {want})")
+        assert got == want, (got, want)
+        for raw, ref in outs:
+            for m in (raw, ref):
+                assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
+                assert m.min() >= 0 and m.max() < CLASSES
+        saved = counts()
+        img = torch.from_numpy(reqs[0]).to(dev)
+        raw0 = torch.from_numpy(outs[0][0]).to(dev)
+        with torch.inference_mode(), CK.plain_versions() as calls:
+            ref = CRF.mean_field_batched(img, raw0, cfg, CLASSES)
+        agree = float((outs[0][1] == ref.cpu().numpy()).mean())
+        moved = float((outs[0][1] != outs[0][0]).mean())
+        print(f"  the served CRF vs the same CRF with plain versions: masks "
+              f"{agree:.6f} (floor {CRF_PATH_FLOOR}); the CRF changed "
+              f"{moved:.4f} of the pixels")
+        assert agree >= CRF_PATH_FLOOR
+        check_calls(calls, "resolution_scale 2, 32x40 cells")
+
+        xcfg = CRF.CrfConfig(backend="xla", resolution_scale=2)
+        im, mask = make_scene(SIZE, SIZE, CLASSES, SEED + 1100)
+        mask = sparse_mask(mask, CLASSES, SEED + 1101)
+        before = counts()
+        out = CRF.do_crf(im, mask, zero_unsure=False, cfg=xcfg, device=dev)
+        moved = {k: v - before[k] for k, v in counts().items()}
+        want = {k: 0 for k in moved}
+        want.update(XLA_PER_IMAGE)
+        assert moved == want, (moved, want)
+        with CK.plain_versions(CK.XLA_KERNELS) as calls:
+            ref = CRF.do_crf(im, mask, zero_unsure=False, cfg=xcfg,
+                             device=dev)
+        a = float((out == ref).mean())
+        print(f"  do_crf, XLA engine, resolution_scale 2, 512x512, 21 "
+              f"labels: launches {moved}; masks with kernels vs plain "
+              f"versions {a:.6f} (floor {CRF_PATH_FLOOR})")
+        assert a >= CRF_PATH_FLOOR
+        check_calls(calls, "XLA engine, resolution_scale 2", CK.XLA_KERNELS)
+
+        import os
+        golden = np.load(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+            "crf", "s96_21l.npz"))["golden"]
+        gim, gmask = make_scene(96, 96, 21, 3)
+        gcfg = CRF.CrfConfig(color_step=2.0, splat_stride=2,
+                             resolution_scale=2, backend="pallas")
+        with torch.inference_mode():
+            gout = CRF.mean_field_batched(
+                torch.from_numpy(gim)[None].to(dev),
+                torch.from_numpy(gmask)[None].to(dev), gcfg, 21)
+        a = float((gout[0].cpu().numpy() == golden).mean())
+        print(f"  golden s96_21l at color_step 2, splat_stride 2, "
+              f"resolution_scale 2: oracle agreement {a:.5f} (floor "
+              f"{RS2_GOLDEN_FLOOR})")
+        assert a >= RS2_GOLDEN_FLOOR
+        set_counts(saved)
+    run.phase("resolution_scale 2: Predictor(crf=PRODUCTION_CONFIG at "
+              "resolution_scale 2), the XLA engine and the golden",
+              resolution_scale)
+
+    def notebook_configs():
+        im, mask = make_scene(SIZE, SIZE, 5, SEED + 1200)
+        mask = sparse_mask(mask, 5, SEED + 1201)
+        for name, cfg, passes in (
+                ("CrfConfig(sxy_bilateral=16)",
+                 CRF.CrfConfig(sxy_bilateral=16.0), 0),
+                ("CrfConfig(sxy_gaussian=8)",
+                 CRF.CrfConfig(sxy_gaussian=8.0), 5)):
+            zero_counts()
+            out = CRF.do_crf(im, mask, zero_unsure=False, cfg=cfg,
+                             device=dev)
+            got = counts()
+            want = {k: 0 for k in got}
+            want.update(splat_planes=6, slice_attrs_planes=1,
+                        mf_step_planes=5, gaussian_blur_y_planes=passes,
+                        gaussian_blur_x_planes=passes)
+            plan = DC.cell_plan(1, SIZE, SIZE, cfg, dev)
+            print(f"  {name} at 512x512, 5 labels: cells {plan.cs_y}x"
+                  f"{plan.cs_x}, Z = {plan.Z}, spatial radius "
+                  f"{len(DC._gauss_taps(cfg.sxy_gaussian)) // 2}; launches "
+                  f"{got} (want {want})")
+            assert got == want, (name, got, want)
+            assert out.shape == mask.shape and out.dtype == mask.dtype
+            saved = counts()
+            with CK.plain_versions() as calls:
+                ref = CRF.do_crf(im, mask, zero_unsure=False, cfg=cfg,
+                                 device=dev)
+            a = float((out == ref).mean())
+            print(f"  {name}: masks with kernels vs plain versions {a:.6f} "
+                  f"(floor {CRF_PATH_FLOOR}); the CRF changed "
+                  f"{float((out != mask).mean()):.4f} of the pixels")
+            assert a >= CRF_PATH_FLOOR
+            check_calls(calls, name)
+            set_counts(saved)
+    run.phase("the notebook's CrfConfig(sxy_bilateral=16) and "
+              "CrfConfig(sxy_gaussian=8) through do_crf", notebook_configs)
+
     # 5. the Xception path and the subpixel head --------------------------
     def record_sepconv(xnet, img, policy):
         """Every fused_sepconv call of one forward, with the plain version
@@ -1626,27 +1973,9 @@ def main() -> int:
         print(f"  CRF alone (mean_field_batched, PRODUCTION_CONFIG) B="
               f"{SERVE_B}: {ms:.3f} ms/batch, {1e3 * SERVE_B / ms:.1f} img/s "
               f"[{card}]")
-        # where the CRF's device time goes: torch.profiler over 3 calls
-        from torch.profiler import ProfilerActivity, profile
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                CRF.mean_field_batched(img8, m8, cfg, CLASSES)
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0) / 3
-        # kernel rows only: an aten op's row repeats its kernels' time
-        rows = [(e.key, e.self_device_time_total / 3e3, e.count // 3)
-                for e in pr.key_averages()
-                if e.self_device_time_total > 0
-                and str(e.device_type).endswith("CUDA")]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        print(f"  CRF B={SERVE_B} per call under torch.profiler: device busy "
-              f"{busy:.3f} ms of {wall:.3f} ms wall (idle share "
-              f"{1 - busy / wall:.3f}) [{card}]")
-        for key, ms_, n in rows[:12]:
-            print(f"    {ms_:8.4f} ms  x{n:<3d} {key[:90]}")
+        # where the CRF's device time goes
+        device_table(lambda: CRF.mean_field_batched(img8, m8, cfg, CLASSES),
+                     f"CRF B={SERVE_B}")
         img16 = scene_batch(BENCH_B, SEED + 300, dev)[0]
 
         def production():
@@ -1670,6 +1999,94 @@ def main() -> int:
               f"ms, min {min(lat):.3f} ms [{card}]")
         set_counts(saved)
     run.phase("CRF times", crf_times)
+    def geometry_times():
+        """The y and x kernels per launch at the (8, 375, 500) shapes beside
+        their bounds, plain versions, one depthwise F.conv2d each, and the
+        row kernel launched on the same input; the CRF per (8, 375, 500)
+        batch; production end to end at resolution_scale 2."""
+        import torch.nn.functional as F
+        if "voc_blur" not in geo:
+            raise RuntimeError("no (8, 375, 500) blur call recorded")
+        (a, gn), kw, _ = geo["voc_blur"]
+        saved = counts()
+        with torch.inference_mode():
+            y = CK.gaussian_blur_y_planes(a, gn, **kw)
+            x = CK.gaussian_blur_x_planes(y, **kw)
+            t = {"gaussian_blur_y_planes": (
+                lambda: CK.gaussian_blur_y_planes(a, gn, **kw),
+                lambda: CK.gaussian_blur_y_planes_reference(a, gn, **kw),
+                (a, gn), y),
+                 "gaussian_blur_x_planes": (
+                lambda: CK.gaussian_blur_x_planes(y, **kw),
+                lambda: CK.gaussian_blur_x_planes_reference(y, **kw),
+                (y,), x)}
+            row = cuda_ms(lambda: CK.blur_rows(a, gn, **kw), 10)
+            B, L = kw["B"], a.shape[1]
+            K = len(kw["taps"])
+            r = K // 2
+            img = torch.rand((B, L, kw["ny"] * kw["cs_y"],
+                              kw["nx"] * kw["cs_x"]), device=dev).to(
+                torch.bfloat16)
+            tb = torch.tensor(kw["taps"], device=dev).to(torch.bfloat16)
+            lib = {"gaussian_blur_y_planes": (
+                tb.view(1, 1, K, 1).expand(L, 1, K, 1).contiguous(), (r, 0)),
+                   "gaussian_blur_x_planes": (
+                tb.view(1, 1, 1, K).expand(L, 1, 1, K).contiguous(), (0, r))}
+            for name, (kern, plain, args, out) in t.items():
+                ms = cuda_ms(kern, 20)
+                pms = cuda_ms(plain, 3, warmup=1)
+                wgt, pad = lib[name]
+                lms = cuda_ms(lambda: F.conv2d(img, wgt, padding=pad,
+                                               groups=L), 10)
+                bms, bb = crf_bound_ms(CK, name, args, kw, out)
+                crf_report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                        bound_by=bb, library_ms=lms,
+                                        row_kernel_ms=row)
+                print(f"  {name} per launch, inputs "
+                      f"{[tuple(v.shape) for v in args]} (cells "
+                      f"{kw['cs_y']}x{kw['cs_x']}, r = {r}): kernel "
+                      f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                      f"({bb}), {bms / ms:.3f} of bound; F.conv2d groups="
+                      f"{L} {K}-tap bf16 {lms:.4f} ms [{card}]")
+        ys, xs = (crf_report[n]["ms"] for n in CK.BLUR_PASSES)
+        print(f"  the blur at (8, 375, 500): y + x {ys + xs:.4f} ms per "
+              f"iteration against the row kernel on the same input "
+              f"{row:.4f} ms (strips of one row at cs_y = {kw['cs_y']}) "
+              f"[{card}]")
+        imgs, masks = geo["voc_batch"]
+        cfg = CRF.PRODUCTION_CONFIG
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: CRF.mean_field_batched(imgs, masks, cfg,
+                                                        CLASSES), 5, warmup=1)
+        print(f"  mean_field_batched PRODUCTION_CONFIG ({SERVE_B}, 375, 500):"
+              f" {ms:.3f} ms/batch, {1e3 * SERVE_B / ms:.1f} img/s [{card}]")
+        device_table(lambda: CRF.mean_field_batched(imgs, masks, cfg,
+                                                    CLASSES),
+                     f"CRF ({SERVE_B}, 375, 500)")
+        rs2 = dataclasses.replace(cfg, resolution_scale=2)
+        img8, m8 = scene_batch(SERVE_B, SEED + 200, dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: CRF.mean_field_batched(img8, m8, rs2,
+                                                        CLASSES), 10,
+                         warmup=2)
+        print(f"  CRF alone at resolution_scale 2, B={SERVE_B} 512x512: "
+              f"{ms:.3f} ms/batch [{card}]")
+        device_table(lambda: CRF.mean_field_batched(img8, m8, rs2, CLASSES),
+                     f"CRF at resolution_scale 2, B={SERVE_B}")
+        img16 = scene_batch(BENCH_B, SEED + 300, dev)[0]
+
+        def production(c):
+            ids = net.predict_ids(img16, "mixed")
+            return CRF.mean_field_batched(img16, ids, c, CLASSES)
+        with torch.inference_mode():
+            for label, c in (("resolution_scale 2", rs2),
+                             ("resolution_scale 1", cfg)):
+                ms = cuda_ms(lambda: production(c), 5, warmup=2)
+                print(f"  production end to end (model mixed + CRF at "
+                      f"{label}) B={BENCH_B}: {ms:.3f} ms/batch, "
+                      f"{1e3 * BENCH_B / ms:.1f} img/s [{card}]")
+        set_counts(saved)
+    run.phase("CRF geometry times", geometry_times)
     run.phase("training times", train_times)
 
     if run.failed:
@@ -1711,11 +2128,14 @@ def main() -> int:
             "source": "deeplab_tpu_torch/kernels/csrc/crf_fused.cu",
             "replaces": f"deeplab_tpu/kernels/crf_fused.py:{CRF_REPLACES[n]}",
             "launches": (notebook["launches"][n] if n == "slice_planes"
+                         else geo["voc_launches"][n] if n in CK.BLUR_PASSES
                          else launches[n]),
             "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]}
+        if n in CK.BLUR_PASSES:
+            entry["row_kernel_ms"] = rep["row_kernel_ms"]
         if n == "mf_step_planes":
             ut = notebook["unary_times"]
             entry["forms"] = {

@@ -10,23 +10,28 @@ and ``c = r*nc + g``; images live in pixel-major *cell planes*
 ``(B*Z, ch, P)``: cut into ``cs_y x cs_x`` cells, Z per image, P pixels each.
 
 - The plane engine (``backend="auto"`` or ``"pallas"``; ``CellPlan``): cells
-  of 128 px in x, and per request four hand-written kernels
-  (``kernels/crf_fused.py``): ``splat_planes`` (the norm pass and once per
-  iteration), ``slice_attrs_planes`` (once), ``gaussian_blur_planes`` and
-  ``mf_step_planes`` (once per iteration), the latter with the two-level
-  unary from the label row (``mean_field_batched``) or an explicit unary
-  stream (``mean_field``, ``do_crf``).  The cross-cell grid blur
-  ``CellPlan.z_blur`` is a plain batched Z x Z product.
+  of 128 px in x (``round(sxy)`` below sxy 80), and per request the
+  hand-written kernels of ``kernels/crf_fused.py``: ``splat_planes`` (the
+  norm pass and once per iteration), ``slice_attrs_planes`` (once), the
+  spatial blur and ``mf_step_planes`` (once per iteration), the latter with
+  the two-level unary from the label row (``mean_field_batched``) or an
+  explicit unary stream (``mean_field``, ``do_crf``).  The spatial blur runs
+  on the cell planes where the cells are 128 px wide and the Gaussian's
+  radius fits in a cell: ``gaussian_blur_planes``, its fused row kernel or,
+  at other cell heights and radii past 16, its y and x passes.  Narrower
+  cells take the image-layout blur, two bf16 band products.  The
+  cross-cell grid blur ``CellPlan.z_blur`` is a plain batched Z x Z
+  product.
 - The XLA engine (``backend="xla"``; ``BilateralPlan``): square cells of
   ``round(sxy)`` px, one image at a time, the spatial message as band
   products in image layout; each bilateral filter is ``splat_planes`` (f32),
   a Z x Z product and ``slice_planes``: 6 of each per ``mean_field``.
 
-Ported: ``mean_field_batched`` (the plane engine batched, the XLA engine per
-image), ``mean_field``, ``do_crf``, ``bilateral_filter`` and its norm,
-self-weight and message.  Not yet: ``resolution_scale > 1``, and on the plane
-engine geometries where the JAX package's fused spatial blur does not
-engage; each raises ``NotImplementedError``.
+Ported, at every configuration and image size: ``mean_field_batched`` (the
+plane engine batched, the XLA engine per image), ``mean_field``, ``do_crf``
+(each with ``resolution_scale``: the CRF at 1/s resolution with both
+``sxy_*`` divided by s, nearest-upsampled back), ``bilateral_filter`` and its
+norm, self-weight and message.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ class CrfConfig:
     color_step: float = 1.0
     # splat from every s-th pixel per axis (x s^2 weight)
     splat_stride: int = 1
-    # run at 1/s resolution and upsample (not ported)
+    # run at 1/s resolution and upsample
     resolution_scale: int = 1
     # color-blur quadrature: "gaussian", "lsq" or "nnls" band taps
     color_taps: str = "gaussian"
@@ -116,6 +121,21 @@ def _sep_conv_hw(x: torch.Tensor, taps) -> torch.Tensor:
     tw = _band_matrix(w, taps, x.device)
     y = torch.einsum("ih,hwl->iwl", th, x)
     return torch.einsum("jw,hwl->hjl", tw, y)
+
+
+def _sep_conv_bwh_to_bhw(x: torch.Tensor, taps) -> torch.Tensor:
+    """The plane engine's image-layout spatial filter, (B, L, W, H) ->
+    (B, L, H, W) bf16: right products with the bf16-rounded band matrices
+    over H, then over W, each rounded to bf16 (JAX
+    ``_sep_conv_bwh_to_bhw``).  Computed as f32 products of the bf16-valued
+    operands, TF32 off (the caller's precision flags), then rounded."""
+    b, l, w, h = x.shape
+    taps = tuple(float(t) for t in taps)
+    th = K._bf(_band_matrix(h, taps, x.device))
+    tw = K._bf(_band_matrix(w, taps, x.device))
+    y = K._bf(torch.matmul(x.float().reshape(-1, h), th))
+    y = y.reshape(b, l, w, h).transpose(2, 3).reshape(-1, w)
+    return torch.matmul(y, tw).to(torch.bfloat16).reshape(b, l, h, w)
 
 
 def gaussian_message(Q_img: torch.Tensor, sigma: float, norm=None
@@ -216,6 +236,15 @@ class _CellLayout:
                 .permute(0, 3, 1, 4, 2, 5)
                 .reshape(B, ch, ny * self.cs_y,
                          nx * self.cs_x))[:, :, :self.h, :self.w]
+
+    def uncells_v_wh(self, y: torch.Tensor, ch: int) -> torch.Tensor:
+        """(B*Z, ch, P) -> (B, ch, W, H), the orientation the image-layout
+        blur takes first."""
+        B, ny, nx = y.shape[0] // self.Z, self.ny, self.nx
+        return (y.reshape(B, ny, nx, ch, self.cs_y, self.cs_x)
+                .permute(0, 3, 2, 5, 1, 4)
+                .reshape(B, ch, nx * self.cs_x,
+                         ny * self.cs_y))[:, :, :self.w, :self.h]
 
     def subsample(self, x: torch.Tensor, ch: int) -> torch.Tensor:
         """Every stride-th pixel per axis of each cell, row-major."""
@@ -392,25 +421,20 @@ def bilateral_message(im: torch.Tensor, Q: torch.Tensor, sxy: float,
             - w_self * nq) * norm
 
 
-def check_supported(cfg: CrfConfig, hw) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    ``resolution_scale > 1`` on either engine, and on the plane engine cells
-    where the JAX package's fused spatial blur does not engage."""
-    if cfg.resolution_scale != 1:
-        raise NotImplementedError("CrfConfig.resolution_scale > 1 is not "
-                                  "ported yet")
-    if cfg.backend == "xla":
-        return
-    h, w = hw
-    plan = CellPlan(1, h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
-                    cfg.splat_stride, ctaps=np.ones(1, np.float32))
-    r = len(_gauss_taps(cfg.sxy_gaussian)) // 2
-    if not (r <= min(plan.cs_y, plan.cs_x) and plan.cs_x % 128 == 0
-            and r <= 16 and plan.cs_y % 16 == 0):
-        raise NotImplementedError(
-            f"cell geometry {plan.cs_y}x{plan.cs_x} (sxy_bilateral "
-            f"{cfg.sxy_bilateral}, image {h}x{w}) needs the spatial blur "
-            f"fallback, which is not ported yet")
+def _at_scale(cfg: CrfConfig) -> CrfConfig:
+    """The configuration that ``resolution_scale`` s runs at 1/s
+    resolution: both spatial widths divided by s."""
+    s = cfg.resolution_scale
+    return dataclasses.replace(cfg, resolution_scale=1,
+                               sxy_gaussian=cfg.sxy_gaussian / s,
+                               sxy_bilateral=cfg.sxy_bilateral / s)
+
+
+def _upsample(x: torch.Tensor, s: int, h: int, w: int, dim: int):
+    """Repeat each pixel s times along ``dim`` and ``dim + 1``, cropped to
+    (h, w)."""
+    x = x.repeat_interleave(s, dim).repeat_interleave(s, dim + 1)
+    return x.narrow(dim, 0, h).narrow(dim + 1, 0, w)
 
 
 def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
@@ -431,6 +455,22 @@ def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
     dev = rgb.device
     taps = tuple(float(t) for t in _gauss_taps(cfg.sxy_gaussian))
     gn_small = plan.gn                                           # (Z, 1, P)
+    # the spatial message on the cell planes where the radius fits in a
+    # cell and the cells are 128 px wide; else in image layout (JAX
+    # _mean_field_planes), from A = bf16(Q * bf16(gn))
+    on_planes = (len(taps) // 2 <= min(plan.cs_y, plan.cs_x)
+                 and plan.cs_x % 128 == 0)
+    gn_bf = None if on_planes else gn_small.repeat(plan.B, 1, 1).to(
+        torch.bfloat16)
+
+    def spatial(Q):
+        if on_planes:
+            return K.gaussian_blur_planes(
+                Q, gn_small, taps=taps, B=plan.B, ny=plan.ny, nx=plan.nx,
+                cs_y=plan.cs_y, cs_x=plan.cs_x)
+        return plan.cells_v(_sep_conv_bwh_to_bhw(
+            plan.uncells_v_wh(Q * gn_bf, L), taps))
+
     valid = plan.cells_v(torch.ones((plan.B, 1, plan.h, plan.w),
                                     dtype=torch.float32, device=dev))
     geo = dict(nc=plan.nc, inv_step=plan.inv_step)
@@ -461,9 +501,7 @@ def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
 
     for i in range(cfg.n_iters):
         last = i == cfg.n_iters - 1
-        f_gauss = K.gaussian_blur_planes(
-            Q, gn_small, taps=taps, B=plan.B, ny=plan.ny, nx=plan.nx,
-            cs_y=plan.cs_y, cs_x=plan.cs_x)
+        f_gauss = spatial(Q)
         G = K.splat_planes(attrs_sub, Q_sub if s > 1 else Q, L=L,
                            out_dtype=torch.bfloat16, **geo)
         G = plan.z_blur(G)
@@ -520,11 +558,20 @@ def mean_field(im: torch.Tensor, unary: torch.Tensor, cfg: CrfConfig,
     the device of ``im``: the kernels on a CUDA tensor, their plain
     versions on a CPU tensor.  ``backend="xla"`` runs the XLA engine,
     ``"auto"`` and ``"pallas"`` the plane engine with the explicit-unary
-    step."""
+    step.  ``resolution_scale`` s > 1 runs on every s-th pixel per axis and
+    repeats Q back (JAX ``mean_field``)."""
     h, w, _ = im.shape
-    check_supported(cfg, (h, w))
     dev = im.device
     unary = unary.to(dev, torch.float32)
+    s = cfg.resolution_scale
+    if s > 1:
+        u_s = unary.reshape(h, w, n_labels)[::s, ::s]
+        hs, ws = u_s.shape[:2]
+        Q = mean_field(im[::s, ::s].contiguous(),
+                       u_s.reshape(hs * ws, n_labels), _at_scale(cfg),
+                       n_labels)
+        Q = _upsample(Q.reshape(hs, ws, n_labels), s, h, w, 0)
+        return Q.reshape(h * w, n_labels)
     with core.precision_flags(core.Policy(torch.float32)):
         if cfg.backend == "xla":
             return _mean_field_xla(im.to(torch.float32), unary, cfg,
@@ -571,10 +618,17 @@ def mean_field_batched(imgs: torch.Tensor, masks: torch.Tensor,
     the refined (B, H, W) int32 masks on the device of ``imgs``: the
     kernels on a CUDA tensor, their plain versions on a CPU tensor.  The
     plane engine takes the batch at once; the XLA engine (``backend="xla"``)
-    one image at a time, each through :func:`mean_field`."""
+    one image at a time, each through :func:`mean_field`.  With
+    ``resolution_scale`` s > 1 either engine refines every s-th pixel per
+    axis and repeats the masks back (JAX ``mean_field_batched``)."""
     B, H, W = masks.shape
-    check_supported(cfg, (H, W))
     dev = imgs.device
+    s = cfg.resolution_scale
+    if s > 1:
+        out = mean_field_batched(imgs[:, ::s, ::s].contiguous(),
+                                 masks[:, ::s, ::s].contiguous(),
+                                 _at_scale(cfg), n_labels)
+        return _upsample(out, s, H, W, 1).contiguous()
     if cfg.backend == "xla":
         out = []
         for im, mask in zip(imgs, masks):

@@ -6,7 +6,9 @@ Replaces the TPU kernels of ``deeplab_tpu/kernels/crf_fused.py``:
 
 - ``splat_planes`` (its ``pl.pallas_call`` at line 702),
 - ``slice_attrs_planes`` (line 890),
-- ``gaussian_blur_planes`` (line 568, the fused row kernel),
+- ``gaussian_blur_planes``: the fused row kernel (line 568) and, where its
+  geometry does not fit, the y pass (line 628) then the x pass (line 638),
+  ``gaussian_blur_y_planes`` and ``gaussian_blur_x_planes``,
 - ``mf_step_planes`` (line 988), with the unary rebuilt from the label row
   or read from an explicit (Z, L, P) stream,
 - ``slice_planes`` (line 731).
@@ -52,6 +54,9 @@ ATTR_ROWS = 8
 KERNELS = ("splat_planes", "slice_attrs_planes", "gaussian_blur_planes",
            "mf_step_planes")
 XLA_KERNELS = ("splat_planes", "slice_planes")
+# the spatial blur's two passes, which gaussian_blur_planes runs where its
+# row kernel's geometry does not fit
+BLUR_PASSES = ("gaussian_blur_y_planes", "gaussian_blur_x_planes")
 
 # A kernel against its plain version on the same inputs, relative to the
 # largest value of each output (of each attrs row): both take the same
@@ -63,7 +68,8 @@ XLA_KERNELS = ("splat_planes", "slice_planes")
 PLAIN_F32_REL, PLAIN_BF16_REL, PLAIN_STEP_REL = 1e-4, 2.0 ** -7, 2.0 ** -6
 
 MAX_COLOR_TAPS = 7    # color band radius <= 3
-MAX_SPATIAL_TAPS = 33  # spatial radius <= 16
+MAX_SPATIAL_TAPS = 33  # the fused row kernel: spatial radius <= 16
+MAX_YX_TAPS = 257      # the y and x passes: spatial radius <= 128
 _CHUNK_BYTES = 1 << 28  # plain versions: working set per chunk of cells
 
 _BF16 = torch.bfloat16
@@ -237,23 +243,89 @@ def slice_attrs_planes_reference(rgb, grid, gn, labels, *, nc: int, L: int,
             _subsample(q0, stride, cs_y, cs_x))
 
 
+def _gn_cells(gn, BZ: int):
+    """The spatial normalization as (B*Z, 1, P) f32 from either JAX form:
+    (Z, 1, P), one plane per image position shared by the batch, or
+    (B*Z, 1, P), one per cell."""
+    gn = gn.float()
+    return gn if gn.shape[0] == BZ else gn.repeat(BZ // gn.shape[0], 1, 1)
+
+
+def _image(x, B: int, ny: int, nx: int, cs_y: int, cs_x: int):
+    """(B*Z, L, P) cell planes -> (B, L, ny*cs_y, nx*cs_x) images."""
+    L = x.shape[1]
+    return (x.reshape(B, ny, nx, L, cs_y, cs_x).permute(0, 3, 1, 4, 2, 5)
+            .reshape(B, L, ny * cs_y, nx * cs_x))
+
+
+def _planes(img, ny: int, nx: int, cs_y: int, cs_x: int):
+    """The inverse of :func:`_image`."""
+    B, L = img.shape[:2]
+    return (img.reshape(B, L, ny, cs_y, nx, cs_x).permute(0, 2, 4, 1, 3, 5)
+            .reshape(B * ny * nx, L, cs_y * cs_x).contiguous())
+
+
+def _spatial_taps(taps, device):
+    return _bf(torch.tensor(taps, dtype=_F32, device=device))
+
+
+def _tap_sum(img, tb, dim: int):
+    """sum_k tb[k] * img[.. i + k - r ..] along ``dim``, zero outside the
+    image, in f32 in tap order (as the y and x kernels sum)."""
+    r = len(tb) // 2
+    n = img.shape[dim]
+    pad = [0, 0] * (img.dim() - 1 - dim) + [r, r]
+    padded = F.pad(img, pad)
+    acc = None
+    for k, t in enumerate(tb.tolist()):
+        term = padded.narrow(dim, k, n) * t
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def gaussian_blur_y_planes_reference(a, gn, *, taps, B: int, ny: int,
+                                     nx: int, cs_y: int, cs_x: int):
+    """The y pass of :func:`gaussian_blur_planes_reference` (the TPU's
+    ``_blur_y_kernel``): A = bf16(a*gn) in f32; down each image column the
+    bf16 taps times A summed in f32 in tap order, zero above and below the
+    image (so nothing crosses from one image of the batch to the next);
+    rounded to a's dtype.  a (B*Z, L, P); gn (Z, 1, P) or (B*Z, 1, P)."""
+    A = _bf(a.float() * _gn_cells(gn, a.shape[0]))
+    y = _tap_sum(_image(A, B, ny, nx, cs_y, cs_x),
+                 _spatial_taps(taps, a.device), 2)
+    return _planes(y.to(a.dtype), ny, nx, cs_y, cs_x)
+
+
+def gaussian_blur_x_planes_reference(f, *, taps, B: int, ny: int, nx: int,
+                                     cs_y: int, cs_x: int):
+    """The x pass (the TPU's ``_blur_x_kernel``): bf16(f) times the bf16
+    taps along each image row, summed in f32 in tap order, zero left and
+    right of the image; written in f's dtype.  f (B*Z, L, P), the y pass's
+    output."""
+    x = _tap_sum(_image(_bf(f.float()), B, ny, nx, cs_y, cs_x),
+                 _spatial_taps(taps, f.device), 3)
+    return _planes(x.to(f.dtype), ny, nx, cs_y, cs_x)
+
+
 def gaussian_blur_planes_reference(a, gn, *, taps, B: int, ny: int,
                                    nx: int, cs_y: int, cs_x: int):
     """Separable truncated Gaussian of ``a * gn`` over the image the cells
     tile, zero outside it: A = bf16(a*gn), the y pass in f32 rounded to
     bf16, the x pass in f32, output in a's dtype; taps rounded to bf16.
-    a (B*Z, L, P); gn (Z, 1, P), one plane per image position."""
+    a (B*Z, L, P); gn (Z, 1, P), one plane per image position, or
+    (B*Z, 1, P), one per cell.  The y pass then the x pass compute the
+    same function."""
     BZ, L, P = a.shape
     K = len(taps)
     r = K // 2
-    tb = _bf(torch.tensor(taps, dtype=_F32, device=a.device))
-    A = _bf(a.float() * gn.float().repeat(B, 1, 1))
-    img = (A.reshape(B, ny, nx, L, cs_y, cs_x).permute(0, 3, 1, 4, 2, 5)
-           .reshape(B * L, 1, ny * cs_y, nx * cs_x))
+    tb = _spatial_taps(taps, a.device)
+    A = _bf(a.float() * _gn_cells(gn, BZ))
+    img = _image(A, B, ny, nx, cs_y, cs_x).reshape(B * L, 1, ny * cs_y,
+                                                   nx * cs_x)
     t1 = _bf(F.conv2d(img, tb.view(1, 1, K, 1), padding=(r, 0)))
     t2 = F.conv2d(t1, tb.view(1, 1, 1, K), padding=(0, r)).to(a.dtype)
-    return (t2.reshape(B, L, ny, cs_y, nx, cs_x).permute(0, 2, 4, 1, 3, 5)
-            .reshape(BZ, L, P).contiguous())
+    return _planes(t2.reshape(B, L, ny * cs_y, nx * cs_x), ny, nx, cs_y,
+                   cs_x)
 
 
 def mf_step_planes_reference(attrs, grid, f_gauss, q, unary=None, *, nc: int,
@@ -299,6 +371,9 @@ _SIGS = {
     "crf_slice_attrs_launch": [_VOID] * 10 + [_INT] * 12 + [_FLT] * 3
                               + [_VOID],
     "crf_blur_launch": [_VOID] * 4 + [_INT] * 7 + [_VOID],
+    "crf_blur_y_launch": [_VOID, _VOID, _INT, _VOID, _VOID] + [_INT] * 7
+                         + [_VOID],
+    "crf_blur_x_launch": [_VOID] * 3 + [_INT] * 7 + [_VOID],
     "crf_mf_step_launch": [_VOID] * 9 + [_INT] * 7 + [_FLT] * 5
                           + [_VOID],
     "crf_slice_launch": [_VOID] * 5 + [_INT] * 5 + [_FLT, _VOID],
@@ -443,33 +518,116 @@ def slice_attrs_planes(rgb, grid, gn, labels, *, nc: int, L: int,
     return attrs, q0, attrs_s, q0_s
 
 
+def row_kernel_fits(taps, cs_y: int) -> bool:
+    """Whether :func:`gaussian_blur_planes` runs the fused row kernel: a
+    radius within its 16-row halo strip and cells whose height is a multiple
+    of 16, the geometric condition of the TPU's row kernel.  Its 2 MiB
+    VMEM clause on a row of cells is dropped: the CUDA row kernel stages a
+    strip of one cell and label per block, whatever the row's size."""
+    return len(taps) // 2 <= 16 and cs_y % 16 == 0
+
+
+def _blur_geometry(a, gn, taps, B, ny, nx, cs_y, cs_x, max_taps):
+    """Check a spatial blur's arguments; returns gn's batch flag (1 for one
+    plane per cell, 0 for one per image position)."""
+    BZ, L, P = a.shape
+    Z = ny * nx
+    r = len(taps) // 2
+    if (len(taps) % 2 != 1 or len(taps) > max_taps or r > min(cs_y, cs_x)
+            or P != cs_y * cs_x or BZ != B * Z):
+        raise ValueError(f"bad blur geometry: {len(taps)} taps (at most "
+                         f"{max_taps}), cells {cs_y}x{cs_x}, P={P}, BZ={BZ}, "
+                         f"B*Z={B * Z}")
+    _check("a", a, (BZ, L, P), (_BF16,), a.device)
+    if gn is None:
+        return 0
+    if gn.shape[0] not in (Z, BZ):
+        raise ValueError(f"gn has {gn.shape[0]} planes: want Z={Z} or "
+                         f"B*Z={BZ}")
+    _check("gn", gn, (gn.shape[0], 1, P), (_F32,), a.device)
+    return int(gn.shape[0] != Z)
+
+
 def gaussian_blur_planes(a, gn, *, taps, B: int, ny: int, nx: int,
                          cs_y: int, cs_x: int):
-    """Same arguments as :func:`gaussian_blur_planes_reference`; the kernel
-    takes bf16 ``a``, cells whose width is a multiple of 4 and a radius
-    within one cell."""
+    """Same arguments as :func:`gaussian_blur_planes_reference`; the kernels
+    take bf16 ``a`` and a radius within one cell.  Where
+    :func:`row_kernel_fits` and gn is in its (Z, 1, P) form the fused row
+    kernel runs (:func:`blur_rows`); elsewhere, and for gn (B*Z, 1, P),
+    :func:`gaussian_blur_y_planes` then :func:`gaussian_blur_x_planes`,
+    which compute the same function."""
     kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
     if not _on_cuda(a, "gaussian_blur_planes"):
         return gaussian_blur_planes_reference(a, gn, **kw)
-    BZ, L, P = a.shape
-    dev = a.device
-    Z = ny * nx
-    r = len(taps) // 2
-    if (len(taps) % 2 != 1 or len(taps) > MAX_SPATIAL_TAPS
-            or r > min(cs_y, cs_x) or cs_x % 4 or P != cs_y * cs_x
-            or BZ != B * Z):
-        raise ValueError(f"bad blur geometry: {len(taps)} taps, cells "
-                         f"{cs_y}x{cs_x}, P={P}, BZ={BZ}, B*Z={B * Z}")
-    _check("a", a, (BZ, L, P), (_BF16,), dev)
-    _check("gn", gn, (Z, 1, P), (_F32,), dev)
+    if not row_kernel_fits(taps, cs_y) or gn.shape[0] != ny * nx:
+        return gaussian_blur_x_planes(gaussian_blur_y_planes(a, gn, **kw),
+                                      **kw)
+    return blur_rows(a, gn, **kw)
+
+
+def blur_rows(a, gn, *, taps, B: int, ny: int, nx: int, cs_y: int,
+              cs_x: int):
+    """Launch the fused row kernel on CUDA tensors at any geometry it
+    takes (cells whose width is a multiple of 4, a radius up to 16 within
+    one cell, gn (Z, 1, P)), whether or not :func:`row_kernel_fits`; each
+    launch counts in ``gaussian_blur_planes.launches``.  At a cell height
+    with no power-of-two factor, such as 75, its strips are one row
+    high."""
+    if cs_x % 4:
+        raise ValueError(f"the row kernel takes cells whose width is a "
+                         f"multiple of 4, not {cs_x}")
+    if _blur_geometry(a, gn, taps, B, ny, nx, cs_y, cs_x, MAX_SPATIAL_TAPS):
+        raise ValueError("the row kernel takes gn (Z, 1, P), one plane per "
+                         "image position")
     tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
     out = torch.empty_like(a)
     lib = _lib()
     rc = lib.crf_blur_launch(
         a.data_ptr(), gn.data_ptr(), out.data_ptr(), tb.ctypes.data,
-        len(tb), B, ny, nx, cs_y, cs_x, L, _stream(a))
+        len(tb), B, ny, nx, cs_y, cs_x, a.shape[1], _stream(a))
     _ok(lib, rc, "gaussian_blur_planes")
     gaussian_blur_planes.launches += 1
+    return out
+
+
+def gaussian_blur_y_planes(a, gn, *, taps, B: int, ny: int, nx: int,
+                           cs_y: int, cs_x: int):
+    """Same arguments as :func:`gaussian_blur_y_planes_reference`; the
+    kernel takes bf16 ``a``, any cell geometry and a radius within one cell
+    (at most 128)."""
+    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+    if not _on_cuda(a, "gaussian_blur_y_planes"):
+        return gaussian_blur_y_planes_reference(a, gn, **kw)
+    per_image = _blur_geometry(a, gn, taps, B, ny, nx, cs_y, cs_x,
+                               MAX_YX_TAPS)
+    tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
+    out = torch.empty_like(a)
+    lib = _lib()
+    rc = lib.crf_blur_y_launch(
+        a.data_ptr(), gn.data_ptr(), per_image, out.data_ptr(),
+        tb.ctypes.data, len(tb), B, ny, nx, cs_y, cs_x, a.shape[1],
+        _stream(a))
+    _ok(lib, rc, "gaussian_blur_y_planes")
+    gaussian_blur_y_planes.launches += 1
+    return out
+
+
+def gaussian_blur_x_planes(f, *, taps, B: int, ny: int, nx: int, cs_y: int,
+                           cs_x: int):
+    """Same arguments as :func:`gaussian_blur_x_planes_reference`; the
+    kernel takes bf16 ``f``."""
+    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+    if not _on_cuda(f, "gaussian_blur_x_planes"):
+        return gaussian_blur_x_planes_reference(f, **kw)
+    _blur_geometry(f, None, taps, B, ny, nx, cs_y, cs_x, MAX_YX_TAPS)
+    tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
+    out = torch.empty_like(f)
+    lib = _lib()
+    rc = lib.crf_blur_x_launch(
+        f.data_ptr(), out.data_ptr(), tb.ctypes.data, len(tb), B, ny, nx,
+        cs_y, cs_x, f.shape[1], _stream(f))
+    _ok(lib, rc, "gaussian_blur_x_planes")
+    gaussian_blur_x_planes.launches += 1
     return out
 
 
@@ -545,6 +703,8 @@ def slice_planes(rgb, grid, *, nc: int, L: int, inv_step: float, ctaps):
 splat_planes.launches = 0
 slice_attrs_planes.launches = 0
 gaussian_blur_planes.launches = 0
+gaussian_blur_y_planes.launches = 0
+gaussian_blur_x_planes.launches = 0
 mf_step_planes.launches = 0
 slice_planes.launches = 0
 

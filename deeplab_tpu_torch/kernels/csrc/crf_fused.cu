@@ -4,7 +4,9 @@
 // Replaces the TPU kernels of deeplab_tpu/kernels/crf_fused.py:
 //   splat_planes          (pl.pallas_call at line 702)
 //   slice_attrs_planes    (line 890)
-//   gaussian_blur_planes  (line 568, the fused row kernel)
+//   gaussian_blur_planes  (line 568, the fused row kernel; where its
+//                          geometry does not fit, the y pass at line 628
+//                          and the x pass at line 638)
 //   mf_step_planes        (line 988; both forms: the unary rebuilt from the
 //                          label row, or read from an explicit (Z, L, P)
 //                          stream)
@@ -55,7 +57,22 @@
 //    each halo value read once per 4 outputs) and the x pass out (4 columns
 //    a thread from a register window filled with 16-byte loads; the tile's
 //    row pitch is rounded up to 4 floats, so the cells' width must be a
-//    multiple of 4).
+//    multiple of 4).  The strip height is the largest power of two up to 32
+//    that divides cs_y and the x window holds 33 taps, so the row kernel
+//    takes cells whose height is a multiple of 16 and radii up to 16.
+//  - spatial blur in two passes, for every other geometry (cs_y = 75, 50 or
+//    72 from VOC image heights; radii past 16): the y pass, one block per
+//    (cell, label, strip of rows), stages bf16(Q * gn) with r halo rows from
+//    the cells above and below and sums each output down its column; the x
+//    pass, one block per (cell, label, strip of rows), stages the rows with
+//    r halo columns from the cells left and right and sums along the row.
+//    Threads take (row, column) pairs, neighbouring threads neighbouring
+//    columns; the taps sit in shared memory, so any radius up to 128 runs
+//    without a register window.  Each pass reads its input about once (the
+//    halo adds 2r rows or columns a strip) and writes a bf16 (B*Z, L, P)
+//    tensor: together twice the row kernel's device-memory traffic, but
+//    every input read about once where the row kernel at cs_y = 75 (a strip
+//    of one row) reads each 1 + 2r times.
 //
 // Measured on the H100 (PERF.md): each kernel takes several times its bound;
 // making them fast is later work.
@@ -83,6 +100,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int MAX_CTAPS = 7;    // color band taps (radius <= 3)
 constexpr int MAX_STAPS = 33;   // spatial taps (radius <= 16); the blur's
                                 // windows hold MAX_STAPS + 3 = 9 float4
+constexpr int MAX_YX_TAPS = 257;  // the two-pass blur: radius <= 128
 constexpr int ATTR_ROWS = 8, ATTR_GN = 3, ATTR_BN = 4, ATTR_BSELF = 5,
               ATTR_LABEL = 6, ATTR_BSCALE = 7;
 constexpr int SPLAT_GROUP = 48 * 1024;  // splat: shared-memory grid per block
@@ -104,6 +122,11 @@ struct ColorTaps {
 struct SpatialTaps {
   int n;                 // 2r + 1
   float t[MAX_STAPS];    // bf16-rounded
+};
+
+struct LongTaps {
+  int n;                 // 2r + 1
+  float t[MAX_YX_TAPS];  // bf16-rounded
 };
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -530,6 +553,131 @@ __global__ void blur_kernel(BlurArgs a) {
   }
 }
 
+// The two-pass blur's arguments; `in` is a for the y pass, its output for
+// the x pass.
+struct BlurPassArgs {
+  const bf16* in;         // (B*Z, L, P)
+  const float* gn;        // y pass: (Z, 1, P), one plane per image position,
+                          // or (B*Z, 1, P) when gn_per_image; x: unused
+  bf16* out;              // (B*Z, L, P)
+  int ny, nx, cs_y, cs_x, L, TY, gn_per_image;
+  LongTaps taps;
+};
+
+__device__ __forceinline__ void stage_taps(const LongTaps& taps, float* t) {
+  for (int i = threadIdx.x; i < taps.n; i += blockDim.x) t[i] = taps.t[i];
+}
+
+// y pass: rows y0 - r .. y0 + rows + r - 1 of this cell's columns, found
+// by image row in the cells above and below (zero outside the image), then
+// each output the taps down its column in tap order.
+__global__ void blur_y_kernel(BlurPassArgs a) {
+  float* tap = reinterpret_cast<float*>(dyn_smem);
+  const int n = a.taps.n, r = n / 2;
+  float* A = tap + ((n + 3) & ~3);   // [rows + 2r][cs_x]  bf16(a * gn)
+  const int Z = a.ny * a.nx, P = a.cs_y * a.cs_x, H = a.ny * a.cs_y;
+  const int z = blockIdx.x / a.L, l = blockIdx.x % a.L;
+  const int bimg = z / Z, zz = z % Z, iy = zz / a.nx, ix = zz % a.nx;
+  const int y0 = blockIdx.y * a.TY, rows = min(a.TY, a.cs_y - y0);
+  const float* gn = a.gn + (a.gn_per_image ? (size_t)bimg * Z * P : 0);
+  stage_taps(a.taps, tap);
+  for (int i = threadIdx.x; i < (rows + 2 * r) * a.cs_x; i += blockDim.x) {
+    const int yy = i / a.cs_x, x = i - yy * a.cs_x;
+    const int gy = iy * a.cs_y + y0 + yy - r;
+    float v = 0.f;
+    if (gy >= 0 && gy < H) {
+      const int iy2 = gy / a.cs_y, p = (gy - iy2 * a.cs_y) * a.cs_x + x;
+      const int zz2 = iy2 * a.nx + ix;
+      const size_t z2 = (size_t)bimg * Z + zz2;
+      v = bf16r(__bfloat162float(a.in[(z2 * a.L + l) * P + p]) *
+                gn[(size_t)zz2 * P + p]);
+    }
+    A[i] = v;
+  }
+  __syncthreads();
+  bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
+  for (int i = threadIdx.x; i < rows * a.cs_x; i += blockDim.x) {
+    const float* col = A + i;        // output (yy, x) reads A[yy + k][x]
+    float acc = 0.f;
+    for (int k = 0; k < n; ++k) acc += tap[k] * col[k * a.cs_x];
+    o[i] = __float2bfloat16_rn(acc);
+  }
+}
+
+// x pass: the strip's rows with r halo columns from the cells left and
+// right (zero outside the image), then each output the taps along its row.
+__global__ void blur_x_kernel(BlurPassArgs a) {
+  float* tap = reinterpret_cast<float*>(dyn_smem);
+  const int n = a.taps.n, r = n / 2, W2 = a.cs_x + 2 * r;
+  float* T = tap + ((n + 3) & ~3);   // [rows][cs_x + 2r]
+  const int Z = a.ny * a.nx, P = a.cs_y * a.cs_x, W = a.nx * a.cs_x;
+  const int z = blockIdx.x / a.L, l = blockIdx.x % a.L;
+  const int bimg = z / Z, zz = z % Z, iy = zz / a.nx, ix = zz % a.nx;
+  const int y0 = blockIdx.y * a.TY, rows = min(a.TY, a.cs_y - y0);
+  stage_taps(a.taps, tap);
+  for (int i = threadIdx.x; i < rows * W2; i += blockDim.x) {
+    const int yy = i / W2, gx = ix * a.cs_x + i - yy * W2 - r;
+    float v = 0.f;
+    if (gx >= 0 && gx < W) {
+      const int ix2 = gx / a.cs_x;
+      const size_t z2 = (size_t)bimg * Z + iy * a.nx + ix2;
+      v = __bfloat162float(a.in[(z2 * a.L + l) * P + (size_t)(y0 + yy) *
+                                a.cs_x + gx - ix2 * a.cs_x]);
+    }
+    T[i] = v;
+  }
+  __syncthreads();
+  bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
+  for (int i = threadIdx.x; i < rows * a.cs_x; i += blockDim.x) {
+    const int yy = i / a.cs_x;
+    const float* row = T + yy * W2 + (i - yy * a.cs_x);
+    float acc = 0.f;
+    for (int k = 0; k < n; ++k) acc += tap[k] * row[k];
+    o[i] = __float2bfloat16_rn(acc);
+  }
+}
+
+// One pass of the two-pass blur.  Strips of at most 32 rows (fewer where
+// the tile would not fit in shared memory), evened out over the cell: the y
+// pass stages rows + 2r rows of cs_x, the x pass rows of cs_x + 2r.
+int launch_blur_pass(const bf16* in, const float* gn, int gn_per_image,
+                     bf16* out, const float* taps, int ntaps, int B, int ny,
+                     int nx, int cs_y, int cs_x, int L, bool y_pass,
+                     cudaStream_t st) {
+  const int r = ntaps / 2;
+  if (!taps || ntaps < 1 || ntaps > MAX_YX_TAPS || ntaps % 2 == 0 ||
+      B < 1 || ny < 1 || nx < 1 || L < 1 || cs_y < 1 || cs_x < 1 ||
+      r > cs_y || r > cs_x || (y_pass && !gn))
+    return ERR_ARGS;
+  BlurPassArgs args;
+  args.in = in; args.gn = gn; args.out = out;
+  args.ny = ny; args.nx = nx; args.cs_y = cs_y; args.cs_x = cs_x; args.L = L;
+  args.gn_per_image = gn_per_image;
+  args.taps.n = ntaps;
+  for (int i = 0; i < ntaps; ++i) args.taps.t[i] = taps[i];
+  size_t smem = 0;
+  int TY = 0;
+  for (int most = 32; most >= 1; most /= 2) {
+    const int strips = (cs_y + most - 1) / most;
+    TY = (cs_y + strips - 1) / strips;
+    const size_t tile = y_pass ? (size_t)(TY + 2 * r) * cs_x
+                               : (size_t)TY * (cs_x + 2 * r);
+    smem = sizeof(float) * (((ntaps + 3) & ~3) + tile);
+    if (smem <= (size_t)SMEM_MAX) break;
+  }
+  if (smem > (size_t)SMEM_MAX) return ERR_SMEM;
+  args.TY = TY;
+  cudaError_t e = set_smem(
+      y_pass ? (const void*)blur_y_kernel : (const void*)blur_x_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * ny * nx * L, (cs_y + TY - 1) / TY);
+  if (y_pass)
+    blur_y_kernel<<<grid, 256, smem, st>>>(args);
+  else
+    blur_x_kernel<<<grid, 256, smem, st>>>(args);
+  return cudaGetLastError();
+}
+
 bool read_color_taps(const float* pack, int n, ColorTaps* t) {
   if (n < 1 || n > MAX_CTAPS || n % 2 == 0 || !pack) return false;
   const int R = n / 2;
@@ -656,6 +804,22 @@ int crf_blur_launch(const void* a, const float* gn, void* out,
   blur_kernel<<<dim3(B * Z * L, cs_y / TY), 256, smem,
                 (cudaStream_t)stream>>>(args);
   return cudaGetLastError();
+}
+
+int crf_blur_y_launch(const void* a, const float* gn, int gn_per_image,
+                      void* out, const float* taps, int ntaps, int B, int ny,
+                      int nx, int cs_y, int cs_x, int L, void* stream) {
+  return launch_blur_pass((const bf16*)a, gn, gn_per_image,
+                          (bf16*)out, taps, ntaps, B, ny, nx, cs_y, cs_x, L,
+                          true, (cudaStream_t)stream);
+}
+
+int crf_blur_x_launch(const void* in, void* out, const float* taps,
+                      int ntaps, int B, int ny, int nx, int cs_y, int cs_x,
+                      int L, void* stream) {
+  return launch_blur_pass((const bf16*)in, nullptr, 0,
+                          (bf16*)out, taps, ntaps, B, ny, nx, cs_y, cs_x, L,
+                          false, (cudaStream_t)stream);
 }
 
 int crf_mf_step_launch(const float* attrs, const void* grid, void* scratch,

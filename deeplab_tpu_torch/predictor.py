@@ -36,8 +36,6 @@ class Predictor:
             if asked:
                 raise NotImplementedError(f"Predictor {name} is not ported "
                                           f"yet: it comes with {where}")
-        if crf is not None:
-            dense_crf.check_supported(crf, net.sz)
         self.crf = crf
         self.return_raw = return_raw and crf is not None
         self.device = core.resolve_device(device)

@@ -29,6 +29,14 @@ blurred grid is too large for shared memory), with padded cells.  The
 reference-API CRF the same way: ``slice_planes`` (tolerance 2 bf16 ulps)
 and the splat through the XLA engine, the explicit-unary step through the
 plane engine's ``mean_field``, each with exact launch counts.
+
+The spatial blur's y and x passes against their plain versions (2 bf16
+ulps; both sum the taps in the same order and should agree bit for bit) at
+the VOC cell heights 75, 50 and 72, radii 20 and 32, ragged label counts and
+both forms of gn; ``gaussian_blur_planes`` dispatching to the row kernel or
+to the two passes, read off the launch counters; and the CRF at a VOC
+geometry, at ``resolution_scale`` 2 and at the notebook's sxy 16, each with
+exact launch counts.
 """
 
 import dataclasses
@@ -214,6 +222,147 @@ def test_crf_wrappers_raise_instead_of_falling_back(cuda):
         CK.splat_planes(rgb, torch.zeros(4, 2, 64, device=cuda,
                                          dtype=torch.bfloat16),
                         nc=15, L=2, inv_step=1 / 19.5)
+
+
+# (B, ny, nx, cs_y, cs_x, L, sigma, gn per image): the VOC cell heights at
+# r = 8, radii 20 and 32 on 64x128 cells, a ragged L, both forms of gn
+BLUR_PASS_SHAPES = [(2, 5, 4, 75, 128, 21, 3.0, False),
+                    (2, 10, 3, 50, 128, 7, 3.0, True),
+                    (1, 5, 4, 72, 128, 21, 3.0, False),
+                    (2, 2, 2, 64, 128, 5, 8.0, True),
+                    (2, 2, 2, 64, 128, 3, 12.5, False),
+                    (3, 2, 3, 30, 40, 4, 4.0, False)]
+
+
+def _blur_case(cuda, B, ny, nx, cs_y, cs_x, L, sigma, per_image, seed=6):
+    taps = tuple(float(t) for t in CRF.dense_crf._gauss_taps(sigma))
+    r = np.random.RandomState(seed)
+    Z, P = ny * nx, cs_y * cs_x
+    q = torch.from_numpy(r.rand(B * Z, L, P).astype(np.float32))
+    gn = torch.from_numpy(0.5 + r.rand(B * Z if per_image else Z, 1, P)
+                          .astype(np.float32))
+    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+    return q.to(cuda, torch.bfloat16), gn.to(cuda), kw
+
+
+def _blur_counts():
+    return tuple(getattr(CK, n).launches for n in (
+        "gaussian_blur_planes",) + CK.BLUR_PASSES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BLUR_PASS_SHAPES)
+def test_blur_passes_match_reference(cuda, shape):
+    q, gn, kw = _blur_case(cuda, *shape)
+    before = _blur_counts()
+    y = CK.gaussian_blur_y_planes(q, gn, **kw)
+    y_ref = CK.gaussian_blur_y_planes_reference(q, gn, **kw)
+    x = CK.gaussian_blur_x_planes(y_ref, **kw)
+    x_ref = CK.gaussian_blur_x_planes_reference(y_ref, **kw)
+    torch.cuda.synchronize()
+    assert _blur_counts() == (before[0], before[1] + 1, before[2] + 1)
+    for name, got, want in (("gaussian_blur_y_planes", y, y_ref),
+                            ("gaussian_blur_x_planes", x, x_ref)):
+        err, ok = CK.max_err_vs_plain(name, got, want)
+        assert ok, (name, shape, err)
+    # the dispatch: two passes, no row kernel
+    before = _blur_counts()
+    out = CK.gaussian_blur_planes(q, gn, **kw)
+    torch.cuda.synchronize()
+    assert _blur_counts() == (before[0], before[1] + 1, before[2] + 1)
+    err, ok = CK.max_err_vs_plain(
+        "gaussian_blur_planes", out,
+        CK.gaussian_blur_planes_reference(q, gn, **kw))
+    assert ok, (shape, err)
+
+
+@pytest.mark.gpu
+def test_row_kernel_where_its_geometry_fits(cuda):
+    q, gn, kw = _blur_case(cuda, 2, 2, 2, 64, 128, 7, 3.0, False)
+    assert CK.row_kernel_fits(kw["taps"], 64)
+    before = _blur_counts()
+    out = CK.gaussian_blur_planes(q, gn, **kw)
+    torch.cuda.synchronize()
+    assert _blur_counts() == (before[0] + 1, before[1], before[2])
+    err, ok = CK.max_err_vs_plain(
+        "gaussian_blur_planes", out,
+        CK.gaussian_blur_planes_reference(q, gn, **kw))
+    assert ok, err
+    # one gn plane per cell, the form the row kernel does not take: the
+    # two passes run instead, and the row kernel launched directly raises
+    _, gn_cells, _ = _blur_case(cuda, 2, 2, 2, 64, 128, 7, 3.0, True)
+    before = _blur_counts()
+    out = CK.gaussian_blur_planes(q, gn_cells, **kw)
+    torch.cuda.synchronize()
+    assert _blur_counts() == (before[0], before[1] + 1, before[2] + 1)
+    err, ok = CK.max_err_vs_plain(
+        "gaussian_blur_planes", out,
+        CK.gaussian_blur_planes_reference(q, gn_cells, **kw))
+    assert ok, err
+    with pytest.raises(ValueError):
+        CK.blur_rows(q, gn_cells, **kw)
+    assert _blur_counts() == (before[0], before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.gpu
+def test_blur_pass_wrappers_raise_instead_of_falling_back(cuda):
+    q, gn, kw = _blur_case(cuda, 1, 2, 2, 24, 128, 3, 3.0, False)
+    before = _blur_counts()
+    with pytest.raises(ValueError):                   # f32: not a Q state
+        CK.gaussian_blur_y_planes(q.float(), gn, **kw)
+    with pytest.raises(ValueError):
+        CK.gaussian_blur_x_planes(q.float(), **kw)
+    with pytest.raises(ValueError):                   # gn of 3 planes
+        CK.gaussian_blur_y_planes(q, gn[:3], **kw)
+    with pytest.raises(ValueError):                   # radius 30 > 24 rows
+        CK.gaussian_blur_y_planes(q, gn, **dict(kw, taps=(0.5,) * 61))
+    with pytest.raises(ValueError):                   # an even tap count
+        CK.gaussian_blur_x_planes(q, **dict(kw, taps=(0.5, 1.0)))
+    with pytest.raises(ValueError):                   # not the cells' size
+        CK.gaussian_blur_x_planes(q, **dict(kw, cs_y=12))
+    assert _blur_counts() == before
+
+
+def _crf_counts():
+    return {n: getattr(CK, n).launches
+            for n in CK.KERNELS + CK.BLUR_PASSES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,H,W,L,blur", [
+    # cs_y = 75: 5 y and 5 x passes, no row kernel
+    (CRF.PRODUCTION_CONFIG, 150, 200, 11, "passes"),
+    # 32x40 cells at half resolution: the image-layout blur, no blur kernel
+    (dataclasses.replace(CRF.PRODUCTION_CONFIG, resolution_scale=2), 128,
+     256, 21, "image"),
+    (CRF.CrfConfig(sxy_bilateral=16.0), 64, 96, 5, "image"),
+    (CRF.CrfConfig(sxy_gaussian=8.0), 128, 256, 5, "passes"),
+])
+def test_crf_geometries_match_reference(cuda, cfg, H, W, L, blur):
+    scenes = [make_scene(H, W, L, seed) for seed in (1, 2)]
+    imgs = torch.from_numpy(np.stack([s[0] for s in scenes])).to(cuda)
+    masks = torch.from_numpy(np.stack([s[1] for s in scenes])).to(cuda)
+    with CK.plain_versions() as calls:
+        want = CRF.mean_field_batched(imgs, masks, cfg, L)
+    for kname in CK.KERNELS:
+        for args, kw, out in calls[kname]:
+            got = getattr(CK, kname)(*args, **kw)
+            torch.cuda.synchronize()
+            err, ok = CK.max_err_vs_plain(kname, got, out)
+            assert ok, (kname, err)
+    before = _crf_counts()
+    got = CRF.mean_field_batched(imgs, masks, cfg, L)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in _crf_counts().items()}
+    n = cfg.n_iters
+    passes = n if blur == "passes" else 0
+    assert moved == {"splat_planes": n + 1, "slice_attrs_planes": 1,
+                     "gaussian_blur_planes": 0, "mf_step_planes": n,
+                     "gaussian_blur_y_planes": passes,
+                     "gaussian_blur_x_planes": passes}, moved
+    assert got.shape == masks.shape
+    agree = (got == want).float().mean().item()
+    assert agree >= 0.99, agree
 
 
 def _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W, B=2, seed=5):

@@ -8,6 +8,7 @@ policy rounds conv operands to bf16 where JAX on the CPU stays f32, so its
 masks are held to the argmax floor of tests/test_torch_model.py (0.99).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from deeplab_tpu.crf import CrfConfig as JCrfConfig
 from deeplab_tpu.data.generator import _imread_bgr
 from deeplab_tpu.models.seg_model import SegNet as JSegNet
 from deeplab_tpu.params import load_keras_h5 as jload
@@ -59,22 +61,47 @@ def test_predictor_masks_match_jax(tiles, jax_masks, policy, floor):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()), dict(spatial=True), dict(tta_scales=(0.5, 1.0)),
-    dict(tta_flip=True),
-    dict(crf=CrfConfig(resolution_scale=2)),
-    dict(crf=CrfConfig(backend="xla", resolution_scale=2)),
-    # small-sigma cells need the plane engine's image-layout blur fallback
-    dict(crf=CrfConfig(sxy_bilateral=16.0))])
+    dict(tta_flip=True)])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError):
         Predictor(SegNet((16, 16), 3), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("cfg", [
+    CrfConfig(resolution_scale=2),
+    CrfConfig(backend="xla", resolution_scale=2),
+    # 16x16 cells: the plane engine's image-layout blur
+    CrfConfig(sxy_bilateral=16.0)])
+def test_predictor_crf_configs_match_jax(tiles, cfg):
+    """The CRF configurations that take the paths past the production one,
+    served on the tiles with the trained weights in float32, against the
+    JAX Predictor with the same CRF (the port's plane engine against JAX
+    backend="pallas").  At 128x128 the trained net finds 3 classes (at
+    32x32 one, which leaves a CRF nothing to refine)."""
+    jcfg = JCrfConfig(**dict(dataclasses.asdict(cfg), backend=(
+        "xla" if cfg.backend == "xla" else "pallas")))
+    jnet = JSegNet((SZ, SZ), 3, "mobilenetv2", "original")
+    params, state = jload(H5, *jnet.init(jax.random.key(0)))
+    raw, want = JPredictor(jnet, params, state, crf=jcfg,
+                           compute_dtype=jnp.float32, return_raw=True)(tiles)
+    pred = Predictor(load_keras_h5(H5, SegNet((SZ, SZ), 3)), crf=cfg,
+                     compute_dtype="float32", device="cpu")
+    got = pred(tiles)
+    assert got.shape == (4, SZ, SZ) and got.dtype == np.int32
+    changed = float((np.asarray(raw) != np.asarray(want)).mean())
+    agree = float((got == np.asarray(want)).mean())
+    print(f"{cfg}: mask agreement with JAX {agree:.5f} (its CRF changed "
+          f"{changed:.4f} of the pixels)")
+    assert changed > 0
+    assert agree >= 0.99, agree
 
 
 @pytest.mark.parametrize("cfg", [CrfConfig(backend="xla"),
                                  CrfConfig(sxy_bilateral=16.0,
                                            backend="xla")])
 def test_xla_engine_takes_any_cell_geometry(cfg):
-    """The XLA engine's square cells take the small-sigma geometry the
-    plane engine does not (the notebook's CrfConfig(sxy_bilateral=16))."""
+    """The XLA engine's square cells at the default sigma and at the
+    notebook's CrfConfig(sxy_bilateral=16)."""
     pred = Predictor(SegNet((32, 32), 3), crf=cfg, device="cpu")
     out = pred(np.random.RandomState(0).rand(2, 32, 32, 3) * 255)
     assert out.shape == (2, 32, 32) and out.dtype == np.int32
