@@ -6,13 +6,16 @@
 Phases, each of which fails the run (exit code 1, no result line):
 
 1. build every CUDA kernel of the main path from ``deeplab_tpu_torch/kernels/
-   csrc`` with nvcc (all sources at once);
+   csrc`` with nvcc (all sources at once), and print each kernel's
+   registers, static shared memory, stack and spills from the ``-Xptxas -v``
+   log;
 2. hold each kernel against its plain PyTorch version: ``fused_mbconv`` at
    every distinct shape the main path gives it, under "mixed" (f32 in/out)
    and bf16 at B=2, and under "mixed" at the served batch; the four CRF
    kernels on every call of a CRF run over seeded 512x512 scenes, at
    ``PRODUCTION_CONFIG`` with B=2 and B=8 and at ``FAST_FAITHFUL_CONFIG``
-   and ``THROUGHPUT_CONFIG`` with B=2;
+   and ``THROUGHPUT_CONFIG`` with B=2, the row blur also equal bit for bit
+   to the chained y and x plain passes;
 3. the model path: ``Predictor(SegNet(512x512, 21 classes), "mixed")`` at
    full MobileNetV2 width with seeded weights serves 3 requests of 8 images;
    ``fused_mbconv``'s count must rise by exactly 14 per forward; the logits
@@ -53,9 +56,11 @@ Phases, each of which fails the run (exit code 1, no result line):
    statistics); the trained net serves one request through
    ``Predictor("mixed")``;
 7. times with CUDA events after warm-up: each kernel launch at the main
-   path's shapes beside its bound and its plain version (and, for the blur,
-   one depthwise ``F.conv2d``), model-only img/s at B=16 under "mixed" and
-   float32, the CRF alone at B=8, production end to end at B=16, and B=1
+   path's shapes beside its bound and its plain version (``fused_mbconv``
+   also beside the plain layer composition, three cuDNN convs with the BN
+   folded, and with its launch plan; the blur beside one depthwise
+   ``F.conv2d``), model-only img/s at B=16 under "mixed" (with the kernels
+   and through the plain layer composition) and float32, the CRF alone at B=8, production end to end at B=16, and B=1
    latency with and without the CRF; each training phase per launch and per
    step beside its bound and plain version, the train step's img/s at B=16
    (bf16 with the kernels, bf16 through the plain layer composition, and
@@ -97,6 +102,10 @@ Phases, each of which fails the run (exit code 1, no result line):
    bound, its plain version, one depthwise ``F.conv2d`` and the row kernel
    launched on the same input, ``mean_field_batched`` per (8, 375, 500)
    batch, and production end to end at ``resolution_scale`` 2, B=16.
+
+``python3 chip_smoke.py --plan-sweep`` times instead every tile and chunk
+that ``fused_mbconv``'s launch plan may choose at each main-path block shape
+(the data its cost model is fitted to) and exits.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -230,6 +239,69 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so the host's launch path is not timed (events
+    around back-to-back launches, ``cuda_ms``, include it where a launch
+    takes less device time than its Python wrapper takes on the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def ptxas_table(log: str):
+    """(kernel, "registers, static shared memory, stack, spills") for each
+    entry function of an ``nvcc -Xptxas -v`` log, names demangled where
+    c++filt is on the PATH."""
+    import re
+    rows, name, props = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, props = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props = (f"stack {m.group(1)} B, spill stores {m.group(2)} B, "
+                     f"spill loads {m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            rows.append((name, f"{m.group(1)} registers, static smem "
+                         f"{smem.group(1) if smem else 0} B, {props}"))
+            name = None
+    if rows:
+        try:
+            out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                                 capture_output=True, text=True, timeout=30)
+            names = out.stdout.splitlines()
+            if out.returncode == 0 and len(names) == len(rows):
+                rows = [(n.replace("(anonymous namespace)::", ""), i)
+                        for n, (_, i) in zip(names, rows)]
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return rows
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -390,6 +462,30 @@ def fused_shapes(M):
     return [(ids, *k) for k, ids in shapes.items()]
 
 
+def mbconv_composition(x, w, rate, skip):
+    """The fused block as the plain layer composition under "mixed", its
+    yardstick: three cuDNN convs in bf16 with the folded BN as their bias
+    (1x1 expand, 3x3 depthwise at the rate, 1x1 project), relu6 between,
+    the residual added in f32.  x (B, H, W, Cin) f32; returns a callable."""
+    import torch.nn.functional as F
+    w1, b1, wdw, bdw, w2, b2 = w
+    ce = w1.shape[1]
+    bf = torch.bfloat16
+    k1 = w1.t().contiguous().to(bf)[:, :, None, None]
+    kd = wdw.t().reshape(ce, 1, 3, 3).contiguous().to(bf)
+    k2 = w2.t().contiguous().to(bf)[:, :, None, None]
+    b1, bdw, b2 = b1.to(bf), bdw.to(bf), b2.to(bf)
+    xn = x.permute(0, 3, 1, 2)          # channels-last memory
+
+    def run():
+        e = F.conv2d(xn.to(bf), k1, b1).clamp_(0.0, 6.0)
+        d = F.conv2d(e, kd, bdw, padding=rate, dilation=rate,
+                     groups=ce).clamp_(0.0, 6.0)
+        o = F.conv2d(d, k2, b2).float()
+        return o + xn if skip else o
+    return run
+
+
 def bound_ms(B, H, W, cin, ce, cout, act_bytes):
     px = B * H * W
     bytes_ = (px * (cin + cout) * act_bytes
@@ -500,10 +596,59 @@ class Run:
         return out
 
 
+def plan_sweep() -> int:
+    """``--plan-sweep``: every (tile, chunk) that ``mbconv_plan`` may choose,
+    forced, timed at each main-path block shape (B=8, "mixed", seeded
+    weights), beside the plan's choice: the data its cost model is fitted
+    to.  Times are device times in a CUDA graph."""
+    from deeplab_tpu_torch.kernels import build
+    from deeplab_tpu_torch.kernels import fused_mbconv as FM
+    from deeplab_tpu_torch.models import mobilenetv2 as M
+    card = card_line()
+    build.build(["fused_mbconv"])
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    tiles, chunks = FM.MBCONV_TILES, FM.MBCONV_CHUNKS
+    for ids, cin, ce, cout, rate, skip, st in fused_shapes(M):
+        H = W = SIZE // st
+        w = [torch.randn(cin, ce, generator=gen) * 0.2,
+             torch.randn(ce, generator=gen) * 0.1,
+             torch.randn(9, ce, generator=gen) * 0.2,
+             torch.randn(ce, generator=gen) * 0.1,
+             torch.randn(ce, cout, generator=gen) * 0.1,
+             torch.randn(cout, generator=gen) * 0.1]
+        w = [t.to(dev) for t in w]
+        w[0], w[4] = w[0].bfloat16(), w[4].bfloat16()
+        x = torch.randn((SERVE_B, H, W, cin), generator=gen).to(dev)
+        chosen = FM.mbconv_plan(SERVE_B, H, W, cin, ce, cout, rate)
+        for tile in tiles:
+            for ck in chunks:
+                FM.MBCONV_TILES, FM.MBCONV_CHUNKS = (tile,), (ck,)
+                FM.mbconv_plan.cache_clear()
+                try:
+                    p = FM.mbconv_plan(SERVE_B, H, W, cin, ce, cout, rate)
+                except ValueError:
+                    continue
+                ms = graph_ms(lambda: FM.fused_mbconv(
+                    x, *w, rate=rate, skip=skip, mxu_bf16=True))
+                mark = ("  <- plan" if (p.th, p.tw, p.ck) == (
+                    chosen.th, chosen.tw, chosen.ck) else "")
+                print(f"  blocks {ids} {cin}->{ce}->{cout} rate {rate} "
+                      f"{H}x{W}: {tile[0]}x{tile[1]} chunk {ck} stages "
+                      f"{p.stages} nt {p.nt}: {ms:.4f} ms, estimate "
+                      f"{p.est_clk:.0f} clk{mark} [{card}]", flush=True)
+        FM.MBCONV_TILES, FM.MBCONV_CHUNKS = tiles, chunks
+        FM.mbconv_plan.cache_clear()
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if "--plan-sweep" in sys.argv[1:]:
+        return plan_sweep()
     import numpy as np
     from deeplab_tpu_torch import Predictor
     from deeplab_tpu_torch import crf as CRF
@@ -574,9 +719,8 @@ def main() -> int:
                             "fused_dw"])
         print(f"build seconds: {time.perf_counter() - t0:.2f}")
         for name, log in logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    print(f"  [{name}] {line.strip()}")
+            for kern, info in ptxas_table(log):
+                print(f"  [{name}] {kern}: {info}")
     run.phase("build", do_build)
     if run.failed:
         return 1
@@ -674,12 +818,25 @@ def main() -> int:
                     if not ok:
                         raise AssertionError(f"{name} disagrees at "
                                              f"{cfg_name} B={B}: {err}")
+                    if name == "gaussian_blur_planes":
+                        # tap order and exact products, as the y and x
+                        # plain versions: their chain, bit for bit
+                        with torch.inference_mode():
+                            chain = CK.gaussian_blur_x_planes_reference(
+                                CK.gaussian_blur_y_planes_reference(
+                                    *args, **kw), **kw)
+                        if not torch.equal(got, chain):
+                            raise AssertionError(
+                                f"row blur differs from the chained plain "
+                                f"passes at {cfg_name} B={B}")
                 rep = crf_report[name]
                 rep["max_abs_err"] = max(rep["max_abs_err"], max(errs))
                 print(f"  {cfg_name:20s} B={B} {name:20s} {len(errs)} calls: "
                       f"max_abs {max(errs):.3e} (rel tol: f32 "
                       f"{CK.PLAIN_F32_REL}, bf16 {CK.PLAIN_BF16_REL:.4g}, "
-                      f"step Q {CK.PLAIN_STEP_REL:.4g}) ok")
+                      f"step Q {CK.PLAIN_STEP_REL:.4g}) ok"
+                      + ("; equal bit for bit to the chained y and x plain "
+                         "passes" if name == "gaussian_blur_planes" else ""))
             if cfg_name == "PRODUCTION_CONFIG" and B == SERVE_B:
                 crf_b8.update(calls)
     run.phase("CRF kernels vs plain versions", check_crf_kernels)
@@ -1860,6 +2017,7 @@ def main() -> int:
         pol = core.resolve_compute_dtype("mixed")
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         bound_by = {"bytes": 0.0, "operations": 0.0}
+        tot["composition_ms"] = tot["device_ms"] = 0.0
         for ids, cin, ce, cout, rate, skip, st in shapes:
             H = W = SIZE // st
             x, w, mxu = block_inputs(ids, cin, H, W, SERVE_B, pol, gen)
@@ -1869,29 +2027,49 @@ def main() -> int:
             FM.fused_mbconv.launches = counted  # timing launches do not count
             plain = cuda_ms(lambda: FM.fused_mbconv_reference(
                 x, *w, rate=rate, skip=skip, mxu_bf16=mxu), 10)
+            dev_ms = graph_ms(lambda: FM.fused_mbconv(
+                x, *w, rate=rate, skip=skip, mxu_bf16=mxu))
+            FM.fused_mbconv.launches = counted
+            comp = cuda_ms(mbconv_composition(x, w, rate, skip), 20)
             bms, by = bound_ms(SERVE_B, H, W, cin, ce, cout, 4)
+            plan = FM.mbconv_plan(SERVE_B, H, W, cin, ce, cout, rate)
             n = len(ids)
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain
             tot["bound_ms"] += n * bms
+            tot["composition_ms"] += n * comp
+            tot["device_ms"] += n * dev_ms
             bound_by[by] += n * bms
             print(f"  fused_mbconv blocks {ids} {cin}->{ce}->{cout} rate "
-                  f"{rate} B={SERVE_B} {H}x{W} f32 io: kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-                  f"{bms / ms:.3f} of bound [{card}]")
+                  f"{rate} B={SERVE_B} {H}x{W} f32 io: kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms in a CUDA graph), plain "
+                  f"{plain:.4f} ms, composition {comp:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}), {bms / ms:.3f} of bound; plan "
+                  f"{plan.th}x{plan.tw} tiles, chunk {plan.ck}, "
+                  f"{plan.stages} stages, grid {plan.grid}, "
+                  f"{plan.smem} B shared, halo {plan.halo:.3f}x [{card}]")
         print(f"  per forward (14 launches, B={SERVE_B}): kernel "
-              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+              f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f} ms), plain "
+              f"{tot['plain_ms']:.4f} ms, "
+              f"composition {tot['composition_ms']:.4f} ms, bound "
               f"{tot['bound_ms']:.4f} ms [{card}]")
         kernel_report.update(tot)
         kernel_report["bound_by"] = max(bound_by, key=bound_by.get)
 
         img = (torch.rand((BENCH_B, SIZE, SIZE, 3), generator=gen) * 255
                ).to(dev)
-        for policy in ("mixed", "float32"):
+        for what, fuse, policy in (("mixed", True, "mixed"),
+                                   ("mixed, plain layer composition", False,
+                                    "mixed"),
+                                   ("float32", True, "float32")):
             counted = FM.fused_mbconv.launches
+            dw = FDW.fused_dw_bn_relu6.launches
+            net.fuse_blocks = fuse
             ms = cuda_ms(lambda: net.predict_ids(img, policy), 10, warmup=2)
+            net.fuse_blocks = True
             FM.fused_mbconv.launches = counted
-            print(f"  model-only {policy} B={BENCH_B}: {ms:.3f} ms/batch, "
+            FDW.fused_dw_bn_relu6.launches = dw
+            print(f"  model-only {what} B={BENCH_B}: {ms:.3f} ms/batch, "
                   f"{1e3 * BENCH_B / ms:.1f} img/s [{card}]")
         pred = Predictor(net, compute_dtype="mixed")
         one = (torch.rand((1, SIZE, SIZE, 3), generator=gen) * 255).numpy()
@@ -1921,28 +2099,33 @@ def main() -> int:
         for name, ks in kinds.items():
             kernel = getattr(CK, name)
             ref = getattr(CK, name + "_reference")
-            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+            tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0}
             by = {"bytes": 0.0, "operations": 0.0}
             for idx, n in ks:
                 args, kw, out = crf_b8[name][idx]
                 with torch.inference_mode():
                     ms = cuda_ms(lambda: kernel(*args, **kw), 20)
+                    dev_ms = graph_ms(lambda: kernel(*args, **kw))
                     plain = cuda_ms(lambda: ref(*args, **kw), 3, warmup=1)
                 bms, bb = crf_bound_ms(CK, name, args, kw, out)
                 tot["ms"] += n * ms
+                tot["device_ms"] += n * dev_ms
                 tot["plain_ms"] += n * plain
                 tot["bound_ms"] += n * bms
                 by[bb] += n * bms
                 shapes = [tuple(t.shape) for t in tensors(args)]
                 print(f"  {name} launch {idx} (x{n} per request) inputs "
-                      f"{shapes}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"{shapes}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms "
+                      f"in a CUDA graph), plain {plain:.4f} ms, "
                       f"bound {bms:.4f} ms ({bb}), {bms / ms:.3f} of bound "
                       f"[{card}]")
             crf_report[name].update(tot)
             crf_report[name]["bound_by"] = max(by, key=by.get)
             crf_report[name]["library_ms"] = None
             print(f"  {name} per request (B={SERVE_B}): kernel "
-                  f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+                  f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f} ms), "
+                  f"plain {tot['plain_ms']:.4f} ms, bound "
                   f"{tot['bound_ms']:.4f} ms [{card}]")
         # yardstick for the blur: one depthwise conv with the 17x17
         # outer-product kernel over the image-layout tensor (not used by
@@ -2104,7 +2287,9 @@ def main() -> int:
         "max_abs_err": kernel_report["max_abs_err"],
         "ms": kernel_report["ms"], "plain_ms": kernel_report["plain_ms"],
         "bound_ms": kernel_report["bound_ms"],
-        "bound_by": kernel_report["bound_by"], "library_ms": None}, {
+        "bound_by": kernel_report["bound_by"], "library_ms": None,
+        "composition_ms": kernel_report["composition_ms"],
+        "device_ms": kernel_report["device_ms"]}, {
         "name": "fused_sepconv", "route": "cuda",
         "source": "deeplab_tpu_torch/kernels/csrc/fused_sepconv.cu",
         "replaces": "deeplab_tpu/kernels/fused_mbconv.py:208",
@@ -2136,6 +2321,8 @@ def main() -> int:
             "library_ms": rep["library_ms"]}
         if n in CK.BLUR_PASSES:
             entry["row_kernel_ms"] = rep["row_kernel_ms"]
+        if "device_ms" in rep:
+            entry["device_ms"] = rep["device_ms"]
         if n == "mf_step_planes":
             ut = notebook["unary_times"]
             entry["forms"] = {

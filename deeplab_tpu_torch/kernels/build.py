@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 # Per-source flags.  These kernels match their plain versions' f32 rounding
-# points, so a*b + c must not contract into one fused multiply-add.
+# points, so a*b + c must not contract into one fused multiply-add (the CRF
+# row blur writes its exact-product multiply-adds as explicit fmaf).
 SOURCE_FLAGS = {"crf_fused": ["-fmad=false"],
                 "fused_mbconv_train": ["-fmad=false"],
                 "fused_dw": ["-fmad=false"]}

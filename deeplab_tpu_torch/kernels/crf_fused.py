@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import math
 import sys
@@ -370,7 +371,7 @@ _SIGS = {
                          _INT, _INT, _FLT, _VOID],
     "crf_slice_attrs_launch": [_VOID] * 10 + [_INT] * 12 + [_FLT] * 3
                               + [_VOID],
-    "crf_blur_launch": [_VOID] * 4 + [_INT] * 7 + [_VOID],
+    "crf_blur_launch": [_VOID] * 4 + [_INT] * 11 + [_VOID],
     "crf_blur_y_launch": [_VOID, _VOID, _INT, _VOID, _VOID] + [_INT] * 7
                          + [_VOID],
     "crf_blur_x_launch": [_VOID] * 3 + [_INT] * 7 + [_VOID],
@@ -518,12 +519,88 @@ def slice_attrs_planes(rgb, grid, gn, labels, *, nc: int, L: int,
     return attrs, q0, attrs_s, q0_s
 
 
+# Launch geometry of the row kernel (csrc/crf_fused.cu ``blur_kernel``),
+# decided here and checked there.
+BLUR_SMEM_LIMIT = 232448   # dynamic shared memory a block may use (H100)
+BLUR_MAX_THREADS = 384     # two blocks an SM at 85 registers a thread
+BLUR_SLOTS = 2 * 132       # blocks resident at once: two an SM, 132 SMs
+
+
+def blur_ry(ntaps: int) -> int:
+    """Rows of a y-pass thread's register window: 16 for the main path's
+    17 taps (its own instantiation), 8 for any other count."""
+    return 16 if ntaps == 17 else 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BlurPlan:
+    """One row-kernel launch: a block of ``threads`` per (cell, strip of
+    ``ty`` rows, group of ``lg`` labels); ``wp`` the row pitch (elements)
+    of its gn, A and T tiles, ``smem`` their bytes; grid
+    ``(B*Z, strips, groups)``."""
+    ty: int
+    strips: int
+    lg: int
+    groups: int
+    wp: int
+    threads: int
+    smem: int
+    BZ: int
+
+    @property
+    def grid(self):
+        return (self.BZ, self.strips, self.groups)
+
+
+def blur_smem(ty: int, cs_x: int, ntaps: int) -> int:
+    """Bytes of a row-kernel block: the f32 gn tile and the bf16 A tile of
+    ``ty`` rows (rounded up to the y pass's windows) plus 2r halo rows, and
+    the bf16 y-pass tile T; rows of cs_x + 2r padded to 8 elements."""
+    r, ry = ntaps // 2, blur_ry(ntaps)
+    wp = -(-(cs_x + 2 * r) // 8) * 8
+    ty_p = -(-ty // ry) * ry
+    return (ty_p + 2 * r) * wp * (4 + 2) + ty_p * wp * 2
+
+
+@functools.lru_cache(maxsize=256)
+def blur_plan(B: int, ny: int, nx: int, cs_y: int, cs_x: int, L: int,
+              ntaps: int) -> BlurPlan:
+    """Whole cells a block where they fit (a halo of 2r rows read once per
+    cell, not once per strip), else the fewest even strips that do.  The
+    labels split into as many groups as keep the blocks within one wave of
+    BLUR_SLOTS (all 21 labels of a cell in one block at B=8 in production:
+    one gn tile for all of them), spread evenly.  One thread per y-pass
+    window (a column pair and blur_ry rows), in as few rounds of at most
+    BLUR_MAX_THREADS as hold them."""
+    strips = 1
+    while True:
+        ty = -(-cs_y // strips)
+        smem = blur_smem(ty, cs_x, ntaps)
+        if smem <= BLUR_SMEM_LIMIT:
+            break
+        if ty == 1:
+            raise ValueError(f"no row-kernel tile fits cells {cs_y}x{cs_x} "
+                             f"with {ntaps} taps")
+        strips += 1
+    strips = -(-cs_y // ty)
+    cells = B * ny * nx * strips
+    groups = min(L, max(1, BLUR_SLOTS // cells))
+    lg = -(-L // groups)
+    groups = -(-L // lg)
+    r, ry = ntaps // 2, blur_ry(ntaps)
+    wp = -(-(cs_x + 2 * r) // 8) * 8
+    windows = (cs_x + 2 * r) // 2 * -(-ty // ry)
+    rounds = -(-windows // BLUR_MAX_THREADS)
+    threads = -(-windows // (32 * rounds)) * 32
+    return BlurPlan(ty, strips, lg, groups, wp, threads, smem, B * ny * nx)
+
+
 def row_kernel_fits(taps, cs_y: int) -> bool:
     """Whether :func:`gaussian_blur_planes` runs the fused row kernel: a
     radius within its 16-row halo strip and cells whose height is a multiple
     of 16, the geometric condition of the TPU's row kernel.  Its 2 MiB
-    VMEM clause on a row of cells is dropped: the CUDA row kernel stages a
-    strip of one cell and label per block, whatever the row's size."""
+    VMEM clause on a row of cells is dropped: the CUDA row kernel stages
+    one cell (or a strip of it) per block, whatever the row's size."""
     return len(taps) // 2 <= 16 and cs_y % 16 == 0
 
 
@@ -570,9 +647,8 @@ def blur_rows(a, gn, *, taps, B: int, ny: int, nx: int, cs_y: int,
     """Launch the fused row kernel on CUDA tensors at any geometry it
     takes (cells whose width is a multiple of 4, a radius up to 16 within
     one cell, gn (Z, 1, P)), whether or not :func:`row_kernel_fits`; each
-    launch counts in ``gaussian_blur_planes.launches``.  At a cell height
-    with no power-of-two factor, such as 75, its strips are one row
-    high."""
+    launch counts in ``gaussian_blur_planes.launches``.  Its geometry is
+    :func:`blur_plan`'s."""
     if cs_x % 4:
         raise ValueError(f"the row kernel takes cells whose width is a "
                          f"multiple of 4, not {cs_x}")
@@ -582,9 +658,11 @@ def blur_rows(a, gn, *, taps, B: int, ny: int, nx: int, cs_y: int,
     tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
     out = torch.empty_like(a)
     lib = _lib()
+    plan = blur_plan(B, ny, nx, cs_y, cs_x, a.shape[1], len(tb))
     rc = lib.crf_blur_launch(
         a.data_ptr(), gn.data_ptr(), out.data_ptr(), tb.ctypes.data,
-        len(tb), B, ny, nx, cs_y, cs_x, a.shape[1], _stream(a))
+        len(tb), B, ny, nx, cs_y, cs_x, a.shape[1], plan.ty, plan.lg,
+        plan.threads, plan.smem, _stream(a))
     _ok(lib, rc, "gaussian_blur_planes")
     gaussian_blur_planes.launches += 1
     return out

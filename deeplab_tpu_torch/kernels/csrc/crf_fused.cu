@@ -51,15 +51,38 @@
 //    it (a runtime test there measured 9% slower).  slice_planes
 //    (the XLA engine's color blur and slice) is the grid blur of an f32 grid
 //    followed by the same gather, with f32 outputs and no messages.
-//  - spatial blur: one block per (cell, label, strip of TY rows) stages
-//    bf16(Q * gn) with an r-pixel halo from the neighbouring cells (zero
-//    outside the image), runs the y pass into a bf16 strip (4 rows a thread,
-//    each halo value read once per 4 outputs) and the x pass out (4 columns
-//    a thread from a register window filled with 16-byte loads; the tile's
-//    row pitch is rounded up to 4 floats, so the cells' width must be a
-//    multiple of 4).  The strip height is the largest power of two up to 32
-//    that divides cs_y and the x window holds 33 taps, so the row kernel
-//    takes cells whose height is a multiple of 16 and radii up to 16.
+//  - spatial blur, the row kernel (the TPU's _blur_row_kernel).  It moves
+//    2 bf16 bytes in and 2 out per (pixel, label): 177 MB per production
+//    launch, 0.053 ms at 3.35 TB/s; its ~36 f32 multiply-adds per output
+//    (17 taps down a column over cs_x + 2r columns, 17 along the row) take
+//    ~0.05 ms at the f32 rate, so it is bound by both.  The launch plan
+//    (blur_plan in kernels/crf_fused.py) sets the geometry:
+//      * one block per (cell, strip, group of labels), a strip being the
+//        whole cell wherever it fits, so the 2r halo rows are read once per
+//        cell (1.41x at 64x128, r = 8) and not once per 32-row strip;
+//      * as few label groups as keep the blocks within one wave of two an
+//        SM (at B=8 in production one group of all 21 labels); the cell's
+//        f32 gn tile is staged once for the group;
+//      * a and gn read in 16-byte vectors (8 bf16, 2 x 4 f32) wherever the
+//        halo is a whole number of vectors (cs_x and r multiples of 8;
+//        elementwise otherwise), the next label's a held in registers
+//        while this label's x pass runs;
+//      * A and T in shared memory as bf16 (exact: both hold bf16-rounded
+//        values; half the footprint, ~88 KB a block at 64x128);
+//      * the y pass one register window a thread, a column pair by 16 rows
+//        (16 + 2r rows read for 32 outputs), one thread per window (288 at
+//        64x128); the x pass 8 outputs a thread from 16-byte reads of T,
+//        written with one 16-byte store;
+//      * the tap count a template parameter: 17 on the main path, every
+//        other count up to 33 in the generic instantiation (8-row
+//        windows).
+//    Its multiply-adds are explicit fused ones: a product of two bf16
+//    values is exact in f32, so fmaf(t, v, acc) rounds as the plain
+//    versions' multiply then add (unless the product falls below f32's
+//    normal range), and the kernel equals the chained y and x plain passes
+//    bit for bit.  It takes cells whose width is a multiple of 4 and radii
+//    up to 16; gaussian_blur_planes sends it cells whose height is a
+//    multiple of 16.
 //  - spatial blur in two passes, for every other geometry (cs_y = 75, 50 or
 //    72 from VOC image heights; radii past 16): the y pass, one block per
 //    (cell, label, strip of rows), stages bf16(Q * gn) with r halo rows from
@@ -98,8 +121,7 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int MAX_CTAPS = 7;    // color band taps (radius <= 3)
-constexpr int MAX_STAPS = 33;   // spatial taps (radius <= 16); the blur's
-                                // windows hold MAX_STAPS + 3 = 9 float4
+constexpr int MAX_STAPS = 33;   // the row kernel's taps (radius <= 16)
 constexpr int MAX_YX_TAPS = 257;  // the two-pass blur: radius <= 128
 constexpr int ATTR_ROWS = 8, ATTR_GN = 3, ATTR_BN = 4, ATTR_BSELF = 5,
               ATTR_LABEL = 6, ATTR_BSCALE = 7;
@@ -109,6 +131,7 @@ constexpr int SMEM_MAX = 227 * 1024;
 enum {
   ERR_ARGS = 100001,      // an argument the kernels do not take
   ERR_SMEM = 100002,      // a tile that does not fit in shared memory
+  ERR_PLAN = 100003,      // a launch plan this file does not agree with
 };
 
 struct ColorTaps {
@@ -463,93 +486,276 @@ __global__ void __launch_bounds__(256) slice_kernel(SliceArgs a) {
 }
 
 // --------------------------------------------------------- spatial blur ----
+// The row kernel.  One block per (cell, strip of ty rows, group of lg
+// labels): the gn tile once, then per label A = bf16(a * gn) with an r-pixel
+// halo from the neighbouring cells, the y pass into T and the x pass out.
+// A and T hold bf16 (exact: both are bf16-rounded values).  Rows of the
+// three tiles have a pitch of wp elements (cs_x + 2r rounded up to 8).
+// at most 384 threads a block; the main path's instantiation two blocks an
+// SM (85 registers a thread), the generic one one (its window is larger)
+constexpr int BLUR_MAX_THREADS = 384;
+constexpr int BLUR_PREFETCH = 6;  // 16-byte words of a a thread prefetches
+
+// Rows of a y-pass thread's register window: 16 for the main path's 17
+// taps, 8 for the generic tap count (blur_ry in kernels/crf_fused.py).
+__host__ __device__ constexpr int blur_ry(int ntaps_template) {
+  return ntaps_template == 17 ? 16 : 8;
+}
+
 struct BlurArgs {
   const bf16* a;          // (B*Z, L, P)
   const float* gn;        // (Z, 1, P), one plane per image position
   bf16* out;              // (B*Z, L, P)
-  int ny, nx, cs_y, cs_x, L, TY;
+  int ny, nx, cs_y, cs_x, L, ty, lg, wp, vec;  // blockDim.x: the plan's
   SpatialTaps taps;
 };
 
-__global__ void blur_kernel(BlurArgs a) {
-  float* bsm = reinterpret_cast<float*>(dyn_smem);
-  const int r = a.taps.n / 2, W2 = a.cs_x + 2 * r, H2 = a.TY + 2 * r;
-  // row pitch rounded up to 4 floats, so that every row is 16-byte aligned;
-  // the pad columns are never summed
-  const int Wp = (W2 + 3) & ~3;
+// Bytes of a block's tiles: blur_smem in kernels/crf_fused.py.
+inline size_t blur_smem(int ty, int wp, int r, int ry) {
+  const int ty_p = (ty + ry - 1) / ry * ry;
+  return (size_t)(ty_p + 2 * r) * wp * (sizeof(float) + sizeof(bf16)) +
+         (size_t)ty_p * wp * sizeof(bf16);
+}
+
+// the four bf16 pairs of a 16-byte word
+__device__ __forceinline__ __nv_bfloat162* bf2x4(uint4* u) {
+  return reinterpret_cast<__nv_bfloat162*>(u);
+}
+
+// Every tap sum runs in tap order with one rounding a term: the
+// products of two bf16 values are exact in f32, so fmaf(t, v, acc) equals
+// acc + t*v rounded once, as the plain versions' separate multiply and add
+// (the file's -fmad=false keeps every other a*b + c in two roundings).
+// NT: the tap count (17 on the main path), or 0 for any count up to
+// MAX_STAPS with the count read at run time.
+template <int NT>
+__global__ void __launch_bounds__(BLUR_MAX_THREADS, NT ? 2 : 1)
+blur_kernel(BlurArgs a) {
+  constexpr int KMAX = NT ? NT : MAX_STAPS, RY = blur_ry(NT);
+  const int nthr = blockDim.x;
+  const int n = NT ? NT : a.taps.n, r = n / 2;
+  const int wp = a.wp, Wd = a.cs_x + 2 * r;
   const int Z = a.ny * a.nx, P = a.cs_y * a.cs_x;
-  float* A = bsm;                    // [H2][Wp]  bf16(a * gn) with halo
-  float* T = bsm + (size_t)H2 * Wp;  // [TY][Wp]  y pass, bf16-rounded
-  const int z = blockIdx.x / a.L, l = blockIdx.x % a.L;
-  const int bimg = z / Z, zz = z % Z, iy = zz / a.nx, ix = zz % a.nx;
-  const int y0 = blockIdx.y * a.TY;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  // rows of the halo tile over warps, columns over lanes
-  for (int yy = warp; yy < H2; yy += nw) {
-    const int cy = y0 + yy - r;
+  const int z = blockIdx.x, bimg = z / Z, zz = z % Z;
+  const int iy = zz / a.nx, ix = zz % a.nx;
+  const int y0 = blockIdx.y * a.ty, rows = min(a.ty, a.cs_y - y0);
+  const int ty_p = (rows + RY - 1) / RY * RY;
+  const int H2 = rows + 2 * r;
+  const int ty_alloc = (a.ty + RY - 1) / RY * RY;
+  float* G = reinterpret_cast<float*>(dyn_smem);          // [ty+2r][wp] gn
+  bf16* A = reinterpret_cast<bf16*>(G + (size_t)(ty_alloc + 2 * r) * wp);
+  bf16* T = A + (size_t)(ty_alloc + 2 * r) * wp;          // [ty][wp]
+  const int V = a.vec ? 8 : 1;       // elements a staging item covers
+  const int units = Wd / V;          // items a row
+  const int tid = threadIdx.x;
+
+  // source of staging item (row yy, unit u): plane offset of its cell and
+  // pixel, or -1 outside the image
+  auto src = [&](int i, int* zz2_out) -> int {
+    const int yy = i / units, xx = (i - yy * units) * V;
+    const int cy = y0 + yy - r, cx = xx - r;
     const int dy = cy < 0 ? -1 : (cy >= a.cs_y ? 1 : 0);
-    const int iy2 = iy + dy, py = cy - dy * a.cs_y;
-    for (int xx = lane; xx < W2; xx += 32) {
-      const int cx = xx - r;
-      const int dx = cx < 0 ? -1 : (cx >= a.cs_x ? 1 : 0);
-      const int ix2 = ix + dx;
-      float v = 0.f;
-      if (iy2 >= 0 && iy2 < a.ny && ix2 >= 0 && ix2 < a.nx) {
-        const int p2 = py * a.cs_x + (cx - dx * a.cs_x);
-        const int zz2 = iy2 * a.nx + ix2;
-        const size_t z2 = (size_t)bimg * Z + zz2;
-        v = bf16r(__bfloat162float(a.a[(z2 * a.L + l) * P + p2]) *
-                  a.gn[(size_t)zz2 * P + p2]);
+    const int dx = cx < 0 ? -1 : (cx >= a.cs_x ? 1 : 0);
+    const int iy2 = iy + dy, ix2 = ix + dx;
+    if (iy2 < 0 || iy2 >= a.ny || ix2 < 0 || ix2 >= a.nx) return -1;
+    *zz2_out = iy2 * a.nx + ix2;
+    return (cy - dy * a.cs_y) * a.cs_x + cx - dx * a.cs_x;
+  };
+
+  // the gn tile, once for the block's labels
+  for (int i = tid; i < H2 * units; i += nthr) {
+    const int yy = i / units, xx = (i - yy * units) * V;
+    int zz2 = 0;
+    const int p = src(i, &zz2);
+    float* dst = G + yy * wp + xx;
+    if (V == 8) {
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (p >= 0) {
+        const float4* s4 =
+            reinterpret_cast<const float4*>(a.gn + (size_t)zz2 * P + p);
+        lo = s4[0];
+        hi = s4[1];
       }
-      A[yy * Wp + xx] = v;
+      reinterpret_cast<float4*>(dst)[0] = lo;
+      reinterpret_cast<float4*>(dst)[1] = hi;
+    } else {
+      *dst = p >= 0 ? a.gn[(size_t)zz2 * P + p] : 0.f;
     }
   }
-  __syncthreads();
-  // y pass: each thread 4 rows of one column, reading each halo value once
-  // per 4 outputs; sums in tap order
-  for (int y4 = warp * 4; y4 < a.TY; y4 += nw * 4) {
-    for (int xx = lane; xx < W2; xx += 32) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int m = 0; m < a.taps.n + 3 && y4 + m < H2; ++m) {
-        const float v = A[(y4 + m) * Wp + xx];
+
+  // With 16-byte staging, a thread holds its words of the next label's a in
+  // registers: their loads are in flight during this label's x pass.  Its
+  // words' places do not depend on the label: their offsets in a (label 0;
+  // -1 outside the image) and in the tile are worked out once.
+  const int items = H2 * units;
+  const bool prefetch = V == 8 && items <= BLUR_PREFETCH * nthr;
+  uint4 next[BLUR_PREFETCH];
+  int src_at[BLUR_PREFETCH], tile_at[BLUR_PREFETCH];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = m - j;
-          if (k >= 0 && k < a.taps.n) acc[j] += a.taps.t[k] * v;
+  for (int q = 0; q < BLUR_PREFETCH; ++q) {
+    const int i = tid + q * nthr;
+    int zz2 = 0;
+    const int p = prefetch && i < items ? src(i, &zz2) : -1;
+    src_at[q] = p >= 0 ? (bimg * Z + zz2) * a.L * P + p : -1;
+    const int yy = i / units;
+    tile_at[q] = i < items ? yy * wp + (i - yy * units) * 8 : -1;
+  }
+  auto fetch = [&](int l) {
+#pragma unroll
+    for (int q = 0; q < BLUR_PREFETCH; ++q) {
+      next[q] = make_uint4(0, 0, 0, 0);
+      if (src_at[q] >= 0)
+        next[q] = *reinterpret_cast<const uint4*>(a.a + src_at[q] +
+                                                  (size_t)l * P);
+    }
+  };
+  const int l0 = blockIdx.z * a.lg, l_end = min(a.L, l0 + a.lg);
+  if (prefetch) fetch(l0);
+  __syncthreads();   // the gn tile
+  for (int l = l0; l < l_end; ++l) {
+    // A = bf16(a * gn), zero outside the image
+    if (prefetch) {
+#pragma unroll
+      for (int q = 0; q < BLUR_PREFETCH; ++q) {
+        if (tile_at[q] < 0) break;
+        const float4* g = reinterpret_cast<const float4*>(G + tile_at[q]);
+        const float4 g0 = g[0], g1 = g[1];
+        const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        uint4 v;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float2 f = __bfloat1622float2(bf2x4(&next[q])[h]);
+          bf2x4(&v)[h] =
+              __floats2bfloat162_rn(f.x * gv[2 * h], f.y * gv[2 * h + 1]);
         }
+        *reinterpret_cast<uint4*>(A + tile_at[q]) = v;
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (y4 + j < a.TY) T[(y4 + j) * Wp + xx] = bf16r(acc[j]);
     }
-  }
-  __syncthreads();
-  // x pass: 4 consecutive outputs a thread (cs_x % 4 == 0) from a window
-  // read with 16-byte loads (a quarter warp's loads hit distinct banks)
-  bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
-  const int xq = a.cs_x / 4;
-  for (int i = threadIdx.x; i < a.TY * xq; i += blockDim.x) {
-    const int yy = i / xq, x0 = (i - yy * xq) * 4;
-    const float4* row = reinterpret_cast<const float4*>(T + yy * Wp + x0);
-    float win[MAX_STAPS + 3];
+    for (int i = tid; !prefetch && i < items; i += nthr) {
+      const int yy = i / units, xx = (i - yy * units) * V;
+      int zz2 = 0;
+      const int p = src(i, &zz2);
+      const size_t plane = ((size_t)bimg * Z + zz2) * a.L + l;
+      bf16* dst = A + yy * wp + xx;
+      const float* g = G + yy * wp + xx;
+      if (V == 8) {
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (p >= 0) {
+          uint4 s = *reinterpret_cast<const uint4*>(a.a + plane * P + p);
 #pragma unroll
-    for (int q = 0; q < (MAX_STAPS + 3) / 4; ++q)
-      if (4 * q < a.taps.n + 3) {
-        const float4 v = row[q];
-        win[4 * q] = v.x; win[4 * q + 1] = v.y;
-        win[4 * q + 2] = v.z; win[4 * q + 3] = v.w;
+          for (int q = 0; q < 4; ++q) {
+            const float2 f = __bfloat1622float2(bf2x4(&s)[q]);
+            bf2x4(&v)[q] =
+                __floats2bfloat162_rn(f.x * g[2 * q], f.y * g[2 * q + 1]);
+          }
+        }
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        *dst = __float2bfloat16_rn(
+            p >= 0 ? __bfloat162float(a.a[plane * P + p]) * *g : 0.f);
       }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    }
+    __syncthreads();
+    // y pass: a column pair and RY rows a thread, from a register
+    // window of RY + n - 1 rows; T = bf16(sum) in tap order
+    const int pairs = Wd / 2, segs = ty_p / RY;
+    for (int i = tid; i < pairs * segs; i += nthr) {
+      const int seg = i / pairs, cp = i - seg * pairs;
+      const bf16* col = A + (size_t)seg * RY * wp + 2 * cp;
+      float2 win[RY + KMAX - 1];
 #pragma unroll
-    for (int k = 0; k < MAX_STAPS; ++k)
-      if (k < a.taps.n) {
+      for (int m = 0; m < RY + KMAX - 1; ++m)
+        if (NT || m < RY + n - 1)
+          win[m] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(col + m * wp));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] += a.taps.t[k] * win[j + k];
+      for (int j = 0; j < RY; ++j) {
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+          if (NT || k < n) {
+            s0 = __fmaf_rn(a.taps.t[k], win[j + k].x, s0);
+            s1 = __fmaf_rn(a.taps.t[k], win[j + k].y, s1);
+          }
+        *reinterpret_cast<__nv_bfloat162*>(
+            T + (size_t)(seg * RY + j) * wp + 2 * cp) =
+            __floats2bfloat162_rn(s0, s1);
       }
+    }
+    __syncthreads();
+    if (prefetch && l + 1 < l_end) fetch(l + 1);
+    // x pass: 8 outputs a thread (4 where cs_x % 8 != 0) from 16-byte (8-
+    // byte) reads of T, written with one store
+    bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
+    if (a.cs_x % 8 == 0) {
+      const int xq = a.cs_x / 8;
+      for (int i = tid; i < rows * xq; i += nthr) {
+        const int yy = i / xq, x0 = (i - yy * xq) * 8;
+        const uint4* row = reinterpret_cast<const uint4*>(T + yy * wp + x0);
+        constexpr int NV = (8 + KMAX - 1 + 7) / 8;
+        float win[8 * NV];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      o[yy * a.cs_x + x0 + j] = __float2bfloat16_rn(acc[j]);
+        for (int q = 0; q < NV; ++q)
+          if (NT || 8 * q < 8 + n - 1) {
+            uint4 v = row[q];
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              const float2 f = __bfloat1622float2(bf2x4(&v)[h]);
+              win[8 * q + 2 * h] = f.x;
+              win[8 * q + 2 * h + 1] = f.y;
+            }
+          }
+        float acc[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (NT || k < n) s = __fmaf_rn(a.taps.t[k], win[j + k], s);
+          acc[j] = s;
+        }
+        uint4 w;
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          bf2x4(&w)[h] = __floats2bfloat162_rn(acc[2 * h], acc[2 * h + 1]);
+        *reinterpret_cast<uint4*>(o + yy * a.cs_x + x0) = w;
+      }
+    } else {
+      const int xq = a.cs_x / 4;
+      for (int i = tid; i < rows * xq; i += nthr) {
+        const int yy = i / xq, x0 = (i - yy * xq) * 4;
+        const uint2* row = reinterpret_cast<const uint2*>(T + yy * wp + x0);
+        constexpr int NV = (4 + KMAX - 1 + 3) / 4;
+        float win[4 * NV];
+#pragma unroll
+        for (int q = 0; q < NV; ++q)
+          if (NT || 4 * q < 4 + n - 1) {
+            const uint2 u = row[q];
+            const float2 f0 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+            const float2 f1 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+            win[4 * q] = f0.x; win[4 * q + 1] = f0.y;
+            win[4 * q + 2] = f1.x; win[4 * q + 3] = f1.y;
+          }
+        __nv_bfloat162 h[2];
+#pragma unroll
+        for (int j = 0; j < 4; j += 2) {
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (NT || k < n) {
+              s0 = __fmaf_rn(a.taps.t[k], win[j + k], s0);
+              s1 = __fmaf_rn(a.taps.t[k], win[j + 1 + k], s1);
+            }
+          h[j / 2] = __floats2bfloat162_rn(s0, s1);
+        }
+        uint2 w;
+        w.x = *reinterpret_cast<uint32_t*>(&h[0]);
+        w.y = *reinterpret_cast<uint32_t*>(&h[1]);
+        *reinterpret_cast<uint2*>(o + yy * a.cs_x + x0) = w;
+      }
+    }
   }
 }
 
@@ -715,6 +921,7 @@ const char* crf_error(int code) {
   switch (code) {
     case ERR_ARGS: return "arguments the CRF kernels do not take";
     case ERR_SMEM: return "tile does not fit in shared memory";
+    case ERR_PLAN: return "a launch plan the CRF kernels do not agree with";
     default: return cudaGetErrorString((cudaError_t)code);
   }
 }
@@ -780,29 +987,41 @@ int crf_slice_attrs_launch(const float* rgb, const float* grid, void* scratch,
 
 int crf_blur_launch(const void* a, const float* gn, void* out,
                     const float* taps, int ntaps, int B, int ny, int nx,
-                    int cs_y, int cs_x, int L, void* stream) {
+                    int cs_y, int cs_x, int L, int ty, int lg, int threads,
+                    int smem, void* stream) {
   const int r = ntaps / 2, Z = ny * nx;
   if (!taps || ntaps < 1 || ntaps > MAX_STAPS || ntaps % 2 == 0 || B < 1 ||
       Z < 1 || L < 1 || r > cs_y || r > cs_x || cs_x % 4)
     return ERR_ARGS;
+  // the plan (blur_plan in kernels/crf_fused.py): strips of ty rows, lg
+  // labels and `threads` threads a block, its shared memory as this file
+  // lays it out
+  const int wp = (cs_x + 2 * r + 7) / 8 * 8;
+  const int ry = blur_ry(ntaps == 17 ? 17 : 0);
+  if (ty < 1 || ty > cs_y || lg < 1 || lg > L || threads < 32 ||
+      threads > BLUR_MAX_THREADS || threads % 32 ||
+      (size_t)smem != blur_smem(ty, wp, r, ry) || smem > SMEM_MAX)
+    return ERR_PLAN;
   BlurArgs args;
   args.a = (const bf16*)a; args.gn = gn; args.out = (bf16*)out;
   args.ny = ny; args.nx = nx; args.cs_y = cs_y;
-  args.cs_x = cs_x; args.L = L;
+  args.cs_x = cs_x; args.L = L; args.ty = ty; args.lg = lg; args.wp = wp;
+  // 16-byte staging where the halo is whole vectors, and the offsets of a
+  // (int in the kernel) fit
+  args.vec = cs_x % 8 == 0 && r % 8 == 0 && (uintptr_t)a % 16 == 0 &&
+             (uintptr_t)gn % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+             (size_t)B * Z * L * cs_y * cs_x < ((size_t)1 << 31);
   args.taps.n = ntaps;
   for (int i = 0; i < ntaps; ++i) args.taps.t[i] = taps[i];
-  int TY = 32;
-  while (cs_y % TY) TY /= 2;
-  args.TY = TY;
-  // rows of cs_x + 2r floats rounded up to 4: the x pass's 16-byte loads
-  // then end within the row (its last one at float cs_x + 2r + 1 for odd r)
-  const size_t smem =
-      sizeof(float) * (size_t)(2 * TY + 2 * r) * ((cs_x + 2 * r + 3) & ~3);
-  if (smem > (size_t)SMEM_MAX) return ERR_SMEM;
-  cudaError_t e = set_smem((const void*)blur_kernel, smem);
+  const dim3 grid(B * Z, (cs_y + ty - 1) / ty, (L + lg - 1) / lg);
+  const void* fn = ntaps == 17 ? (const void*)blur_kernel<17>
+                               : (const void*)blur_kernel<0>;
+  cudaError_t e = set_smem(fn, smem);
   if (e != cudaSuccess) return e;
-  blur_kernel<<<dim3(B * Z * L, cs_y / TY), 256, smem,
-                (cudaStream_t)stream>>>(args);
+  if (ntaps == 17)
+    blur_kernel<17><<<grid, threads, smem, (cudaStream_t)stream>>>(args);
+  else
+    blur_kernel<0><<<grid, threads, smem, (cudaStream_t)stream>>>(args);
   return cudaGetLastError();
 }
 

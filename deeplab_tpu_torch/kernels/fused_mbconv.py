@@ -27,13 +27,16 @@ TPU kernel does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
 from deeplab_tpu_torch.ops.bn import bn_scale_shift
 
-_SIGS = {"fused_mbconv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+_SIGS = {"fused_mbconv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
          + [ctypes.c_void_p],
          "fused_sepconv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
          + [ctypes.c_void_p]}
@@ -62,6 +65,128 @@ def _check_weights(x, shapes):
     for name, t in [("x", x)] + [(n, v[0]) for n, v in shapes.items()]:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
+
+
+# Launch geometry of csrc/fused_mbconv.cu, decided here and checked there.
+SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
+SM_COUNT = 132
+MBCONV_WARPS = 16            # 512 threads, at most 128 registers each
+# output tiles (TH, TW); each warp projects one m-tile of 16 of a tile's
+# TH*TW pixels, and the 16 // (TH*TW/16) warps of an m-tile split Cout
+MBCONV_TILES = ((16, 16), (8, 16), (8, 8))
+MBCONV_CHUNKS = (32, 16)     # expanded channels per pipeline stage
+# project n-tiles (8 output channels) per warp that the source instantiates,
+# by pixels per tile: an accumulator of 16 x 8 NT f32 per warp
+MBCONV_NT = {64: (2, 4, 10), 128: (2, 4, 6, 10), 256: (2, 4, 8, 12)}
+# the cost model: clocks a block spends per chunk, fitted to the times of
+# every (tile, chunk) at the main path's shapes on an H100
+# (``chip_smoke.py --plan-sweep``): a fixed part (barriers, copies, loop),
+# per round of the expand's 32-pixel units per 16-deep k-step, per depthwise
+# channel pair a thread, per project mma.sync a warp
+_CLK_CHUNK, _CLK_EXPAND, _CLK_DW, _CLK_PROJ = 2150.0, 97.0, 1060.0, 84.0
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _a16(n: int) -> int:
+    return _ceil(n, 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MbconvPlan:
+    """One ``fused_mbconv`` launch: a block per (TH x TW output tile, image),
+    expanded channels in chunks of ``ck`` through a ring of ``stages``
+    weight buffers, ``nt`` project n-tiles per warp, ``smem`` bytes of
+    dynamic shared memory, and the grid ``(tiles_y * tiles_x, B)``."""
+    th: int
+    tw: int
+    ck: int
+    stages: int
+    nt: int
+    smem: int
+    tiles_y: int
+    tiles_x: int
+    B: int
+    halo: float      # expanded pixels per output pixel, over the whole map
+    est_clk: float   # the cost model's estimate (clocks), for the choice
+
+    @property
+    def grid(self):
+        return (self.tiles_y * self.tiles_x, self.B)
+
+
+def mbconv_smem(H, W, Cin, Cout, rate, th, tw, ck, stages) -> int:
+    """Dynamic shared memory of one block, in the layout of
+    csrc/fused_mbconv.cu (``smem_layout``): the x tile and the f32 expanded
+    chunk over the tile's in-image halo box, the bf16 depthwise output of
+    the tile, the depthwise's tap table, and ``stages`` weight buffers
+    (w1, b1, w2, wdw, bdw)."""
+    cin_p = _a16(Cin)
+    rows = _a16(min(th + 2 * rate, H) * min(tw + 2 * rate, W))
+    # x rows of 4 (mod 8) 16-byte chunks are swizzled, others padded
+    xs_ld = cin_p if (cin_p // 8) % 8 == 4 else cin_p + 8
+    w2_ld = Cout + (8 if (Cout // 8) % 2 == 0 else 16)
+    stage = (_a16(2 * cin_p * ck) + _a16(4 * ck) + _a16(2 * ck * w2_ld)
+             + _a16(4 * 9 * ck) + _a16(4 * ck))
+    return (_a16(2 * rows * xs_ld) + _a16(4 * (rows + 1) * ck)
+            + _a16(2 * th * tw * (ck + 8)) + _a16(2 * 9 * th * tw)
+            + stages * stage)
+
+
+def _axis_boxes(n: int, t: int, r: int):
+    """In-image halo extent of each tile along one axis of length n."""
+    return [min(i + t + r, n) - max(i - r, 0) for i in range(0, n, t)]
+
+
+def mbconv_halo(H, W, th, tw, rate) -> float:
+    """Expanded pixels per output pixel: each tile expands its in-image halo
+    box, rounded up to whole m-tiles of 16 pixels."""
+    ys, xs = _axis_boxes(H, th, rate), _axis_boxes(W, tw, rate)
+    return sum(_a16(y * x) for y in ys for x in xs) / (H * W)
+
+
+@functools.lru_cache(maxsize=256)
+def mbconv_plan(B, H, W, Cin, Ce, Cout, rate) -> MbconvPlan:
+    """Choose the tile, chunk and ring depth of a launch.  Among the tiles
+    and chunks whose shared memory fits and whose accumulator the source
+    instantiates, take the least estimated time: whole waves of blocks over
+    the 132 SMs, times the chunks, times the cost model's clocks per chunk
+    (the expand's rounds over the warps at the largest halo box, the
+    depthwise and the project per thread).  Then three weight stages where
+    they fit, else two."""
+    best = None
+    ksteps = _ceil(Cin, 16)
+    for th, tw in MBCONV_TILES:
+        tp = th * tw
+        wn = MBCONV_WARPS * 16 // tp
+        need = _ceil(Cout // 8, wn)
+        nts = [n for n in MBCONV_NT[tp] if n >= need]
+        if not nts:
+            continue
+        ty, tx = _ceil(H, th), _ceil(W, tw)
+        boxes = max(y * x for y in _axis_boxes(H, th, rate)
+                    for x in _axis_boxes(W, tw, rate))
+        for ck in MBCONV_CHUNKS:
+            if mbconv_smem(H, W, Cin, Cout, rate, th, tw, ck, 2) > SMEM_LIMIT:
+                continue
+            units = _ceil(_ceil(boxes, 16), 2) * (ck // 16)
+            clk = (_CLK_CHUNK + _CLK_EXPAND * _ceil(units, MBCONV_WARPS)
+                   * ksteps + _CLK_DW * tp * ck / (2 * 32 * MBCONV_WARPS)
+                   + _CLK_PROJ * nts[0] * ck / 16)
+            est = math.ceil(B * ty * tx / SM_COUNT) * _ceil(Ce, ck) * clk
+            if best is None or est < best[0]:
+                best = (est, th, tw, ck, nts[0], ty, tx)
+    if best is None:
+        raise ValueError(f"no fused_mbconv tile fits Cin={Cin} Cout={Cout} "
+                         f"rate={rate}")
+    est, th, tw, ck, nt, ty, tx = best
+    stages = 3 if mbconv_smem(H, W, Cin, Cout, rate, th, tw, ck,
+                              3) <= SMEM_LIMIT else 2
+    return MbconvPlan(th, tw, ck, stages, nt,
+                      mbconv_smem(H, W, Cin, Cout, rate, th, tw, ck, stages),
+                      ty, tx, B, mbconv_halo(H, W, th, tw, rate), est)
 
 
 def fused_mbconv_reference(x, w1, b1, wdw, bdw, w2, b2, *, rate: int,
@@ -116,6 +241,11 @@ def fused_mbconv(x, w1, b1, wdw, bdw, w2, b2, *, rate: int, skip: bool,
                        "bdw": (bdw, (Ce,), torch.float32),
                        "w2": (w2, (Ce, Cout), torch.bfloat16),
                        "b2": (b2, (Cout,), torch.float32)})
+    for name, t in (("w2", w2), ("b1", b1), ("bdw", bdw)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"copies it by 16-byte vectors)")
+    plan = mbconv_plan(B, H, W, Cin, Ce, Cout, rate)
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -123,7 +253,8 @@ def fused_mbconv(x, w1, b1, wdw, bdw, w2, b2, *, rate: int, skip: bool,
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wdw.data_ptr(),
         bdw.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         B, H, W, Cin, Ce, Cout, rate, int(skip),
-        int(x.dtype == torch.bfloat16), stream)
+        int(x.dtype == torch.bfloat16), plan.th, plan.tw, plan.ck,
+        plan.stages, plan.nt, plan.smem, stream)
     if rc != 0:
         raise RuntimeError("fused_mbconv launch failed: "
                            + lib.fused_mbconv_error(rc).decode())

@@ -106,6 +106,67 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
                         mxu_bf16=True)
 
 
+# the main path's fused block shapes (Cin, Ce, Cout, rate, skip): blocks 2,
+# 4-5, 6, 7-9, 10, 11-12, 13, 14-15 and 16 of MobileNetV2
+MAIN_PATH_BLOCKS = [(24, 144, 24, 1, True), (32, 192, 32, 1, True),
+                    (32, 192, 64, 1, False), (64, 384, 64, 2, True),
+                    (64, 384, 96, 2, False), (96, 576, 96, 2, True),
+                    (96, 576, 160, 2, False), (160, 960, 160, 4, True),
+                    (160, 960, 320, 4, False)]
+
+
+def _mbconv_case(cuda, x_dtype, Cin, Ce, Cout, rate, skip, H, W, seed=5):
+    r = np.random.RandomState(seed)
+    w = _weights(r, Cin, Ce, Cout, cuda)
+    x = torch.from_numpy(r.randn(2, H, W, Cin).astype(np.float32))
+    x = x.to(cuda, x_dtype)
+    mxu = x_dtype == torch.float32
+    before = FM.fused_mbconv.launches
+    got = FM.fused_mbconv(x, **w, rate=rate, skip=skip, mxu_bf16=mxu)
+    ref = FM.fused_mbconv_reference(x, **w, rate=rate, skip=skip,
+                                    mxu_bf16=mxu)
+    torch.cuda.synchronize()
+    assert FM.fused_mbconv.launches == before + 1
+    assert got.dtype == x_dtype and got.shape == (2, H, W, Cout)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(37, 21), (26, 7)])
+@pytest.mark.parametrize("block", MAIN_PATH_BLOCKS)
+def test_cuda_kernel_at_main_path_shapes_and_ragged_maps(cuda, x_dtype, H, W,
+                                                         block):
+    """Each main-path channel shape on maps that no tile divides, one of
+    them narrower than every tile."""
+    _mbconv_case(cuda, x_dtype, *block, H, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ck", FM.MBCONV_CHUNKS)
+@pytest.mark.parametrize("tile", FM.MBCONV_TILES)
+@pytest.mark.parametrize("block,H,W", [
+    ((64, 384, 64, 2, True), 21, 19),
+    ((96, 576, 96, 4, True), 19, 35),    # two stages at 16x16
+    ((20, 100, 24, 2, False), 30, 17),   # Cin, Ce not multiples of 8
+])
+def test_cuda_kernel_at_each_tile(cuda, monkeypatch, ck, tile, block, H, W):
+    """Each tile and chunk the plan can choose, forced, at ragged maps: its
+    halo box clipped at every edge, its chunk ring (2 or 3 stages) and its
+    accumulator layout."""
+    Cin, Ce, Cout, rate, skip = block
+    monkeypatch.setattr(FM, "MBCONV_TILES", (tile,))
+    monkeypatch.setattr(FM, "MBCONV_CHUNKS", (ck,))
+    FM.mbconv_plan.cache_clear()
+    try:
+        plan = FM.mbconv_plan(2, H, W, Cin, Ce, Cout, rate)
+        assert (plan.th, plan.tw, plan.ck) == tile + (ck,)
+        _mbconv_case(cuda, torch.float32, *block, H, W)
+    finally:
+        FM.mbconv_plan.cache_clear()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pre_relu", [True, False])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
@@ -321,6 +382,50 @@ def test_blur_pass_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                   # not the cells' size
         CK.gaussian_blur_x_planes(q, **dict(kw, cs_y=12))
     assert _blur_counts() == before
+
+
+def _taps(n):
+    r = n // 2
+    t = np.exp(-0.5 * ((np.arange(n) - r) / (0.4 * r + 0.5)) ** 2)
+    return tuple(float(v) for v in t / t.sum())
+
+
+# (B, ny, nx, cs_y, cs_x, L, taps): every odd tap count on 64x128 cells;
+# cell heights 16, 48 and 128 with a ragged L; widths that are not a
+# multiple of 8 (elementwise staging, 4 outputs a thread); the production
+# input (8, 512, 512) at L = 21
+ROW_BLUR_CASES = ([(2, 2, 2, 64, 128, 5, n) for n in range(3, 34, 2)]
+                  + [(2, 3, 2, cs, 128, 7, 17) for cs in (16, 48, 128)]
+                  + [(2, 2, 3, 32, 36, 3, 9), (1, 2, 2, 48, 40, 4, 17)]
+                  + [(8, 8, 4, 64, 128, 21, 17)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ROW_BLUR_CASES)
+def test_row_kernel_equals_the_chained_passes(cuda, case):
+    """The row kernel sums in tap order with exact products, as the y and x
+    plain versions do: equal to their chain bit for bit, and within the
+    existing tolerance of the fused plain version (F.conv2d's order)."""
+    B, ny, nx, cs_y, cs_x, L, n = case
+    taps = _taps(n)
+    assert CK.row_kernel_fits(taps, cs_y)
+    r = np.random.RandomState(8)
+    Z, P = ny * nx, cs_y * cs_x
+    q = torch.from_numpy(r.rand(B * Z, L, P).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    gn = torch.from_numpy(0.5 + r.rand(Z, 1, P).astype(np.float32)).to(cuda)
+    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+    before = _blur_counts()
+    got = CK.gaussian_blur_planes(q, gn, **kw)
+    torch.cuda.synchronize()
+    assert _blur_counts() == (before[0] + 1, before[1], before[2])
+    chain = CK.gaussian_blur_x_planes_reference(
+        CK.gaussian_blur_y_planes_reference(q, gn, **kw), **kw)
+    assert torch.equal(got, chain), (got.float() - chain.float()).abs().max()
+    err, ok = CK.max_err_vs_plain(
+        "gaussian_blur_planes", got,
+        CK.gaussian_blur_planes_reference(q, gn, **kw))
+    assert ok, (case, err)
 
 
 def _crf_counts():
