@@ -15,7 +15,8 @@ Phases, each of which fails the run (exit code 1, no result line):
    kernels on every call of a CRF run over seeded 512x512 scenes, at
    ``PRODUCTION_CONFIG`` with B=2 and B=8 and at ``FAST_FAITHFUL_CONFIG``
    and ``THROUGHPUT_CONFIG`` with B=2, the row blur also equal bit for bit
-   to the chained y and x plain passes;
+   to the chained y and x plain passes, the fused step to its two-kernel
+   form;
 3. the model path: ``Predictor(SegNet(512x512, 21 classes), "mixed")`` at
    full MobileNetV2 width with seeded weights serves 3 requests of 8 images;
    ``fused_mbconv``'s count must rise by exactly 14 per forward; the logits
@@ -59,8 +60,12 @@ Phases, each of which fails the run (exit code 1, no result line):
    path's shapes beside its bound and its plain version (``fused_mbconv``
    also beside the plain layer composition, three cuDNN convs with the BN
    folded, and with its launch plan; the blur beside one depthwise
-   ``F.conv2d``), model-only img/s at B=16 under "mixed" (with the kernels
-   and through the plain layer composition) and float32, the CRF alone at B=8, production end to end at B=16, and B=1
+   ``F.conv2d``), the splat (norm pass and iteration) and the step per
+   launch on structured, flat and noise 512x512 scenes and on 375x500 ones,
+   events and device time beside their bounds (the step also in its
+   two-kernel form), model-only img/s at B=16 under "mixed" (with the
+   kernels and through the plain layer composition) and float32, the CRF
+   alone at B=8, production end to end at B=16, and B=1
    latency with and without the CRF; each training phase per launch and per
    step beside its bound and plain version, the train step's img/s at B=16
    (bf16 with the kernels, bf16 through the plain layer composition, and
@@ -105,7 +110,11 @@ Phases, each of which fails the run (exit code 1, no result line):
 
 ``python3 chip_smoke.py --plan-sweep`` times instead every tile and chunk
 that ``fused_mbconv``'s launch plan may choose at each main-path block shape
-(the data its cost model is fitted to) and exits.
+(the data its cost model is fitted to) and exits.  ``--crf-scenes`` times
+only the splat and the step on those scenes (phase 7's), through the
+wrappers' public API: a copy of this file run from the root of another
+checkout (a parent commit) times that checkout's kernels, for a comparison
+in one call.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -643,12 +652,89 @@ def plan_sweep() -> int:
     return 0
 
 
+def crf_scene_batches(dev):
+    """(name, images, masks) at PRODUCTION_CONFIG's serving batch: the
+    structured 512x512 scenes, one flat color (every pixel of a cell on one
+    bin: the splat's most contention), uniform noise (its keys all but
+    distinct), and the structured scenes cut to the VOC size 375x500."""
+    imgs, masks = scene_batch(SERVE_B, SEED + 200, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    noise = torch.rand(imgs.shape, generator=gen, device=dev) * 255
+    return [("structured", imgs, masks),
+            ("flat", torch.full_like(imgs, 128.0), masks),
+            ("noise", noise, masks),
+            ("structured 375x500", imgs[:, :375, :500].contiguous(),
+             masks[:, :375, :500].contiguous())]
+
+
+def crf_scene_times(card) -> dict:
+    """The splat (the norm pass and an iteration) and the step (an
+    iteration's, with its subsampled copy) per launch on each scene of
+    ``crf_scene_batches``, beside their bounds, the step also in its
+    two-kernel form where the port has one, and the CRF alone per batch.
+    Only the wrappers' public API is used, so a copy of this file run from
+    the root of a parent checkout times that checkout's kernels
+    (``--crf-scenes``).  The counts of launches move; callers restore
+    them."""
+    from deeplab_tpu_torch import crf as CRF
+    from deeplab_tpu_torch.kernels import crf_fused as CK
+    cfg = CRF.PRODUCTION_CONFIG
+    res = {}
+    for scene, imgs, masks in crf_scene_batches(torch.device("cuda")):
+        with torch.inference_mode(), CK.plain_versions() as calls:
+            CRF.mean_field_batched(imgs, masks, cfg, CLASSES)
+        row = {}
+        launches = (("splat_norm", "splat_planes", 0),
+                    ("splat_iter", "splat_planes", 1),
+                    ("step", "mf_step_planes", 0))
+        with torch.inference_mode():
+            for key, name, idx in launches:
+                args, kw, out = calls[name][idx]
+                kernel = getattr(CK, name)
+                ms = cuda_ms(lambda: kernel(*args, **kw), 20)
+                dev_ms = graph_ms(lambda: kernel(*args, **kw))
+                bms, _ = crf_bound_ms(CK, name, args, kw, out)
+                row[key] = {"ms": ms, "device_ms": dev_ms, "bound_ms": bms}
+                if name == "mf_step_planes" and hasattr(CK, "step_plan"):
+                    plan = CK.step_plan(args[0].shape[0], args[0].shape[2],
+                                        kw["nc"], kw["L"])
+                    two = CK.two_kernel_step_plan(kw["nc"], kw["L"])
+                    row[key]["fused"] = plan.fused
+                    row[key]["two_kernel_ms"] = graph_ms(
+                        lambda: CK.mf_step_with_plan(two, *args, **kw))
+            row["crf_ms"] = cuda_ms(lambda: CRF.mean_field_batched(
+                imgs, masks, cfg, CLASSES), 10, warmup=2)
+        shapes = [tuple(t.shape) for t in calls["splat_planes"][1][0][:2]]
+        what = {"splat_norm": "splat norm pass", "splat_iter":
+                "splat iteration", "step": "step"}
+        print(f"  CRF scene {scene} {tuple(imgs.shape)} (iteration splat "
+              f"inputs {shapes}): "
+              + ", ".join(f"{what[k]} {row[k]['ms']:.4f} ms (device "
+                          f"{row[k]['device_ms']:.4f}, bound "
+                          f"{row[k]['bound_ms']:.4f})" for k in what)
+              + (f", the step's two-kernel form device "
+                 f"{row['step']['two_kernel_ms']:.4f} ms (plan: "
+                 f"{'fused' if row['step']['fused'] else 'two kernels'})"
+                 if "two_kernel_ms" in row["step"] else "")
+              + f"; CRF alone {row['crf_ms']:.3f} ms/batch [{card}]",
+              flush=True)
+        res[scene] = row
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if "--plan-sweep" in sys.argv[1:]:
         return plan_sweep()
+    if "--crf-scenes" in sys.argv[1:]:
+        from deeplab_tpu_torch.kernels import build
+        card = card_line()
+        build.build(["crf_fused"])
+        crf_scene_times(card)
+        print(card)
+        return 0
     import numpy as np
     from deeplab_tpu_torch import Predictor
     from deeplab_tpu_torch import crf as CRF
@@ -818,6 +904,19 @@ def main() -> int:
                     if not ok:
                         raise AssertionError(f"{name} disagrees at "
                                              f"{cfg_name} B={B}: {err}")
+                    if (name == "mf_step_planes" and CK.step_plan(
+                            args[0].shape[0], args[0].shape[2], kw["nc"],
+                            kw["L"]).fused):
+                        # the two-kernel form sums in the fused one's order
+                        with torch.inference_mode():
+                            two = CK.mf_step_with_plan(
+                                CK.two_kernel_step_plan(kw["nc"], kw["L"]),
+                                *args, **kw)
+                        if not all(torch.equal(a, b)
+                                   for a, b in zip(got, two)):
+                            raise AssertionError(
+                                f"the step's two forms differ at {cfg_name} "
+                                f"B={B}")
                     if name == "gaussian_blur_planes":
                         # tap order and exact products, as the y and x
                         # plain versions: their chain, bit for bit
@@ -836,7 +935,9 @@ def main() -> int:
                       f"{CK.PLAIN_F32_REL}, bf16 {CK.PLAIN_BF16_REL:.4g}, "
                       f"step Q {CK.PLAIN_STEP_REL:.4g}) ok"
                       + ("; equal bit for bit to the chained y and x plain "
-                         "passes" if name == "gaussian_blur_planes" else ""))
+                         "passes" if name == "gaussian_blur_planes" else "")
+                      + ("; the two-kernel form equal bit for bit"
+                         if name == "mf_step_planes" else ""))
             if cfg_name == "PRODUCTION_CONFIG" and B == SERVE_B:
                 crf_b8.update(calls)
     run.phase("CRF kernels vs plain versions", check_crf_kernels)
@@ -2147,6 +2248,18 @@ def main() -> int:
               f"{lib:.4f} ms per launch, {5 * lib:.4f} ms per request "
               f"[{card}]")
 
+        # the splat and the step on structured, flat and noise scenes
+        scenes = crf_scene_times(card)
+        crf_report["splat_planes"]["scenes"] = {
+            k: {"norm_ms": v["splat_norm"]["ms"],
+                "norm_device_ms": v["splat_norm"]["device_ms"],
+                "iteration_ms": v["splat_iter"]["ms"],
+                "iteration_device_ms": v["splat_iter"]["device_ms"]}
+            for k, v in scenes.items()}
+        crf_report["mf_step_planes"]["scenes"] = {
+            k: {"ms": v["step"]["ms"], "device_ms": v["step"]["device_ms"],
+                "two_kernel_device_ms": v["step"]["two_kernel_ms"]}
+            for k, v in scenes.items()}
         cfg = CRF.PRODUCTION_CONFIG
         img8, m8 = scene_batch(SERVE_B, SEED + 200, dev)
         with torch.inference_mode():
@@ -2323,6 +2436,8 @@ def main() -> int:
             entry["row_kernel_ms"] = rep["row_kernel_ms"]
         if "device_ms" in rep:
             entry["device_ms"] = rep["device_ms"]
+        if "scenes" in rep:
+            entry["scenes"] = rep["scenes"]
         if n == "mf_step_planes":
             ut = notebook["unary_times"]
             entry["forms"] = {

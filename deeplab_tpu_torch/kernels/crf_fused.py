@@ -21,7 +21,11 @@ gather the 8 grid corners of each pixel instead.  The plain versions here
 (``*_reference``) keep the dense formulation: f32 products of the same
 bf16-rounded operands, so a kernel and its plain version differ only in
 summation order.  A CPU tensor runs the plain version; a CUDA tensor runs
-the kernel or raises.
+the kernel or raises.  The launch geometry of the row blur
+(:func:`blur_plan`), the splat (:func:`splat_plan`) and the mean-field step
+(:func:`step_plan`: fused, or two kernels where a cell's grid does not fit
+in shared memory) is plain Python, decided from shapes alone; the
+launchers check it against their own shared-memory layout.
 
 Layouts (the TPU's tile padding of the grid is dropped): rgb planes
 (Z, 3, P) f32 0-255; packed attrs (Z, 8, P) f32 (``ATTR_*`` rows); values
@@ -368,14 +372,14 @@ def mf_step_planes_reference(attrs, grid, f_gauss, q, unary=None, *, nc: int,
 _VOID, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     "crf_splat_launch": [_VOID, _INT, _VOID, _INT, _VOID, _INT, _INT, _INT,
-                         _INT, _INT, _FLT, _VOID],
+                         _INT, _INT, _FLT] + [_INT] * 4 + [_VOID],
     "crf_slice_attrs_launch": [_VOID] * 10 + [_INT] * 12 + [_FLT] * 3
                               + [_VOID],
     "crf_blur_launch": [_VOID] * 4 + [_INT] * 11 + [_VOID],
     "crf_blur_y_launch": [_VOID, _VOID, _INT, _VOID, _VOID] + [_INT] * 7
                          + [_VOID],
     "crf_blur_x_launch": [_VOID] * 3 + [_INT] * 7 + [_VOID],
-    "crf_mf_step_launch": [_VOID] * 9 + [_INT] * 7 + [_FLT] * 5
+    "crf_mf_step_launch": [_VOID] * 9 + [_INT] * 12 + [_FLT] * 5
                           + [_VOID],
     "crf_slice_launch": [_VOID] * 5 + [_INT] * 5 + [_FLT, _VOID],
 }
@@ -465,11 +469,12 @@ def splat_planes(rgb, values, *, nc: int, L: int, inv_step: float,
     _check("rgb", rgb, (Z, rows, P), (_F32,), dev)
     _check("values", values, (Z, L, P), (values.dtype,), dev)
     out = torch.empty((Z, nc * L, nc * nc), dtype=out_dtype, device=dev)
+    plan = splat_plan(Z, P, L, nc)
     lib = _lib()
     rc = lib.crf_splat_launch(
         rgb.data_ptr(), rows, values.data_ptr(), int(values.dtype == _BF16),
         out.data_ptr(), int(out_dtype == _BF16), Z, P, L, nc, inv_step,
-        _stream(rgb))
+        plan.lg, plan.pc, plan.k, plan.smem, _stream(rgb))
     _ok(lib, rc, "splat_planes")
     splat_planes.launches += 1
     return out
@@ -604,6 +609,168 @@ def row_kernel_fits(taps, cs_y: int) -> bool:
     return len(taps) // 2 <= 16 and cs_y % 16 == 0
 
 
+# Launch geometry of the splat (csrc/crf_fused.cu ``splat_kernel``),
+# decided here and checked there.
+SPLAT_THREADS = 1024
+SPLAT_MAX_PPT = 2            # pixels of a chunk a thread holds
+SPLAT_CHUNKS = (2048, 1024, 512)
+SPLAT_PIECE = 32             # pixels of one key a thread sums (k)
+SPLAT_SLOTS = 132            # blocks resident at once: one an SM
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def splat_hist_len(nc: int) -> int:
+    """Entries of the splat's key histogram: (nc + 1)^3 keys (bins -1 ..
+    nc - 1 per axis), padded so that each thread owns a whole number of
+    groups of four."""
+    per = -(-((nc + 1) ** 3) // SPLAT_THREADS)
+    return -(-per // 4) * 4 * SPLAT_THREADS
+
+
+def splat_smem(nc: int, lg: int, pc: int) -> int:
+    """Bytes of a splat block (``splat_layout`` in the source): the f32 grid
+    [nc][lg][nc^2], the key histogram, the pieces (8 bytes), the sorted
+    weights (8 + 4 bytes a pixel), the sorted bf16 values [pc][lg], the
+    scan's 32 warp sums."""
+    hist = _align16(4 * nc * lg * nc * nc)
+    vals = _align16(hist + 4 * splat_hist_len(nc) + 20 * pc)
+    return _align16(vals + 2 * pc * lg) + 4 * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SplatPlan:
+    """One splat launch: a block of SPLAT_THREADS per (cell, group of
+    ``lg`` labels); the cell's pixels in chunks of ``pc``, sorted by key
+    and summed in pieces of at most ``k``; ``smem`` bytes; grid
+    ``(Z, groups)``."""
+    lg: int
+    groups: int
+    pc: int
+    k: int
+    smem: int
+    Z: int
+
+    @property
+    def grid(self):
+        return (self.Z, self.groups)
+
+
+@functools.lru_cache(maxsize=256)
+def splat_plan(Z: int, P: int, L: int, nc: int) -> SplatPlan:
+    """The fewest label groups that fit (each group sorts the cell again),
+    but at least as many as fill SPLAT_SLOTS blocks where the labels allow;
+    labels spread evenly over the groups; then the largest chunk of
+    SPLAT_CHUNKS (a chunk's histogram is cleared and scanned once)."""
+    best = None
+    for pc0 in SPLAT_CHUNKS:
+        pc = min(pc0, -(-P // 4) * 4)
+        lg_max = 0
+        while lg_max < L and splat_smem(nc, lg_max + 1, pc) <= BLUR_SMEM_LIMIT:
+            lg_max += 1
+        if lg_max == 0:
+            continue
+        groups = max(-(-L // lg_max), min(L, -(-SPLAT_SLOTS // Z)))
+        lg = -(-L // groups)
+        groups = -(-L // lg)
+        if best is None or groups < best.groups:
+            best = SplatPlan(lg, groups, pc, SPLAT_PIECE,
+                             splat_smem(nc, lg, pc), Z)
+    if best is None:
+        raise ValueError(f"no splat tile fits nc={nc}")
+    return best
+
+
+# The step's form and geometry (csrc/crf_fused.cu ``crf_mf_step_launch``).
+STEP_THREADS = 512    # a fused block's threads, a pixel each
+STEP_L21 = 21         # the label count of the fused kernel's own instantiation
+STEP_THREADS_L21 = 1024   # its threads (the label loops unrolled)
+STEP_LMAX = 32        # labels whose logits a thread holds in registers
+STEP_SEG = 8          # blur outputs a thread computes along g
+STEP_SLOTS = 132      # fused blocks resident at once: one an SM
+
+
+def step_ncp(nc: int) -> int:
+    """Row pitch (f32) of the blur's (r, g) pass: nc rounded up to a
+    whole number of STEP_SEG segments."""
+    return -(-nc // STEP_SEG) * STEP_SEG
+
+
+def step_fused_smem(nc: int, L: int, lb: int) -> int:
+    """Bytes of the fused step kernel: the cell's bf16 grid (nc*L, nc^2)
+    with 16 bytes of room to keep its alignment, then the (r, g) pass's f32
+    scratch of ``lb`` labels, [lb][nc][nc][step_ncp]."""
+    return (_align16(2 * (nc * L * nc * nc + 8))
+            + 4 * lb * nc * nc * step_ncp(nc))
+
+
+STEP_LC = 4           # labels a chunk of the two-kernel form's scratch
+
+
+def step_blur_smem(nc: int) -> int:
+    """Bytes of the two-kernel form's grid blur (one chunk of STEP_LC labels
+    a block): a label's bf16 planes, the (r, g) pass's f32 scratch, and the
+    chunk's bf16 tile [nc^3][STEP_LC]."""
+    return (_align16(2 * nc * nc * nc) + 4 * nc * nc * step_ncp(nc)
+            + 2 * STEP_LC * nc ** 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """The step's form: ``fused`` (one launch of ``splits`` blocks a cell,
+    each blurring the cell's grid ``lb`` labels a round in shared memory
+    and taking every splits-th chunk of :func:`step_threads` pixels) or two
+    kernels
+    (the grid blur into a scratch of ``lp`` / STEP_LC chunks, each
+    (nc^3, STEP_LC) label-innermost, then the pixel pass); ``smem`` the
+    bytes of the fused kernel or of the blur kernel."""
+    fused: bool
+    lb: int
+    splits: int
+    lp: int
+    smem: int
+
+
+def step_threads(L: int) -> int:
+    """Threads of a fused block, one a pixel: STEP_THREADS_L21 for the
+    STEP_L21 labels of its own instantiation, else STEP_THREADS."""
+    return STEP_THREADS_L21 if L == STEP_L21 else STEP_THREADS
+
+
+def step_fits(nc: int, L: int) -> bool:
+    """Whether the fused step runs: the cell's grid and one label's (r, g)
+    scratch fit in a block's shared memory, and a pixel's L logits in its
+    thread's registers."""
+    return L <= STEP_LMAX and step_fused_smem(nc, L, 1) <= BLUR_SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=256)
+def step_plan(Z: int, P: int, nc: int, L: int) -> StepPlan:
+    """The fused form wherever :func:`step_fits`, elsewhere the two
+    kernels.  Fused: as many labels a blur round as fit, spread evenly over
+    the rounds; one block a cell, or where the cells are fewer than
+    STEP_SLOTS, as many blocks a cell as fill them (each blurs the grid
+    again) up to one a pixel chunk."""
+    if not step_fits(nc, L):
+        return two_kernel_step_plan(nc, L)
+    lb = 1
+    while lb < L and step_fused_smem(nc, L, lb + 1) <= BLUR_SMEM_LIMIT:
+        lb += 1
+    lb = -(-L // -(-L // lb))
+    splits = 1 if Z >= STEP_SLOTS else min(-(-STEP_SLOTS // Z),
+                                           -(-P // step_threads(L)))
+    return StepPlan(True, lb, splits, 0, step_fused_smem(nc, L, lb))
+
+
+def two_kernel_step_plan(nc: int, L: int) -> StepPlan:
+    """The two-kernel form at any geometry (for a grid that does not fit,
+    and to time the two forms on one input)."""
+    return StepPlan(False, 0, 0, -(-L // STEP_LC) * STEP_LC,
+                    step_blur_smem(nc))
+
+
 def _blur_geometry(a, gn, taps, B, ny, nx, cs_y, cs_x, max_taps):
     """Check a spatial blur's arguments; returns gn's batch flag (1 for one
     plane per cell, 0 for one per image position)."""
@@ -713,12 +880,24 @@ def mf_step_planes(attrs, grid, f_gauss, q, unary=None, *, nc: int, L: int,
                    inv_step: float, ctaps, cg: float, cb: float,
                    n_energy: float = 0.0, p_energy: float = 0.0,
                    sub_stride: int = 1, cs_y: int = 0, cs_x: int = 0):
-    """Same arguments as :func:`mf_step_planes_reference`."""
+    """Same arguments as :func:`mf_step_planes_reference`.  The kernels'
+    form is :func:`step_plan`'s (:func:`mf_step_with_plan`)."""
     kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps, cg=cg, cb=cb,
               n_energy=n_energy, p_energy=p_energy, sub_stride=sub_stride,
               cs_y=cs_y, cs_x=cs_x)
     if not _on_cuda(attrs, "mf_step_planes"):
         return mf_step_planes_reference(attrs, grid, f_gauss, q, unary, **kw)
+    plan = step_plan(attrs.shape[0], attrs.shape[2], nc, L)
+    return mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary, **kw)
+
+
+def mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary=None, *, nc: int,
+                      L: int, inv_step: float, ctaps, cg: float, cb: float,
+                      n_energy: float = 0.0, p_energy: float = 0.0,
+                      sub_stride: int = 1, cs_y: int = 0, cs_x: int = 0):
+    """Launch the step's kernels on CUDA tensors in the form ``plan`` (a
+    :class:`StepPlan`) names, whether or not :func:`step_plan` would choose
+    it; each launch counts in ``mf_step_planes.launches``."""
     Z, _, P = attrs.shape
     dev = attrs.device
     _check_grid(nc, inv_step, L)
@@ -739,15 +918,19 @@ def mf_step_planes(attrs, grid, f_gauss, q, unary=None, *, nc: int, L: int,
     if sub_stride > 1:
         sub = torch.empty((Z, L, P // (sub_stride * sub_stride)),
                           dtype=_BF16, device=dev)
-    scratch = torch.empty((Z, D, C), dtype=_BF16, device=dev)
+    scratch = None
+    if not plan.fused:
+        scratch = torch.empty((Z, nc * C, plan.lp), dtype=_BF16, device=dev)
     lib = _lib()
     rc = lib.crf_mf_step_launch(
-        attrs.data_ptr(), grid.data_ptr(), scratch.data_ptr(),
+        attrs.data_ptr(), grid.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
         f_gauss.data_ptr(), q.data_ptr(), out.data_ptr(),
         sub.data_ptr() if sub is not None else None,
         unary.data_ptr() if unary is not None else None,
         pack.ctypes.data, len(ctaps), Z, P, L, nc, max(sub_stride, 1),
-        cs_x, inv_step, cg, cb, n_energy, p_energy, _stream(attrs))
+        cs_x, int(plan.fused), plan.lb, plan.splits, plan.lp, plan.smem,
+        inv_step, cg, cb, n_energy, p_energy, _stream(attrs))
     _ok(lib, rc, "mf_step_planes")
     mf_step_planes.launches += 1
     if sub is not None:

@@ -28,29 +28,68 @@
 // does a few operations per byte it must move and is bound by device memory:
 // its bound is (bytes in + bytes out) / 3.35 TB/s.
 //
-//  - splat: one block per (cell, group of labels) accumulates its share of
-//    the cell's grid in f32 in shared memory with shared-memory atomics (an
-//    f32 grid of 315 x 225 is 283 KB, more than a block's 227 KB, so the labels
-//    are split into groups that fit), then writes it once.  Work items are
-//    (pixel, label) with the label fastest, so the lanes of a warp that add
-//    to one bin are few (the pixels of a smooth region share bins).
-//  - grid blur (inside slice_attrs and mf_step): one block per (cell, label)
-//    stages that label's grid planes in shared memory, runs the joint (r, g) blur as a
-//    stencil over the nonzero ones of the TPU's bf16-rounded kron weights,
-//    then the b band in f32, and writes the blurred grid in bf16 to device
-//    memory (scratch, L2-resident at the main path's sizes).  Once per cell,
-//    not once per pixel chunk as on the TPU.
-//  - slice_attrs / mf_step / slice pixel pass: one thread per pixel works out
-//    its 8 corners once, gathers them for each label from the blurred grid in
-//    device memory (the neighbouring pixels of a block share most corners,
-//    so the gathers hit L1), and does the messages and the softmax in f32
-//    with its L logits in shared memory.  Staging a cell's grid in shared
-//    memory (142 KB at nc = 15, L = 21) measured slower: one block per SM.
-//    The explicit-unary step reads one more bf16 (L, P) stream; it is its
-//    own instantiation, so the labels form's inner loop carries no test of
-//    it (a runtime test there measured 9% slower).  slice_planes
-//    (the XLA engine's color blur and slice) is the grid blur of an f32 grid
-//    followed by the same gather, with f32 outputs and no messages.
+//  - splat (splat_plan in kernels/crf_fused.py): one block per (cell,
+//    group of labels).  It sorts each chunk of the cell's pixels by base
+//    bin in shared memory (a counting sort: a histogram with
+//    warp-aggregated integer atomics, one scan, a scatter) and cuts each
+//    bin's run into pieces of at most 32 pixels; a thread sums a piece's
+//    8 corners for one label in registers, then adds each to the group's
+//    f32 grid in shared memory.  Why: on sm_90 a shared-memory f32
+//    atomicAdd is a compare-and-swap loop (ATOMS.CAST.SPIN in the SASS), so
+//    8 adds per (pixel, label), lanes contending on the bins that a smooth
+//    region's pixels share, cost 0.26 of a 0.42 ms launch (production B=8:
+//    0.16 ms with the adds taken out, measured in PERF.md), with each item
+//    redoing its pixel's hats.  Here the hats and
+//    weights are worked out once per pixel and block, the adds fall to 8 per
+//    (piece, label), and the lanes of a warp (labels fastest) add to
+//    different label planes.  The grid is zeroed and written once, two
+//    values a store (a 16-byte store would read 8 neighbouring words a lane
+//    from shared memory: 8-way bank conflicts).  The labels split into as
+//    few groups as the f32 grid leaves room for (2 at 21 labels, nc = 15:
+//    148.5 KB of grid for 11); each group sorts the cell again.  1024
+//    threads (an earlier 512 measured 25% slower on the noise scene:
+//    latency-bound compare-and-swap loops), and an explicit interleaving
+//    of the 8 loops measured slower than the compiler's.
+//  - grid blur of the norm pass and of slice_planes: one block per (cell,
+//    label) stages that label's grid planes in shared memory, runs the
+//    joint (r, g) blur as a stencil over the nonzero ones of the TPU's
+//    bf16-rounded kron weights, then the b band in f32, and writes the
+//    blurred grid in bf16 to device memory (scratch).
+//  - slice_attrs / slice pixel pass: one thread per pixel works out its 8
+//    corners once and gathers them for each label from the blurred grid in
+//    device memory.  slice_planes (the XLA engine's color blur and slice)
+//    is the grid blur of an f32 grid followed by the same gather, with f32
+//    outputs and no messages.
+//  - mf_step (step_plan in kernels/crf_fused.py), fused where the cell's
+//    grid fits in shared memory and its logits in registers (L <= 32):
+//    one block per cell stages the z-blurred grid with cp.async (142 KB at
+//    nc = 15, L = 21), blurs it in place 6 labels a round through an f32
+//    scratch of the (r, g) pass, then runs the pixel pass from shared
+//    memory: one launch, and no blurred grid written to and read back from
+//    device memory (36 MB a launch at B=8).  The blur keeps each item's
+//    2re+1 source rows in a register window along g, 8 outputs a thread,
+//    so a shared-memory load feeds 2re+1 taps (not one load a tap).  The pixel pass is a thread per pixel with its logits in
+//    registers; 21 labels, the main path's, have an instantiation of
+//    their own whose label loops unroll with no test of L, so the 42 loads
+//    of q and fg issue ahead of the arithmetic (0.40 -> 0.26 ms a launch,
+//    measured in PERF.md; 1024 threads at 64 registers).  Where the cells are
+//    fewer than the SMs (B = 1), a cell takes several blocks, each blurring
+//    the grid again.  Splitting a pixel over two lanes, or staging q and fg
+//    through shared memory with cp.async, measured slower.
+//    Otherwise (nc = 21 with 21 labels: a 389 KB grid; or L > 32) two
+//    kernels: the blur per (cell, chunk of 4 labels), 1024 threads, into
+//    device scratch laid out in chunks, each label-innermost
+//    ([chunk][b][r][g][4], written 8 coalesced bytes a grid point from a
+//    tile in shared memory; a label a block with 2-byte stores measured
+//    2.6x slower), so that a corner's 4 labels are one 8-byte load in the
+//    pixel pass, which has the 21-label instantiation too.  Both forms
+//    blur in grid_blur_kernel's order, (dr, dg) row-major (a zero tap or
+//    an off-grid source adds an exact zero; exact bf16 products summed
+//    with fmaf, as the file's -fmad=false multiply then add), then the b
+//    band with separate multiply and add, and the softmax in the plain
+//    version's order: the two forms give one Q bit for bit.  The
+//    explicit-unary step reads one more bf16 (L, P) stream; it is its own
+//    instantiation.
 //  - spatial blur, the row kernel (the TPU's _blur_row_kernel).  It moves
 //    2 bf16 bytes in and 2 out per (pixel, label): 177 MB per production
 //    launch, 0.053 ms at 3.35 TB/s; its ~36 f32 multiply-adds per output
@@ -97,8 +136,7 @@
 //    every input read about once where the row kernel at cs_y = 75 (a strip
 //    of one row) reads each 1 + 2r times.
 //
-// Measured on the H100 (PERF.md): each kernel takes several times its bound;
-// making them fast is later work.
+// Measured on the H100 (PERF.md): each kernel takes several times its bound.
 //
 // Rounding points are the TPU's, so that a kernel and its plain version differ
 // only in summation order: bf16 operands whose products are exact in f32,
@@ -125,7 +163,6 @@ constexpr int MAX_STAPS = 33;   // the row kernel's taps (radius <= 16)
 constexpr int MAX_YX_TAPS = 257;  // the two-pass blur: radius <= 128
 constexpr int ATTR_ROWS = 8, ATTR_GN = 3, ATTR_BN = 4, ATTR_BSELF = 5,
               ATTR_LABEL = 6, ATTR_BSCALE = 7;
-constexpr int SPLAT_GROUP = 48 * 1024;  // splat: shared-memory grid per block
 constexpr int SMEM_MAX = 227 * 1024;
 
 enum {
@@ -159,10 +196,6 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // The two hat weights max(1 - |bin - c|, 0) of coordinate c, on bins i and
 // i + 1, computed as the dense form computes them.
@@ -179,15 +212,6 @@ __device__ __forceinline__ Hat hat(float c) {
   return h;
 }
 
-// Labels per block so that `per_label` bytes each fit in `budget`, spread
-// evenly over the fewest groups.
-int label_group(int L, size_t per_label, size_t budget) {
-  int gmax = (int)(budget / per_label);
-  if (gmax < 1) gmax = 1;
-  const int groups = (L + gmax - 1) / gmax;
-  return (L + groups - 1) / groups;
-}
-
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
@@ -195,53 +219,331 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 
 // ---------------------------------------------------------------- splat ----
 // G[z, b*L + l, r*nc + g] += bf16(bf16(v * s) * bf16(w_b)) * bf16(w_r * w_g),
-// s the ATTR_BSCALE row of packed attrs planes, 1 for plain rgb planes
-template <typename TV, typename TO>
-__global__ void splat_kernel(const float* __restrict__ rgb, int rows,
-                             const TV* __restrict__ vals, TO* __restrict__ out,
-                             int P, int L, int nc, float inv_step, int Lg) {
-  float* acc = reinterpret_cast<float*>(dyn_smem);  // [nc][Lc][C]
-  const int z = blockIdx.x, l0 = blockIdx.y * Lg;
-  const int Lc = min(Lg, L - l0);
-  const int C = nc * nc, n = nc * Lc * C;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.f;
+// s the ATTR_BSCALE row of packed attrs planes, 1 for plain rgb planes.
+//
+// One block per (cell, group of lg labels); the cell's pixels in chunks of
+// pc (splat_plan in kernels/crf_fused.py).  Per chunk:
+//  1. each pixel's base bin (b0, r0, g0), as a key over (nc + 1)^3 (bins
+//     -1 .. nc-1), and its weights, once for the block; a histogram of the
+//     keys with warp-aggregated integer atomics (__match_any_sync);
+//  2. one exclusive scan of (pixels | pieces << 16) per key: a piece is at
+//     most k pixels of one key, so it shares all 8 corner addresses;
+//  3. each pixel's weights, and bf16(v * s) of the group's labels, to its
+//     place in key order;
+//  4. one item per (piece, label), labels fastest: the piece's 8 corner
+//     sums in registers, in sorted order, then one shared-memory f32 add a
+//     corner.  On sm_90 that add is a compare-and-swap loop (atomicAdd
+//     compiles to ATOMS.CAST.SPIN), which every contending lane retries:
+//     8 of them per (piece, label) and not per (pixel, label), and
+//     neighbouring lanes on different label planes or, in the norm pass,
+//     on pieces far apart in key order.
+// A chunk of the norm pass (one label) of which a third of the pixels or
+// more are alone in their bins skips 2-4: each pixel adds its own corners
+// (a noise image's chunk: there is little to sum first, and the sort
+// measured slower than the adds it saves).  The group's f32 grid is zeroed once and written
+// once, two values a store.
+constexpr int SPLAT_THREADS = 1024;
+constexpr int SPLAT_MAX_PPT = 2;     // pixels of a chunk a thread holds
+constexpr int SPLAT_PIECE = 32;      // pixels of one key a thread sums (k)
+
+struct SplatArgs {
+  const float* rgb;       // (Z, rows, P) rgb or packed attrs planes
+  const void* vals;       // (Z, L, P) f32 or bf16
+  void* out;              // (Z, nc*L, C) f32 or bf16
+  int rows, P, L, nc, lg, pc;   // lg, pc: the plan's
+  float inv_step;
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// Histogram entries: (nc + 1)^3 keys, padded so that each thread owns a
+// whole number of groups of four.
+__host__ __device__ inline int splat_hist_len(int nc) {
+  const int keys = (nc + 1) * (nc + 1) * (nc + 1);
+  const int per = ((keys + SPLAT_THREADS - 1) / SPLAT_THREADS + 3) / 4 * 4;
+  return per * SPLAT_THREADS;
+}
+
+// Byte offsets of a splat block's shared memory (splat_smem in
+// kernels/crf_fused.py): the f32 grid [nc][lg][C], the key histogram, the
+// pieces ((b0+1) << 20 | (r0+1) << 10 | (g0+1), first | len << 16), the
+// sorted weights (bf16 w_r*w_g x4,
+// bf16 w_b x2), the sorted bf16(v * s) [pc][lg], the scan's warp sums.
+struct SplatLayout {
+  size_t hist, piece, wrg, wb, vals, scan, total;
+};
+__host__ __device__ inline SplatLayout splat_layout(int nc, int lg, int pc) {
+  SplatLayout s;
+  s.hist = align16((size_t)4 * nc * lg * nc * nc);
+  s.piece = s.hist + (size_t)4 * splat_hist_len(nc);
+  s.wrg = s.piece + (size_t)8 * pc;
+  s.wb = s.wrg + (size_t)8 * pc;
+  s.vals = align16(s.wb + (size_t)4 * pc);
+  s.scan = align16(s.vals + (size_t)2 * pc * lg);
+  s.total = s.scan + 4 * 32;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// Exclusive prefix sum of v over the block; *total gets the sum.  warp: 32
+// ints of shared memory.  Two barriers.
+__device__ int block_scan(int v, int* warp, int* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp[w] = x;
   __syncthreads();
-  const float* px = rgb + (size_t)z * rows * P;
-  const int items = P * Lc;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int p = it / Lc, lg = it - p * Lc;
-    const float s = rows == ATTR_ROWS ? px[ATTR_BSCALE * P + p] : 1.f;
-    const float v = ld(vals + ((size_t)z * L + l0 + lg) * P + p);
-    const float vb = bf16r(v * s);
-    if (vb == 0.f) continue;
-    const Hat hr = hat(px[p] * inv_step), hg = hat(px[P + p] * inv_step),
-              hb = hat(px[2 * P + p] * inv_step);
+  if (w == 0) {
+    int t = lane < nw ? warp[lane] : 0;
 #pragma unroll
-    for (int kb = 0; kb < 2; ++kb) {
-      const int b = hb.i + kb;
-      const float wb = kb ? hb.w1 : hb.w0;
-      if (b < 0 || b >= nc || wb == 0.f) continue;
-      const float t = bf16r(vb * bf16r(wb));
-      float* row = acc + (size_t)(b * Lc + lg) * C;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, t, o);
+      if (lane >= o) t += y;
+    }
+    if (lane < nw) warp[lane] = t;
+  }
+  __syncthreads();
+  *total = warp[nw - 1];
+  return (w ? warp[w - 1] : 0) + x - v;
+}
+
+// Two values a store: the f32 grid's run of n values at src to dst (a
+// global element offset off from a 16-byte aligned base).  Reading two
+// neighbouring words a lane keeps shared memory to two-way conflicts.
+__device__ __forceinline__ void store_run(const float* src, float* dst,
+                                          size_t off, int n, int tid, int T) {
+  const int head = (int)(off & 1);
+  if (tid == 0 && head && n > 0) dst[0] = src[0];
+  for (int i = head + 2 * tid; i + 1 < n; i += 2 * T)
+    *reinterpret_cast<float2*>(dst + i) = make_float2(src[i], src[i + 1]);
+  if (tid == 0 && n > head && (n - head) % 2) dst[n - 1] = src[n - 1];
+}
+__device__ __forceinline__ void store_run(const float* src, bf16* dst,
+                                          size_t off, int n, int tid, int T) {
+  const int head = (int)(off & 1);
+  if (tid == 0 && head && n > 0) dst[0] = __float2bfloat16_rn(src[0]);
+  for (int i = head + 2 * tid; i + 1 < n; i += 2 * T)
+    *reinterpret_cast<__nv_bfloat162*>(dst + i) =
+        __floats2bfloat162_rn(src[i], src[i + 1]);
+  if (tid == 0 && n > head && (n - head) % 2)
+    dst[n - 1] = __float2bfloat16_rn(src[n - 1]);
+}
+
+template <typename TV, typename TO>
+__global__ void __launch_bounds__(SPLAT_THREADS, 1) splat_kernel(SplatArgs a) {
+  const int z = blockIdx.x, l0 = blockIdx.y * a.lg;
+  const int Lc = min(a.lg, a.L - l0), nc = a.nc, C = nc * nc, nk = nc + 1;
+  const int P = a.P, tid = threadIdx.x, lane = tid & 31, K = SPLAT_PIECE;
+  const SplatLayout lay = splat_layout(nc, a.lg, a.pc);
+  float* grid = reinterpret_cast<float*>(dyn_smem);            // [nc][Lc][C]
+  int* hist = reinterpret_cast<int*>(dyn_smem + lay.hist);
+  int2* piece = reinterpret_cast<int2*>(dyn_smem + lay.piece);
+  uint2* wrg = reinterpret_cast<uint2*>(dyn_smem + lay.wrg);
+  uint32_t* wbs = reinterpret_cast<uint32_t*>(dyn_smem + lay.wb);
+  bf16* vs = reinterpret_cast<bf16*>(dyn_smem + lay.vals);      // [pc][lg]
+  int* warp_sums = reinterpret_cast<int*>(dyn_smem + lay.scan);
+  const int hist_len = splat_hist_len(nc), per = hist_len / SPLAT_THREADS;
+  const int n = nc * Lc * C;
+  for (int i = tid; i < (n + 3) / 4; i += SPLAT_THREADS)
+    reinterpret_cast<float4*>(grid)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* px = a.rgb + (size_t)z * a.rows * P;
+  const TV* vals = static_cast<const TV*>(a.vals) + ((size_t)z * a.L + l0) * P;
+  const float hi = (float)nc;
+  // (piece slot, label) of this thread, labels fastest.  Where a warp's
+  // lanes are mostly pieces (fewer than 4 labels), the slots spread over
+  // the pieces, lanes slots / 32 pieces apart: the pieces are in key order,
+  // and neighbouring keys share corners, so neighbouring lanes would
+  // contend.  (With more labels, a warp holds a few pieces, and spreading
+  // them measured slower: their sorted records no longer share loads.)
+  const int slots = SPLAT_THREADS / Lc, slot = tid / Lc, lgt = tid - slot * Lc;
+  const int spread = Lc < 4 ? slots / 32 : 0, first_slot =
+      slot < spread * 32 ? (slot % 32) * spread + slot / 32 : slot;
+  for (int i = tid; i < hist_len / 4; i += SPLAT_THREADS)
+    reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  for (int c0 = 0; c0 < P; c0 += a.pc) {
+    const int np = min(a.pc, P - c0);
+    // 1. keys, weights and the histogram (every load issued first, the
+    // first label's values among them)
+    int key[SPLAT_MAX_PPT], pos[SPLAT_MAX_PPT];
+    uint32_t w01[SPLAT_MAX_PPT], w23[SPLAT_MAX_PPT], wbb[SPLAT_MAX_PPT];
+    float sc[SPLAT_MAX_PPT], cr[SPLAT_MAX_PPT], cg[SPLAT_MAX_PPT],
+        cb[SPLAT_MAX_PPT], v0[SPLAT_MAX_PPT];
 #pragma unroll
-      for (int kr = 0; kr < 2; ++kr) {
-        const int r = hr.i + kr;
-        const float wr = kr ? hr.w1 : hr.w0;
-        if (r < 0 || r >= nc || wr == 0.f) continue;
+    for (int j = 0; j < SPLAT_MAX_PPT; ++j) {
+      const int i = tid + j * SPLAT_THREADS, p = c0 + i;
+      const bool in = i < np;
+      cr[j] = in ? px[p] * a.inv_step : -2.f;
+      cg[j] = in ? px[P + p] * a.inv_step : -2.f;
+      cb[j] = in ? px[2 * P + p] * a.inv_step : -2.f;
+      sc[j] = in && a.rows == ATTR_ROWS ? px[ATTR_BSCALE * P + p] : 1.f;
+      v0[j] = in ? ld(vals + p) : 0.f;
+    }
 #pragma unroll
-        for (int kg = 0; kg < 2; ++kg) {
-          const int g = hg.i + kg;
-          const float wg = kg ? hg.w1 : hg.w0;
-          if (g < 0 || g >= nc || wg == 0.f) continue;
-          atomicAdd(row + r * nc + g, t * bf16r(wr * wg));
+    for (int j = 0; j < SPLAT_MAX_PPT; ++j) {
+      key[j] = -1;
+      pos[j] = 0;
+      w01[j] = w23[j] = wbb[j] = 0u;
+      if (j * SPLAT_THREADS >= np) continue;    // the same in the whole block
+      // bins -1 .. nc-1 (a pixel past them touches no bin of the grid)
+      if (cr[j] >= -1.f && cr[j] < hi && cg[j] >= -1.f && cg[j] < hi &&
+          cb[j] >= -1.f && cb[j] < hi) {
+        const Hat hr = hat(cr[j]), hg = hat(cg[j]), hb = hat(cb[j]);
+        key[j] = ((hb.i + 1) * nk + hr.i + 1) * nk + hg.i + 1;
+        w01[j] = pack_bf2(bf16r(hr.w0 * hg.w0), bf16r(hr.w0 * hg.w1));
+        w23[j] = pack_bf2(bf16r(hr.w1 * hg.w0), bf16r(hr.w1 * hg.w1));
+        wbb[j] = pack_bf2(hb.w0, hb.w1);      // rounds them: bf16(w_b)
+      }
+      // one integer atomic a group of equal keys in a warp
+      const unsigned peers = __match_any_sync(0xffffffffu, key[j]);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (lane == leader && key[j] >= 0)
+        base = atomicAdd(hist + key[j], __popc(peers));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      pos[j] = base + __popc(peers & ((1u << lane) - 1u));
+    }
+    __syncthreads();
+    // A one-label chunk with many pixels alone in their bins (noise: little
+    // to sum before the adds) skips the sort: each pixel adds its own 8
+    // corners.
+    if (Lc == 1 && 3 * __syncthreads_count(key[0] >= 0 && hist[key[0]] == 1) >=
+                       min(np, SPLAT_THREADS)) {
+      for (int i = tid; i < hist_len / 4; i += SPLAT_THREADS)
+        reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int j = 0; j < SPLAT_MAX_PPT; ++j) {
+        if (key[j] < 0) continue;
+        const float2 wb = unpack_bf2(wbb[j]), f01 = unpack_bf2(w01[j]),
+                     f23 = unpack_bf2(w23[j]);
+        const float v = bf16r(v0[j] * sc[j]);
+        const float t[2] = {bf16r(v * wb.x), bf16r(v * wb.y)};
+        const float w[4] = {f01.x, f01.y, f23.x, f23.y};
+        const int b0 = key[j] / (nk * nk) - 1, r0 = (key[j] / nk) % nk - 1,
+                  g0 = key[j] % nk - 1;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int b = b0 + c / 4, r = r0 + (c / 2) % 2, g = g0 + c % 2;
+          const float m = t[c / 4] * w[c % 4];   // exact: two bf16 values
+          if (b >= 0 && b < nc && r >= 0 && r < nc && g >= 0 && g < nc &&
+              m != 0.f)
+            atomicAdd(grid + (size_t)b * C + r * nc + g, m);
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+    // 2. the scan: thread t owns keys t, t + T, ... (conflict-free reads);
+    // any order of keys groups equal keys
+    int run = 0;
+    for (int q = 0; q < per; ++q) {
+      const int c = hist[q * SPLAT_THREADS + tid];
+      run += c | (((c + K - 1) / K) << 16);
+    }
+    int total;
+    run = block_scan(run, warp_sums, &total);
+    for (int q = 0; q < per; ++q) {
+      const int kk = q * SPLAT_THREADS + tid, c = hist[kk];
+      const int first = run & 0xffff;
+      hist[kk] = first;
+      // the key's bins, packed once here and not divided out per item
+      const int bins = c ? (kk / (nk * nk)) << 20 | ((kk / nk) % nk) << 10 |
+                               kk % nk
+                         : 0;
+      for (int i = 0, pi = run >> 16; i < c; i += K, ++pi)
+        piece[pi] = make_int2(bins, (first + i) | (min(K, c - i) << 16));
+      run += c | (((c + K - 1) / K) << 16);
+    }
+    const int npieces = total >> 16;
+    __syncthreads();
+    // 3. weights and values in key order
+#pragma unroll
+    for (int j = 0; j < SPLAT_MAX_PPT; ++j) {
+      if (key[j] < 0) continue;
+      pos[j] += hist[key[j]];
+      wrg[pos[j]] = make_uint2(w01[j], w23[j]);
+      wbs[pos[j]] = wbb[j];
+    }
+    // four labels' loads in flight at once
+    for (int lg0 = 0; lg0 < Lc; lg0 += 4) {
+      float v[4][SPLAT_MAX_PPT];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int j = 0; j < SPLAT_MAX_PPT; ++j)
+          v[u][j] = lg0 + u == 0 ? v0[j]
+                    : lg0 + u < Lc && key[j] >= 0
+                        ? ld(vals + (size_t)(lg0 + u) * P + c0 + tid +
+                             j * SPLAT_THREADS)
+                        : 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int j = 0; j < SPLAT_MAX_PPT; ++j)
+          if (lg0 + u < Lc && key[j] >= 0)
+            vs[pos[j] * a.lg + lg0 + u] = __float2bfloat16_rn(v[u][j] * sc[j]);
+    }
+    __syncthreads();
+    // 4. per (piece, label): 8 corner sums, then 8 atomics; the histogram
+    // cleared for the next chunk (read for the last time in 3)
+    for (int i = tid; i < hist_len / 4; i += SPLAT_THREADS)
+      reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
+    if (slot < slots) {
+      for (int pi = first_slot; pi < npieces; pi += slots) {
+        const int2 pc = piece[pi];
+        const int first = pc.y & 0xffff, last = first + (pc.y >> 16);
+        float m[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) m[j] = 0.f;
+        for (int q = first; q < last; ++q) {
+          const uint2 w = wrg[q];
+          const float2 wb = unpack_bf2(wbs[q]);
+          const float v = __bfloat162float(vs[q * a.lg + lgt]);
+          const float t0 = bf16r(v * wb.x), t1 = bf16r(v * wb.y);
+          const float2 f01 = unpack_bf2(w.x), f23 = unpack_bf2(w.y);
+          // products of two bf16 values are exact: one rounding a term
+          m[0] = __fmaf_rn(t0, f01.x, m[0]);
+          m[1] = __fmaf_rn(t0, f01.y, m[1]);
+          m[2] = __fmaf_rn(t0, f23.x, m[2]);
+          m[3] = __fmaf_rn(t0, f23.y, m[3]);
+          m[4] = __fmaf_rn(t1, f01.x, m[4]);
+          m[5] = __fmaf_rn(t1, f01.y, m[5]);
+          m[6] = __fmaf_rn(t1, f23.x, m[6]);
+          m[7] = __fmaf_rn(t1, f23.y, m[7]);
+        }
+        const int b0 = (pc.x >> 20) - 1, r0 = (pc.x >> 10 & 1023) - 1,
+                  g0 = (pc.x & 1023) - 1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int b = b0 + j / 4, r = r0 + (j / 2) % 2, g = g0 + j % 2;
+          if (b >= 0 && b < nc && r >= 0 && r < nc && g >= 0 && g < nc &&
+              m[j] != 0.f)
+            atomicAdd(grid + (size_t)(b * Lc + lgt) * C + r * nc + g, m[j]);
         }
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = i % C, bl = i / C, lg = bl % Lc, b = bl / Lc;
-    st(out + ((size_t)z * nc * L + b * L + l0 + lg) * C + c, acc[i]);
+  // each b plane of the group: Lc*C values, contiguous in the grid and out
+  TO* out = static_cast<TO*>(a.out);
+  for (int b = 0; b < nc; ++b) {
+    const size_t off = ((size_t)(z * nc + b) * a.L + l0) * C;
+    store_run(grid + (size_t)b * Lc * C, out + off, off, Lc * C, tid,
+              SPLAT_THREADS);
   }
 }
 
@@ -287,9 +589,11 @@ __global__ void grid_blur_kernel(const TI* __restrict__ g,
   }
 }
 
-// A pixel's 8 grid corners: offsets in a (D, C) grid at label 0 (label l
-// adds l*C) and weights bf16(w_r * w_g), kb-major then r, g; corners off the
-// grid get weight 0.  wb: the f32 hat weights of its two b bins.
+// A pixel's 8 grid corners: offsets of label 0 in a grid whose b planes lie
+// bstride elements apart and whose (r, g) points lie cstride apart (the
+// (D, C) layout: L*C and 1), and weights bf16(w_r * w_g), kb-major then r,
+// g; corners off the grid get weight 0.  wb: the f32 hat weights of its two
+// b bins.
 struct Corners {
   int off[8];
   float w[8];
@@ -297,9 +601,9 @@ struct Corners {
 };
 
 __device__ __forceinline__ Corners corners(const Hat& hr, const Hat& hg,
-                                           const Hat& hb, int L, int nc) {
+                                           const Hat& hb, int nc, int bstride,
+                                           int cstride) {
   Corners k;
-  const int C = nc * nc;
 #pragma unroll
   for (int kb = 0; kb < 2; ++kb) {
     const int b = hb.i + kb;
@@ -315,7 +619,7 @@ __device__ __forceinline__ Corners corners(const Hat& hr, const Hat& hg,
         const float wg = kg ? hg.w1 : hg.w0;
         const bool ok = bok && r >= 0 && r < nc && g >= 0 && g < nc;
         const int j = kb * 4 + kr * 2 + kg;
-        k.off[j] = ok ? b * L * C + r * nc + g : 0;
+        k.off[j] = ok ? b * bstride + (r * nc + g) * cstride : 0;
         k.w[j] = ok ? bf16r(wr * wg) : 0.f;
       }
     }
@@ -370,7 +674,8 @@ __global__ void slice_attrs_kernel(AttrsArgs a) {
       const float s1 = c - floorf(c), s0 = 1.f - s1;
       per[k] = (s0 * s0 + s1 * s1) * a.b0 + 2.f * s0 * s1 * a.b1;
     }
-    const float filt = slice_at(gb, corners(h[0], h[1], h[2], 1, a.nc), 0);
+    const float filt =
+        slice_at(gb, corners(h[0], h[1], h[2], a.nc, C, 1), 0);
     const float bself = per[0] * per[1] * per[2];
     const int py = p / a.cs_x, px = p - py * a.cs_x;
     const float valid =
@@ -398,67 +703,449 @@ __global__ void slice_attrs_kernel(AttrsArgs a) {
   }
 }
 
-// ----------------------------------------------------------- mf_step pass ----
+// ---------------------------------------------------------------- mf_step ----
+// The step's color blur and pixel pass (step_plan in kernels/crf_fused.py;
+// the design and its measurements are in the header above).  Fused: one
+// block per cell (or per cell and split) stages the z-blurred grid with
+// cp.async, blurs it in place lb labels a round through an f32 scratch of
+// the (r, g) pass, then slices every pixel from shared memory.  Two
+// kernels: the grid blur per (cell, chunk of STEP_LC labels) into device
+// scratch [chunk][b][r][g][STEP_LC], then the pixel pass.  Both blur in
+// the order of the grid blur above: (dr, dg) row-major over a window of
+// radius re (the taps' outer zeros trimmed; a zero tap or an off-grid
+// source adds an exact zero), exact bf16 products summed with fmaf, then
+// the b band in f32 with separate multiply and add, rounded to bf16.  So
+// the two forms give one blurred grid bit for bit, and the same Q.
+constexpr int STEP_THREADS = 512;   // the fused kernel: a pixel a thread
+constexpr int STEP_L21 = 21;        // the label count of its own instantiation
+constexpr int STEP_THREADS_L21 = 1024;  // ... which holds 64 registers
+constexpr int STEP_PIX_THREADS = 256;   // the two-kernel pixel pass
+constexpr int STEP_BLUR_THREADS = 1024;  // the two-kernel grid blur (1024:
+                                         // 1.6x faster than 256 at nc 21)
+constexpr int STEP_LMAX = 32;       // labels whose logits sit in registers
+constexpr int STEP_LC = 4;          // labels a chunk of the slice
+constexpr int STEP_SEG = 8;         // blur outputs a thread holds along g
+
 struct StepArgs {
   const float* attrs;     // (Z, 8, P)
-  const bf16* gblur;      // (Z, D, C) blurred grid
+  const bf16* grid;       // (Z, D, C) z-blurred grid
+  bf16* scratch;          // two-kernel form: (Z, nc*C, lp) blurred grid
   const bf16* fg;         // (Z, L, P) spatial filter of Q * gn
   const bf16* q;          // (Z, L, P)
   bf16* out;              // (Z, L, P)
   bf16* out_sub;          // (Z, L, Ps) or null
   const bf16* unary;      // (Z, L, P) explicit energies, or null: the
                           // two-level unary from the label row
-  int P, L, nc, stride, cs_x;
+  int P, L, nc, stride, cs_x, lb, ncp, lp, splits;
   float inv_step, cg, cb, n_energy, p_energy;
 };
 
-template <bool UNARY>
-__global__ void __launch_bounds__(256) mf_step_kernel(StepArgs a) {
-  const int z = blockIdx.x, P = a.P, L = a.L, C = a.nc * a.nc;
-  // gathers from the cell's blurred grid in device memory (L2-resident);
-  // shared memory holds each thread's L logits, [L][blockDim] (a register
-  // array of them spilled to local memory)
-  const bf16* gb = a.gblur + (size_t)z * a.nc * L * C;
-  float* lg = reinterpret_cast<float*>(dyn_smem) + threadIdx.x;
-  const int s = a.stride, xs = a.cs_x / s, Ps = P / (s * s);
-  const int T = blockDim.x;
-  const float* at = a.attrs + (size_t)z * ATTR_ROWS * P;
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  if (p < P) {
-    const Hat hr = hat(at[p] * a.inv_step), hg = hat(at[P + p] * a.inv_step),
-              hb = hat(at[2 * P + p] * a.inv_step);
-    const Corners k = corners(hr, hg, hb, L, a.nc);
-    const float gn = at[ATTR_GN * P + p], bn = at[ATTR_BN * P + p];
-    const float bself = at[ATTR_BSELF * P + p], lab = at[ATTR_LABEL * P + p];
-    float mx = -INFINITY;
-#pragma unroll 4
-    for (int l = 0; l < L; ++l) {
-      const size_t o = ((size_t)z * L + l) * P + p;
-      const float filt = slice_at(gb, k, l * C);
-      const float q = __bfloat162float(a.q[o]);
-      const float msg_g = (__bfloat162float(a.fg[o]) - q * gn) * gn;
-      const float msg_b = fmaxf(filt - bself * bn * q, 0.f) * bn;
-      const float u = UNARY ? __bfloat162float(a.unary[o])
-                            : ((float)l == lab ? a.p_energy : a.n_energy);
-      const float v = -u + a.cg * msg_g + a.cb * msg_b;
-      lg[l * T] = v;
-      mx = fmaxf(mx, v);
+// The color taps on a dense window of radius re: w[(dr+re)(2re+1) + dg+re]
+// the bf16 joint weights (zeros kept), b the f32 band.
+struct StepTaps {
+  int re;
+  float w[MAX_CTAPS * MAX_CTAPS];
+  float b[MAX_CTAPS];
+};
+
+StepTaps step_taps(const ColorTaps& t) {
+  StepTaps s;
+  int re = 1;   // a radius-0 band runs on the radius-1 instantiation
+  const int R = t.n / 2;
+  auto reach = [&re](int d) { re = d > re ? d : -d > re ? -d : re; };
+  for (int i = 0; i < t.nrg; ++i) {
+    reach(t.dr[i]);
+    reach(t.dg[i]);
+  }
+  for (int i = 0; i < t.n; ++i)
+    if (t.b[i] != 0.f) reach(i - R);
+  s.re = re;
+  const int n = 2 * s.re + 1;
+  for (int i = 0; i < n * n; ++i) s.w[i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int off = i - s.re;
+    s.b[i] = (off >= -R && off <= R) ? t.b[off + R] : 0.f;
+  }
+  for (int i = 0; i < t.nrg; ++i)
+    s.w[(t.dr[i] + s.re) * n + t.dg[i] + s.re] = t.rg[i];
+  return s;
+}
+
+// (r, g) pass of nl labels into Tb[lg][b][r][ncp] f32, one item per (label,
+// b, r, segment of STEP_SEG along g); source (lg, b, r, g) at
+// src[lg*ls + b*bs + r*nc + g], bf16.  The item's 2re+1 source rows sit in
+// a register window, so each shared-memory load feeds 2re+1 taps.
+template <int RE>
+__device__ void blur_rg(const bf16* src, int ls, int bs, int nl, int nc,
+                        int ncp, float* Tb, const StepTaps& t) {
+  constexpr int NW = 2 * RE + 1, WIN = STEP_SEG + 2 * RE;
+  const int nseg = ncp / STEP_SEG, items = nl * nc * nc * nseg;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int seg = it % nseg, rest = it / nseg, r = rest % nc;
+    const int b = (rest / nc) % nc, lg = rest / (nc * nc);
+    const bf16* sp = src + (size_t)lg * ls + (size_t)b * bs;
+    const int g0 = seg * STEP_SEG;
+    float acc[STEP_SEG];
+#pragma unroll
+    for (int j = 0; j < STEP_SEG; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int dr = -RE; dr <= RE; ++dr) {
+      const int rr = r - dr;
+      const bool rok = rr >= 0 && rr < nc;
+      float win[WIN];   // win[m]: source column g0 + m - RE
+#pragma unroll
+      for (int m = 0; m < WIN; ++m) {
+        const int gg = g0 + m - RE;
+        win[m] = rok && gg >= 0 && gg < nc
+                     ? __bfloat162float(sp[rr * nc + gg]) : 0.f;
+      }
+#pragma unroll
+      for (int dg = -RE; dg <= RE; ++dg) {
+        const float w = t.w[(dr + RE) * NW + dg + RE];
+#pragma unroll
+        for (int j = 0; j < STEP_SEG; ++j)
+          acc[j] = __fmaf_rn(w, win[j - dg + RE], acc[j]);
+      }
     }
-    float sum = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const float e = expf(lg[l * T] - mx);
-      lg[l * T] = e;
-      sum += e;
+    float4* o = reinterpret_cast<float4*>(
+        Tb + (((size_t)lg * nc + b) * nc + r) * ncp + g0);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+// The b band of Tb, rounded to bf16: output (lg, b, r, g) to
+// dst[lg*dl + b*db + (r*nc + g)*dc].
+template <int RE>
+__device__ void blur_b(const float* Tb, int nl, int nc, int ncp,
+                       const StepTaps& t, bf16* dst, int dl, int db, int dc) {
+  const int nseg = ncp / STEP_SEG, items = nl * nc * nc * nseg;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int seg = it % nseg, rest = it / nseg, r = rest % nc;
+    const int b = (rest / nc) % nc, lg = rest / (nc * nc);
+    const int g0 = seg * STEP_SEG;
+    float acc[STEP_SEG];
+#pragma unroll
+    for (int j = 0; j < STEP_SEG; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int off = -RE; off <= RE; ++off) {
+      const int b2 = b + off;
+      if (b2 < 0 || b2 >= nc) continue;
+      const float tb = t.b[off + RE];
+      const float4* x = reinterpret_cast<const float4*>(
+          Tb + (((size_t)lg * nc + b2) * nc + r) * ncp + g0);
+      const float4 x0 = x[0], x1 = x[1];
+      const float v[STEP_SEG] = {x0.x, x0.y, x0.z, x0.w,
+                                 x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int j = 0; j < STEP_SEG; ++j)
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j], tb));
     }
-    const int py = p / a.cs_x, px = p - py * a.cs_x;
-    const bool on_sub = a.out_sub && py % s == 0 && px % s == 0;
-    const int ps = (py / s) * xs + px / s;
-    for (int l = 0; l < L; ++l) {
-      const bf16 v = __float2bfloat16_rn(lg[l * T] / sum);
-      a.out[((size_t)z * L + l) * P + p] = v;
-      if (on_sub) a.out_sub[((size_t)z * L + l) * Ps + ps] = v;
+    bf16* o = dst + (size_t)lg * dl + (size_t)b * db;
+#pragma unroll
+    for (int j = 0; j < STEP_SEG; ++j)
+      if (g0 + j < nc)
+        o[(size_t)(r * nc + g0 + j) * dc] = __float2bfloat16_rn(acc[j]);
+  }
+}
+
+// The slice of labels l0 .. l0 + nl - 1 (nl <= STEP_LC, l0 a multiple of
+// STEP_LC) at one pixel into f[], per label as slice_at: per b bin the 4
+// (r, g) corners in f32 (exact products), then the b hat weights.
+// In shared memory, the (D, C) layout: one 2-byte load a corner and label.
+struct SmemGrid {
+  const bf16* g;
+  int L, C;
+  __device__ Corners at(const Hat& hr, const Hat& hg, const Hat& hb,
+                        int nc) const {
+    return corners(hr, hg, hb, nc, L * C, 1);
+  }
+  __device__ void slice(const Corners& k, int l0, int nl, float* f) const {
+#pragma unroll
+    for (int j = 0; j < STEP_LC; ++j) {
+      if (j >= nl) break;
+      const bf16* gl = g + (l0 + j) * C;
+      float m[2];
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        m[kb] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          m[kb] = __fmaf_rn(__bfloat162float(gl[k.off[kb * 4 + c]]),
+                            k.w[kb * 4 + c], m[kb]);
+      }
+      f[j] = m[0] * k.wb[0] + m[1] * k.wb[1];
     }
   }
+};
+
+// In device scratch, in chunks of STEP_LC labels, each label-innermost
+// ([chunk][b][r][g][STEP_LC]): one 8-byte load a corner for STEP_LC labels.
+// chunk: the elements of one chunk, nc^3 * STEP_LC.
+struct VecGrid {
+  const bf16* g;
+  int C, chunk;
+  __device__ Corners at(const Hat& hr, const Hat& hg, const Hat& hb,
+                        int nc) const {
+    return corners(hr, hg, hb, nc, C * STEP_LC, STEP_LC);
+  }
+  __device__ void slice(const Corners& k, int l0, int nl, float* f) const {
+    const bf16* gc = g + (size_t)(l0 / STEP_LC) * chunk;
+    float m[2][STEP_LC];
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+#pragma unroll
+      for (int j = 0; j < STEP_LC; ++j) m[kb][j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint2 u =
+            *reinterpret_cast<const uint2*>(gc + k.off[kb * 4 + c]);
+        const float2 v01 = unpack_bf2(u.x), v23 = unpack_bf2(u.y);
+        const float v[STEP_LC] = {v01.x, v01.y, v23.x, v23.y};
+        const float w = k.w[kb * 4 + c];
+#pragma unroll
+        for (int j = 0; j < STEP_LC; ++j)
+          m[kb][j] = __fmaf_rn(v[j], w, m[kb][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < STEP_LC; ++j)
+      if (j < nl) f[j] = m[0][j] * k.wb[0] + m[1][j] * k.wb[1];
+  }
+};
+
+// The step's per-pixel prologue: hats, corners, the attrs it reads, where
+// its Q goes.
+struct StepPixel {
+  Corners k;
+  float gn, bn, bself, lab;
+  size_t base;      // (z, label 0, p) in the (Z, L, P) planes
+  long long sub;    // (z, label 0, its subsampled place), or -1: none
+};
+
+template <typename Grid>
+__device__ __forceinline__ StepPixel step_prologue(const StepArgs& a, int z,
+                                                   int p, const Grid& grid) {
+  const int P = a.P;
+  const float* at = a.attrs + (size_t)z * ATTR_ROWS * P;
+  StepPixel s;
+  const Hat hr = hat(at[p] * a.inv_step), hg = hat(at[P + p] * a.inv_step),
+            hb = hat(at[2 * P + p] * a.inv_step);
+  s.k = grid.at(hr, hg, hb, a.nc);
+  s.gn = at[ATTR_GN * P + p];
+  s.bn = at[ATTR_BN * P + p];
+  s.bself = at[ATTR_BSELF * P + p];
+  s.lab = at[ATTR_LABEL * P + p];
+  s.base = (size_t)z * a.L * P + p;
+  const int st = a.stride, py = p / a.cs_x, px = p - py * a.cs_x;
+  s.sub = a.out_sub && py % st == 0 && px % st == 0
+              ? (long long)z * a.L * (P / (st * st)) +
+                    (py / st) * (a.cs_x / st) + px / st
+              : -1;
+  return s;
+}
+
+// Label l's logit at the pixel: messages and unary in f32, as the plain
+// version orders them.
+template <bool UNARY>
+__device__ __forceinline__ float step_logit(const StepArgs& a,
+                                            const StepPixel& s, int l,
+                                            float filt) {
+  const size_t o = s.base + (size_t)l * a.P;
+  const float q = __bfloat162float(a.q[o]);
+  const float msg_g = (__bfloat162float(a.fg[o]) - q * s.gn) * s.gn;
+  const float msg_b = fmaxf(filt - s.bself * s.bn * q, 0.f) * s.bn;
+  const float u = UNARY ? __bfloat162float(a.unary[o])
+                        : ((float)l == s.lab ? a.p_energy : a.n_energy);
+  return -u + a.cg * msg_g + a.cb * msg_b;
+}
+
+__device__ __forceinline__ void step_store(const StepArgs& a,
+                                           const StepPixel& s, int l,
+                                           float v, int ps) {
+  const bf16 q = __float2bfloat16_rn(v);
+  a.out[s.base + (size_t)l * a.P] = q;
+  if (s.sub >= 0) a.out_sub[s.sub + (long long)l * ps] = q;
+}
+
+// One pixel of the step on one thread, its logits in registers: NL labels
+// (a compile-time count: its loops unroll with no test of L, so the loads
+// of q and fg issue ahead of the arithmetic), or with NL = 0 the run-time
+// L <= STEP_LMAX.  The softmax in the plain version's order: the max, then
+// the e summed in label order, then each e divided by the sum.
+template <bool UNARY, int NL, typename Grid>
+__device__ __forceinline__ void step_pixel(const StepArgs& a, int z, int p,
+                                           const Grid& grid) {
+  constexpr int NR = NL ? NL : STEP_LMAX;
+  const int L = NL ? NL : a.L;
+  const StepPixel s = step_prologue(a, z, p, grid);
+  float lg[NR];
+  float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+  for (int l0 = 0; l0 < NR; l0 += STEP_LC) {
+    if (l0 < L) {
+      float f[STEP_LC];
+      grid.slice(s.k, l0, min(STEP_LC, L - l0), f);
+#pragma unroll
+      for (int j = 0; j < STEP_LC; ++j)
+        if (l0 + j < L) {
+          lg[l0 + j] = step_logit<UNARY>(a, s, l0 + j, f[j]);
+          mx = fmaxf(mx, lg[l0 + j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < NR; ++l)
+    if (l < L) {
+      lg[l] = expf(lg[l] - mx);
+      sum += lg[l];
+    }
+  const int ps = a.P / (a.stride * a.stride);
+#pragma unroll
+  for (int l = 0; l < NR; ++l)
+    if (l < L) step_store(a, s, l, lg[l] / sum, ps);
+}
+
+// One pixel on one thread, its logits in shared memory, lgs[l * blockDim.x]
+// (any L; the two-kernel form's pixel pass where L > STEP_LMAX).
+template <bool UNARY, typename Grid>
+__device__ __forceinline__ void step_pixel_smem(const StepArgs& a, int z,
+                                                int p, const Grid& grid,
+                                                float* lgs) {
+  const int L = a.L, T = blockDim.x;
+  const StepPixel s = step_prologue(a, z, p, grid);
+  float mx = -INFINITY, sum = 0.f;
+  for (int l0 = 0; l0 < L; l0 += STEP_LC) {
+    float f[STEP_LC];
+    grid.slice(s.k, l0, min(STEP_LC, L - l0), f);
+    for (int j = 0; j < STEP_LC && l0 + j < L; ++j) {
+      const float v = step_logit<UNARY>(a, s, l0 + j, f[j]);
+      lgs[(l0 + j) * T] = v;
+      mx = fmaxf(mx, v);
+    }
+  }
+  for (int l = 0; l < L; ++l) {
+    const float e = expf(lgs[l * T] - mx);
+    lgs[l * T] = e;
+    sum += e;
+  }
+  const int ps = a.P / (a.stride * a.stride);
+  for (int l = 0; l < L; ++l) step_store(a, s, l, lgs[l * T] / sum, ps);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(gmem));
+}
+
+// Bytes of the fused kernel's shared memory (step_fused_smem in
+// kernels/crf_fused.py): the cell's bf16 grid with room to keep its 16-byte
+// alignment, then the (r, g) pass's f32 [lb][nc][nc][ncp].
+__host__ __device__ inline size_t step_grid_bytes(int nc, int L) {
+  return align16((size_t)2 * ((size_t)nc * L * nc * nc + 8));
+}
+__host__ __device__ inline size_t step_fused_smem(int nc, int L, int lb,
+                                                  int ncp) {
+  return step_grid_bytes(nc, L) + (size_t)4 * lb * nc * nc * ncp;
+}
+
+// One block of T threads per (cell, split): block (z, s) stages and blurs
+// cell z's grid and takes its pixels s*T .. s*T + T - 1, then every
+// splits*T further.
+template <int RE, bool UNARY, int NL>
+__global__ void __launch_bounds__(NL ? STEP_THREADS_L21 : STEP_THREADS, 1)
+mf_step_fused_kernel(StepArgs a, StepTaps t) {
+  const int z = blockIdx.x, L = a.L, nc = a.nc, C = nc * nc;
+  const int n = nc * L * C, tid = threadIdx.x;
+  constexpr int T = NL ? STEP_THREADS_L21 : STEP_THREADS;
+  // stage the cell's grid with cp.async, at the same offset within 16
+  // bytes as in device memory (staging it a blur round at a time, the
+  // round's blur starting while later copies are in flight, measured
+  // slower)
+  const bf16* src = a.grid + (size_t)z * n;
+  const int mis = (int)(((uintptr_t)src & 15) / 2);
+  bf16* G = reinterpret_cast<bf16*>(dyn_smem) + mis;
+  float* Tb = reinterpret_cast<float*>(dyn_smem + step_grid_bytes(nc, L));
+  const int head = min(n, (8 - mis) & 7), body = (n - head) / 8 * 8;
+  for (int i = tid; i < body / 8; i += T)
+    cp_async16(G + head + 8 * i, src + head + 8 * i);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = tid; i < head; i += T) G[i] = src[i];
+  for (int i = head + body + tid; i < n; i += T) G[i] = src[i];
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  // the color blur in place, lb labels a round
+  for (int l0 = 0; l0 < L; l0 += a.lb) {
+    const int nl = min(a.lb, L - l0);
+    blur_rg<RE>(G + l0 * C, C, L * C, nl, nc, a.ncp, Tb, t);
+    __syncthreads();
+    blur_b<RE>(Tb, nl, nc, a.ncp, t, G + l0 * C, C, L * C, 1);
+    __syncthreads();
+  }
+  const SmemGrid grid{G, L, C};
+  for (int p = blockIdx.y * T + tid; p < a.P; p += T * a.splits)
+    step_pixel<UNARY, NL>(a, z, p, grid);
+}
+
+// Two-kernel form, 1: the blur of one (cell, chunk of STEP_LC labels) into
+// the chunk-major scratch, label by label through a tile of the chunk in
+// shared memory ([b][r][g][STEP_LC], labels past L zero), then stored whole,
+// 8 bytes a grid point.
+inline size_t step_blur_smem(int nc, int ncp) {
+  return align16((size_t)2 * nc * nc * nc) + (size_t)4 * nc * nc * ncp +
+         (size_t)2 * STEP_LC * nc * nc * nc;
+}
+
+template <int RE>
+__global__ void __launch_bounds__(STEP_BLUR_THREADS)
+grid_blur_li_kernel(StepArgs a, StepTaps t) {
+  const int z = blockIdx.x, ch = blockIdx.y, L = a.L, nc = a.nc, C = nc * nc;
+  const int n3 = nc * C;
+  bf16* S = reinterpret_cast<bf16*>(dyn_smem);                // [nc][C]
+  float* Tb = reinterpret_cast<float*>(dyn_smem + align16((size_t)2 * n3));
+  bf16* O = reinterpret_cast<bf16*>(Tb + (size_t)nc * nc * a.ncp);
+  for (int j = 0; j < STEP_LC; ++j) {
+    const int l = ch * STEP_LC + j;
+    if (l >= L) {
+      for (int i = threadIdx.x; i < n3; i += blockDim.x)
+        O[i * STEP_LC + j] = __float2bfloat16_rn(0.f);
+      continue;
+    }
+    const bf16* src = a.grid + (size_t)z * nc * L * C + (size_t)l * C;
+    for (int i = threadIdx.x; i < n3; i += blockDim.x) {
+      const int b = i / C;
+      S[i] = src[(size_t)b * L * C + i - b * C];
+    }
+    __syncthreads();
+    blur_rg<RE>(S, 0, C, 1, nc, a.ncp, Tb, t);
+    __syncthreads();
+    blur_b<RE>(Tb, 1, nc, a.ncp, t, O + j, 0, C * STEP_LC, STEP_LC);
+    __syncthreads();
+  }
+  __syncthreads();
+  uint2* dst = reinterpret_cast<uint2*>(
+      a.scratch + ((size_t)z * (a.lp / STEP_LC) + ch) * n3 * STEP_LC);
+  for (int i = threadIdx.x; i < n3; i += blockDim.x)
+    dst[i] = reinterpret_cast<const uint2*>(O)[i];
+}
+
+// Two-kernel form, 2: the pixel pass, a pixel a thread; NL >= 0: the
+// logits in registers (NL labels, or with 0 any L <= STEP_LMAX), NL < 0: in
+// shared memory (any L).
+template <bool UNARY, int NL>
+__global__ void __launch_bounds__(STEP_PIX_THREADS)
+mf_step_pixel_kernel(StepArgs a) {
+  const int z = blockIdx.x, n3 = a.nc * a.nc * a.nc;
+  const int p = blockIdx.y * STEP_PIX_THREADS + threadIdx.x;
+  const VecGrid grid{a.scratch + (size_t)z * n3 * a.lp, a.nc * a.nc,
+                     n3 * STEP_LC};
+  if (p >= a.P) return;
+  if (NL >= 0)
+    step_pixel<UNARY, NL < 0 ? 0 : NL>(a, z, p, grid);
+  else
+    step_pixel_smem<UNARY>(a, z, p, grid,
+                           reinterpret_cast<float*>(dyn_smem) + threadIdx.x);
 }
 
 // ------------------------------------------------------------- slice pass ----
@@ -479,7 +1166,7 @@ __global__ void __launch_bounds__(256) slice_kernel(SliceArgs a) {
   if (p < P) {
     const Hat hr = hat(px[p] * a.inv_step), hg = hat(px[P + p] * a.inv_step),
               hb = hat(px[2 * P + p] * a.inv_step);
-    const Corners k = corners(hr, hg, hb, L, a.nc);
+    const Corners k = corners(hr, hg, hb, a.nc, L * C, 1);
     float* o = a.out + (size_t)z * L * P + p;
     for (int l = 0; l < L; ++l) o[(size_t)l * P] = slice_at(gb, k, l * C);
   }
@@ -913,6 +1600,57 @@ cudaError_t launch_grid_blur(const TI* g, bf16* out, int Z, int L, int nc,
   return cudaGetLastError();
 }
 
+template <int RE>
+cudaError_t launch_step(const StepArgs& a, const StepTaps& t, int Z, int fused,
+                        int smem, cudaStream_t st) {
+  cudaError_t e;
+  if (fused) {
+    const dim3 blocks(Z, a.splits);
+    const bool l21 = a.L == STEP_L21;
+    const int threads = l21 ? STEP_THREADS_L21 : STEP_THREADS;
+    const void* fn =
+        a.unary ? (l21 ? (const void*)mf_step_fused_kernel<RE, true, STEP_L21>
+                       : (const void*)mf_step_fused_kernel<RE, true, 0>)
+                : (l21 ? (const void*)mf_step_fused_kernel<RE, false, STEP_L21>
+                       : (const void*)mf_step_fused_kernel<RE, false, 0>);
+    if ((e = set_smem(fn, smem)) != cudaSuccess) return e;
+    if (a.unary && l21)
+      mf_step_fused_kernel<RE, true, STEP_L21><<<blocks, threads, smem, st>>>(a, t);
+    else if (a.unary)
+      mf_step_fused_kernel<RE, true, 0><<<blocks, threads, smem, st>>>(a, t);
+    else if (l21)
+      mf_step_fused_kernel<RE, false, STEP_L21><<<blocks, threads, smem, st>>>(a, t);
+    else
+      mf_step_fused_kernel<RE, false, 0><<<blocks, threads, smem, st>>>(a, t);
+    return cudaGetLastError();
+  }
+  if ((e = set_smem((const void*)grid_blur_li_kernel<RE>, smem)) !=
+      cudaSuccess)
+    return e;
+  grid_blur_li_kernel<RE><<<dim3(Z, a.lp / STEP_LC), STEP_BLUR_THREADS, smem,
+                            st>>>(a, t);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // logits in registers up to STEP_LMAX labels (21 in an instantiation of
+  // their own), else in shared memory
+  const int mode = a.L == STEP_L21 ? STEP_L21 : a.L <= STEP_LMAX ? 0 : -1;
+  const size_t psmem =
+      mode >= 0 ? 0 : sizeof(float) * (size_t)a.L * STEP_PIX_THREADS;
+  if (psmem > (size_t)SMEM_MAX) return (cudaError_t)ERR_SMEM;
+  const void* fns[2][3] = {
+      {(const void*)mf_step_pixel_kernel<false, STEP_L21>,
+       (const void*)mf_step_pixel_kernel<false, 0>,
+       (const void*)mf_step_pixel_kernel<false, -1>},
+      {(const void*)mf_step_pixel_kernel<true, STEP_L21>,
+       (const void*)mf_step_pixel_kernel<true, 0>,
+       (const void*)mf_step_pixel_kernel<true, -1>}};
+  const int u = a.unary ? 1 : 0, m = mode == STEP_L21 ? 0 : mode == 0 ? 1 : 2;
+  if ((e = set_smem(fns[u][m], psmem)) != cudaSuccess) return e;
+  const dim3 blocks(Z, (a.P + STEP_PIX_THREADS - 1) / STEP_PIX_THREADS);
+  void* args[] = {const_cast<StepArgs*>(&a)};
+  return cudaLaunchKernel(fns[u][m], blocks, dim3(STEP_PIX_THREADS), args,
+                          psmem, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -928,28 +1666,32 @@ const char* crf_error(int code) {
 
 int crf_splat_launch(const float* rgb, int rows, const void* values,
                      int values_bf16, void* out, int out_bf16, int Z, int P,
-                     int L, int nc, float inv_step, void* stream) {
-  if (Z <= 0 || P <= 0 || L <= 0 || nc <= 0 || values_bf16 != out_bf16 ||
-      (rows != 3 && rows != ATTR_ROWS))
+                     int L, int nc, float inv_step, int lg, int pc, int k,
+                     int smem, void* stream) {
+  if (Z <= 0 || P <= 0 || L <= 0 || nc <= 0 ||
+      values_bf16 != out_bf16 || (rows != 3 && rows != ATTR_ROWS) ||
+      (uintptr_t)out % 16)
     return ERR_ARGS;
-  const size_t per_label = (size_t)nc * nc * nc * sizeof(float);
-  if (per_label > (size_t)SMEM_MAX) return ERR_SMEM;
-  const int Lg = label_group(L, per_label, SPLAT_GROUP);
-  const size_t smem = per_label * Lg;
-  const dim3 grid(Z, (L + Lg - 1) / Lg);
+  // the plan (splat_plan in kernels/crf_fused.py): lg labels a block, chunks
+  // of pc pixels, pieces of at most k, its shared memory as laid out here
+  if (lg < 1 || lg > L || pc < 4 || pc % 4 || nc > 1022 ||
+      pc > SPLAT_MAX_PPT * SPLAT_THREADS || k != SPLAT_PIECE ||
+      (size_t)smem != splat_layout(nc, lg, pc).total || smem > SMEM_MAX)
+    return ERR_PLAN;
+  SplatArgs a;
+  a.rgb = rgb; a.vals = values; a.out = out;
+  a.rows = rows; a.P = P; a.L = L; a.nc = nc; a.lg = lg; a.pc = pc;
+  a.inv_step = inv_step;
+  const dim3 grid(Z, (L + lg - 1) / lg);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (values_bf16) {
-    e = set_smem((const void*)splat_kernel<bf16, bf16>, smem);
-    if (e != cudaSuccess) return e;
-    splat_kernel<bf16, bf16><<<grid, 256, smem, st>>>(
-        rgb, rows, (const bf16*)values, (bf16*)out, P, L, nc, inv_step, Lg);
-  } else {
-    e = set_smem((const void*)splat_kernel<float, float>, smem);
-    if (e != cudaSuccess) return e;
-    splat_kernel<float, float><<<grid, 256, smem, st>>>(
-        rgb, rows, (const float*)values, (float*)out, P, L, nc, inv_step, Lg);
-  }
+  const void* fn = values_bf16 ? (const void*)splat_kernel<bf16, bf16>
+                               : (const void*)splat_kernel<float, float>;
+  cudaError_t e = set_smem(fn, smem);
+  if (e != cudaSuccess) return e;
+  if (values_bf16)
+    splat_kernel<bf16, bf16><<<grid, SPLAT_THREADS, smem, st>>>(a);
+  else
+    splat_kernel<float, float><<<grid, SPLAT_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1045,39 +1787,45 @@ int crf_mf_step_launch(const float* attrs, const void* grid, void* scratch,
                        const void* fg, const void* q, void* out, void* out_sub,
                        const void* unary, const float* ctaps, int ntaps,
                        int Z, int P, int L, int nc, int stride, int cs_x,
-                       float inv_step, float cg,
-                       float cb, float n_energy, float p_energy,
+                       int fused, int lb, int splits, int lp, int smem,
+                       float inv_step,
+                       float cg, float cb, float n_energy, float p_energy,
                        void* stream) {
   ColorTaps taps;
   if (!read_color_taps(ctaps, ntaps, &taps) || Z <= 0 || P <= 0 || L < 1 ||
       nc < 1 || stride < 1 ||
       (stride > 1 && (!out_sub || cs_x % stride || P % cs_x)))
     return ERR_ARGS;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = launch_grid_blur<bf16>((const bf16*)grid, (bf16*)scratch, Z,
-                                         L, nc, taps, st);
-  if (e != cudaSuccess) return e;
+  const int ncp = (nc + STEP_SEG - 1) / STEP_SEG * STEP_SEG;
+  // the plan (step_plan in kernels/crf_fused.py): the fused kernel with lb
+  // labels a blur round and `splits` blocks a cell, or the two kernels
+  // with a scratch of lp labels a grid point; its shared memory as laid
+  // out here
+  if ((fused ? (lb < 1 || lb > L || L > STEP_LMAX || splits < 1 ||
+                splits > 65535 ||
+                (size_t)smem != step_fused_smem(nc, L, lb, ncp))
+             : (lp != (L + STEP_LC - 1) / STEP_LC * STEP_LC || !scratch ||
+                (uintptr_t)scratch % 16 ||
+                (size_t)smem != step_blur_smem(nc, ncp))) ||
+      smem > SMEM_MAX)
+    return ERR_PLAN;
+  const StepTaps t = step_taps(taps);
   StepArgs a;
-  a.attrs = attrs; a.gblur = (const bf16*)scratch; a.fg = (const bf16*)fg;
-  a.q = (const bf16*)q; a.out = (bf16*)out;
+  a.attrs = attrs; a.grid = (const bf16*)grid; a.scratch = (bf16*)scratch;
+  a.fg = (const bf16*)fg; a.q = (const bf16*)q; a.out = (bf16*)out;
   a.out_sub = stride > 1 ? (bf16*)out_sub : nullptr;
   a.unary = (const bf16*)unary;
   a.P = P; a.L = L; a.nc = nc; a.stride = stride; a.cs_x = cs_x > 0 ? cs_x : P;
+  a.lb = lb; a.ncp = ncp; a.lp = lp; a.splits = splits;
   a.inv_step = inv_step; a.cg = cg; a.cb = cb; a.n_energy = n_energy;
   a.p_energy = p_energy;
-  const size_t smem = sizeof(float) * (size_t)L * 256;
-  if (smem > (size_t)SMEM_MAX) return ERR_SMEM;
-  const dim3 blocks(Z, (P + 255) / 256);
-  if (unary) {
-    e = set_smem((const void*)mf_step_kernel<true>, smem);
-    if (e != cudaSuccess) return e;
-    mf_step_kernel<true><<<blocks, 256, smem, st>>>(a);
-  } else {
-    e = set_smem((const void*)mf_step_kernel<false>, smem);
-    if (e != cudaSuccess) return e;
-    mf_step_kernel<false><<<blocks, 256, smem, st>>>(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (t.re) {
+    case 1: return launch_step<1>(a, t, Z, fused, smem, st);
+    case 2: return launch_step<2>(a, t, Z, fused, smem, st);
+    case 3: return launch_step<3>(a, t, Z, fused, smem, st);
+    default: return ERR_ARGS;
   }
-  return cudaGetLastError();
 }
 
 int crf_slice_launch(const float* rgb, const float* grid, void* scratch,

@@ -1,17 +1,23 @@
-"""The launch plans of the two redesigned kernels, on the CPU.
+"""The launch plans of the redesigned kernels, on the CPU.
 
-``fused_mbconv``'s plan (``kernels/fused_mbconv.py::mbconv_plan``) and the
-CRF row blur's (``kernels/crf_fused.py::blur_plan``) are plain Python that
-the CUDA launchers check and never recompute differently.  Here: every
+``fused_mbconv``'s plan (``kernels/fused_mbconv.py::mbconv_plan``), the
+CRF row blur's (``kernels/crf_fused.py::blur_plan``), the splat's
+(``splat_plan``) and the mean-field step's (``step_plan``) are plain Python
+that the CUDA launchers check and never recompute differently.  Here: every
 main-path shape fits in a block's 232,448 bytes of shared memory; the tiles,
-warps and label groups cover every output exactly once, ragged edges
-included (the kernels' index arithmetic, mirrored); and the recompute
-factors that the sources' headers state are the plans' own.
+warps, chunks and label groups cover every output exactly once, ragged
+edges included (the kernels' index arithmetic, mirrored); the recompute
+factors that the sources' headers state are the plans' own; the step's
+fused form runs exactly where its grid fits; a numpy model of the splat's
+binning (counting sort, pieces of one key) sums to the plain version; and
+the step's label-innermost scratch maps every grid value once.
 """
 
 import itertools
 
+import numpy as np
 import pytest
+import torch
 
 from deeplab_tpu_torch import crf as CRF
 from deeplab_tpu_torch.crf import dense_crf as DC
@@ -233,3 +239,278 @@ def test_blur_plan_splits_tall_cells_into_even_strips():
     p = CK.blur_plan(1, 1, 1, 512, 512, 3, 33)
     assert p.strips > 1 and p.smem <= LIMIT
     assert p.ty == -(-512 // p.strips)
+
+
+# ---------------------------------------------------------------------------
+# The CRF's splat and mean-field step: launch plans, the splat's binning and
+# the step's label-innermost scratch.
+
+# Every cell geometry the CRF runs, as (Z, P of the splat, P of the step):
+# production 512x512 (64x128 cells, stride 2) at B=8 and B=1; VOC 375x500
+# (75x128, stride 1) and 500x375 (50x128, stride 2) at B=8; resolution_scale
+# 2 at 512x512 (32x40 cells, stride 2); sxy_bilateral=16 (16x16 cells,
+# Z = 1024 an image); the XLA engine's 80x80 cells at stride 1 and 2.
+CRF_GEOMETRIES = [(256, 2048, 8192), (32, 2048, 8192), (160, 9600, 9600),
+                  (240, 1600, 6400), (416, 320, 1280), (1024, 256, 256),
+                  (49, 6400, 6400), (49, 1600, 6400)]
+CRF_LABELS = (1, 2, 5, 21)
+CRF_NC = (9, 13, 15, 21)
+
+
+def test_crf_geometries_are_the_plans():
+    """The table above is what CellPlan and BilateralPlan give."""
+    prod = CRF.PRODUCTION_CONFIG
+    for (h, w), cfg, want in (
+            ((512, 512), prod, (64, 128, 2)), ((375, 500), prod, (75, 128, 1)),
+            ((500, 375), prod, (50, 128, 2)),
+            ((512, 512), CRF.CrfConfig(sxy_bilateral=16.0), (16, 16, 1))):
+        p = DC.CellPlan(8, h, w, cfg.sxy_bilateral, cfg.srgb,
+                        cfg.color_step, cfg.splat_stride)
+        assert (p.cs_y, p.cs_x, p.stride) == want
+        assert (p.P // p.stride ** 2, p.P) in {g[1:] for g in CRF_GEOMETRIES}
+    nc = {DC.CellPlan(1, 512, 512, c.sxy_bilateral, c.srgb, c.color_step).nc
+          for c in (CRF.FAITHFUL_CONFIG, CRF.FAST_FAITHFUL_CONFIG, prod,
+                    CRF.THROUGHPUT_CONFIG)}
+    assert nc == set(CRF_NC)
+
+
+@pytest.mark.parametrize("nc", CRF_NC)
+@pytest.mark.parametrize("L", CRF_LABELS)
+@pytest.mark.parametrize("geom", CRF_GEOMETRIES)
+def test_splat_plan_fits_and_covers_each_pixel_and_label_once(geom, L, nc):
+    Z, P, _ = geom
+    p = CK.splat_plan(Z, P, L, nc)
+    assert p.smem == CK.splat_smem(nc, p.lg, p.pc) <= LIMIT
+    assert p.grid == (Z, p.groups) and p.groups <= 65535
+    # chunks of pc pixels (the kernel's c0 loop), each within the threads'
+    # SPLAT_MAX_PPT pixels a thread
+    pixels = [c0 + i for c0 in range(0, P, p.pc)
+              for i in range(min(p.pc, P - c0))]
+    assert pixels == list(range(P))
+    assert p.pc % 4 == 0 and p.pc <= CK.SPLAT_MAX_PPT * CK.SPLAT_THREADS
+    # label groups l0 = g*lg, min(lg, L - l0) labels each
+    labels = [g * p.lg + i for g in range(p.groups)
+              for i in range(min(p.lg, L - g * p.lg))]
+    assert labels == list(range(L))
+    # pieces (first | len << 16) and the scan's packed counts fit 16 bits
+    assert 1 <= p.k <= p.pc < 1 << 16
+
+
+def test_splat_plan_at_production():
+    """B=8: two groups of 11 and 10 labels, chunks of 1024 pixels, one
+    block an SM; the norm pass one chunk of the cell's 2048; B=1: more
+    groups, so that the blocks still fill the card."""
+    p = CK.splat_plan(256, 2048, 21, 15)
+    assert (p.lg, p.groups, p.pc) == (11, 2, 1024)
+    assert 2 * (p.smem + 1024) > 233472
+    assert (CK.splat_plan(256, 2048, 1, 15).pc,
+            CK.splat_plan(256, 2048, 1, 15).groups) == (2048, 1)
+    p1 = CK.splat_plan(32, 2048, 21, 15)
+    assert p1.groups * 32 >= CK.SPLAT_SLOTS
+
+
+@pytest.mark.parametrize("nc", CRF_NC)
+@pytest.mark.parametrize("L", list(range(1, 41)))
+def test_step_plan_sends_exactly_the_grids_that_do_not_fit(L, nc):
+    C = nc * nc
+    ncp = -(-nc // 8) * 8
+    grid = -(-2 * (nc * L * C + 8) // 16) * 16
+    fits = L <= CK.STEP_LMAX and grid + 4 * nc * nc * ncp <= LIMIT
+    p = CK.step_plan(256, 8192, nc, L)
+    assert p.fused == fits == CK.step_fits(nc, L)
+    if p.fused:
+        assert p.smem == CK.step_fused_smem(nc, L, p.lb) <= LIMIT
+        # blur rounds of lb labels cover every label once
+        labels = [l0 + i for l0 in range(0, L, p.lb)
+                  for i in range(min(p.lb, L - l0))]
+        assert labels == list(range(L))
+    else:
+        assert p.smem == CK.step_blur_smem(nc) <= LIMIT
+        assert p.lp >= L and p.lp % 4 == 0 and p.lp - L < 4
+        # the pixel pass's logits: registers, or L x 256 f32 in shared memory
+        assert L <= CK.STEP_LMAX or 4 * L * 256 <= LIMIT
+
+
+@pytest.mark.parametrize("nc", CRF_NC)
+@pytest.mark.parametrize("L", CRF_LABELS)
+@pytest.mark.parametrize("geom", CRF_GEOMETRIES)
+def test_step_plan_splits_cover_each_pixel_once(geom, L, nc):
+    """Block (z, s) of the fused kernel takes the pixel chunks s, s +
+    splits, ... of step_threads(L) pixels: together every pixel once; a
+    cell takes several blocks only where the cells are fewer than the
+    card's STEP_SLOTS, and never more blocks than it has chunks."""
+    Z, _, P = geom
+    p = CK.step_plan(Z, P, nc, L)
+    if not p.fused:
+        return
+    T = CK.step_threads(L)
+    assert T == (1024 if L == 21 else 512)
+    pixels = sorted(c0 + i for s in range(p.splits)
+                    for c0 in range(s * T, P, T * p.splits)
+                    for i in range(min(T, P - c0)))
+    assert pixels == list(range(P))
+    chunks = -(-P // T)
+    assert 1 <= p.splits <= max(1, chunks)
+    if Z >= CK.STEP_SLOTS:
+        assert p.splits == 1
+    else:
+        assert Z * p.splits >= min(CK.STEP_SLOTS, Z * chunks)
+
+
+def test_step_plan_at_the_configs():
+    """nc 15 with 21 labels (production, B=8) fuses: one block a cell, 6
+    labels a blur round; at B=1 five blocks a cell; nc 21 with 21 labels
+    (faithful, a 389 KB grid) takes two kernels."""
+    p = CK.step_plan(256, 8192, 15, 21)
+    assert (p.fused, p.lb, p.splits) == (True, 6, 1)
+    assert p.smem <= LIMIT and 15 * 21 * 225 * 2 == 141750
+    assert CK.step_plan(32, 8192, 15, 21).splits == 5
+    assert not CK.step_plan(256, 8192, 21, 21).fused
+    assert 21 * 21 * 441 * 2 > LIMIT
+    two = CK.two_kernel_step_plan(15, 21)
+    assert not two.fused and two.lp == 24
+
+
+def _hat_np(c):
+    """The kernels' hat(): base bin floor(c) and the weights of it and the
+    next bin, in f32."""
+    c = c.astype(np.float32)
+    f = np.floor(c)
+    one = np.float32(1)
+    w0 = np.maximum(one - np.abs(f - c), 0).astype(np.float32)
+    w1 = np.maximum(one - np.abs((f + one) - c), 0).astype(np.float32)
+    return f.astype(np.int64), w0, w1
+
+
+def _bf_np(x):
+    return CK._bf(torch.from_numpy(np.asarray(x, np.float32))).numpy()
+
+
+def _splat_model(rgb, values, nc, inv_step, k):
+    """The splat kernel's arithmetic in numpy, one cell (rows, P) and its
+    values (L, P): keys, a counting sort into pieces of at most k, per
+    (piece, label) the 8 corner sums in sorted order, then one add a corner.
+    Returns (grid (nc*L, nc^2) f32, order, pieces, keys)."""
+    nk = nc + 1
+    L, P = values.shape
+    coords = (rgb[:3] * np.float32(inv_step)).astype(np.float32)
+    ok = np.all((coords >= -1) & (coords < nc), axis=0)
+    (ir, wr0, wr1), (ig, wg0, wg1), (ib, wb0, wb1) = (
+        _hat_np(coords[i]) for i in range(3))
+    keys = np.where(ok, ((ib + 1) * nk + ir + 1) * nk + ig + 1, -1)
+    # counting sort: a histogram, its exclusive scan, a scatter
+    hist = np.bincount(keys[ok], minlength=nk ** 3)
+    start = np.concatenate([[0], np.cumsum(hist)[:-1]])
+    order = np.empty(int(ok.sum()), np.int64)
+    fill = start.copy()
+    for p in np.nonzero(ok)[0]:
+        order[fill[keys[p]]] = p
+        fill[keys[p]] += 1
+    pieces = [(key, int(start[key]) + i, int(min(k, hist[key] - i)))
+              for key in np.nonzero(hist)[0] for i in range(0, hist[key], k)]
+    scale = rgb[CK.ATTR_BSCALE] if rgb.shape[0] == CK.ATTR_ROWS else 1.0
+    vb = _bf_np(values * np.float32(1) * scale)                  # (L, P)
+    wrg = [_bf_np(a * b) for a in (wr0, wr1) for b in (wg0, wg1)]
+    wb = [_bf_np(wb0), _bf_np(wb1)]
+    grid = np.zeros((nc, L, nc * nc), np.float32)
+    firsts = np.array([f for _, f, _ in pieces], np.int64)
+    for kb in range(2):
+        t = _bf_np(vb * wb[kb])                                  # (L, P)
+        for j in range(4):
+            terms = (t * wrg[j])[:, order].astype(np.float32)   # exact
+            sums = np.add.reduceat(terms, firsts, axis=1)       # per piece
+            for n, (key, _, _) in enumerate(pieces):
+                b = key // (nk * nk) - 1 + kb
+                r = (key // nk) % nk - 1 + j // 2
+                g = key % nk - 1 + j % 2
+                if 0 <= b < nc and 0 <= r < nc and 0 <= g < nc:
+                    grid[b, :, r * nc + g] += sums[:, n]
+    return grid.reshape(nc * L, nc * nc), order, pieces, keys
+
+
+def _cells(kind, Z, P, seed):
+    """Packed attrs planes (Z, 8, P) of seeded 32x64 cells: one color,
+    uniform noise, or the committed CRF scenes."""
+    rs = np.random.RandomState(seed)
+    if kind == "flat":
+        rgb = np.full((Z, 3, P), 131.0, np.float32)
+    elif kind == "noise":
+        rgb = rs.uniform(0, 255, (Z, 3, P)).astype(np.float32)
+    else:
+        from crf_scenes import make_scene
+        im, _ = make_scene(64, 128, 5, seed)
+        rgb = np.stack([im[32 * (z // 2):32 * (z // 2) + 32,
+                           64 * (z % 2):64 * (z % 2) + 64].reshape(P, 3).T
+                        for z in range(Z)]).astype(np.float32)
+    attrs = np.zeros((Z, CK.ATTR_ROWS, P), np.float32)
+    attrs[:, :3] = rgb
+    attrs[:, CK.ATTR_BSCALE] = rs.uniform(0.5, 4.0, (Z, P))
+    return attrs
+
+
+@pytest.mark.parametrize("kind", ["flat", "noise", "structured"])
+def test_splat_binning_model_matches_the_plain_version(kind):
+    Z, P, L, nc = 2, 2048, 3, 15
+    inv_step = 1.0 / 19.5
+    k = CK.splat_plan(Z, P, L, nc).k
+    attrs = _cells(kind, Z, P, 11)
+    rs = np.random.RandomState(12)
+    q = _bf_np(rs.rand(Z, L, P))
+    valid = np.ones((Z, 1, P), np.float32)
+    for rows, vals, dtype in ((attrs[:, :3], valid, torch.float32),
+                              (attrs, q, torch.bfloat16)):
+        want = CK.splat_planes_reference(
+            torch.from_numpy(np.ascontiguousarray(rows)),
+            torch.from_numpy(vals).to(dtype), nc=nc, L=vals.shape[1],
+            inv_step=inv_step, out_dtype=dtype).float().numpy()
+        for z in range(Z):
+            grid, order, pieces, keys = _splat_model(
+                rows[z], vals[z], nc, inv_step, k)
+            # every pixel in exactly one piece; no piece mixes keys or
+            # passes k pixels
+            covered = np.concatenate([order[f:f + n] for _, f, n in pieces])
+            assert sorted(covered) == list(range(P))
+            for key, f, n in pieces:
+                assert 1 <= n <= k and set(keys[order[f:f + n]]) == {key}
+            if kind == "flat":
+                assert len(pieces) == P // k
+            if dtype == torch.bfloat16:
+                grid = _bf_np(grid)
+                rel = CK.PLAIN_BF16_REL
+            else:
+                rel = CK.PLAIN_F32_REL
+            err = np.abs(grid - want[z]).max()
+            assert err <= rel * np.abs(want[z]).max(), (kind, z, err)
+
+
+def test_step_scratch_index_map_round_trips():
+    """The two-kernel form's blurred grid lies in chunks of 4 labels, each
+    label-innermost, [chunk][b][r][g][4]: element (d = b*L + l, c) of the
+    (D, C) grid lives at ((l // 4) * nc^3 + b*C + c) * 4 + l % 4, and a
+    pixel's corner offsets (the source's corners(): b*bstride + (r*nc +
+    g)*cstride, here 4*C and 4) address the same values in both layouts,
+    label l adding l*C in one and its chunk's nc^3 * 4 plus l % 4 in the
+    other."""
+    nc, L = 15, 21
+    C, lp = nc * nc, CK.two_kernel_step_plan(nc, L).lp
+    n3 = nc * C
+    grid = np.random.RandomState(3).rand(nc * L, C).astype(np.float32)
+    scratch = np.full(n3 * lp, np.nan, np.float32)
+    b, l, c = np.meshgrid(np.arange(nc), np.arange(L), np.arange(C),
+                          indexing="ij")
+    idx = ((l // 4) * n3 + b * C + c) * 4 + l % 4
+    assert len(np.unique(idx)) == idx.size and idx.max() < scratch.size
+    scratch[idx] = grid[b * L + l, c]
+    # the inverse map recovers (b, l, c)
+    chunk, rest = idx // (4 * n3), idx % (4 * n3)
+    assert (chunk * 4 + rest % 4 == l).all()
+    assert (rest // 4 // C == b).all() and (rest // 4 % C == c).all()
+    back = np.empty_like(grid)
+    back[b * L + l, c] = scratch[idx]
+    assert np.array_equal(back, grid)
+    for cb, cr, cg in itertools.product(range(nc), repeat=3):
+        dc_off = cb * L * C + cr * nc + cg
+        li_off = cb * C * 4 + (cr * nc + cg) * 4
+        for lab in (0, 3, 4, 7, 8, L - 1):
+            assert (scratch[(lab // 4) * n3 * 4 + li_off + lab % 4]
+                    == grid.reshape(-1)[dc_off + lab * C])

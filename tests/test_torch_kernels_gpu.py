@@ -30,6 +30,12 @@ reference-API CRF the same way: ``slice_planes`` (tolerance 2 bf16 ulps)
 and the splat through the XLA engine, the explicit-unary step through the
 plane engine's ``mean_field``, each with exact launch counts.
 
+The splat on flat, noise and structured cells at every label count and
+grid size of the configs, both value types; the step in both forms (fused,
+and two kernels) on the same recorded inputs, held to the plain version and
+to each other bit for bit, at both strides, both unary forms and both
+dispatches; a launch that fails or a plan the launcher rejects raises.
+
 The spatial blur's y and x passes against their plain versions (2 bf16
 ulps; both sum the taps in the same order and should agree bit for bit) at
 the VOC cell heights 75, 50 and 72, radii 20 and 32, ragged label counts and
@@ -657,3 +663,165 @@ def test_explicit_unary_step_matches_reference(cuda, name, H, W, L):
                      "slice_planes": 0}, moved
     agree = (q.argmax(-1) == q_plain.argmax(-1)).float().mean().item()
     assert agree >= 0.99, agree
+
+
+# ---------------------------------------------------------------------------
+# The redesigned splat and mean-field step (sorted pieces; the fused and the
+# two-kernel step).
+
+def _splat_cells(kind, Z, P, seed):
+    """(Z, 8, P) packed attrs planes of one color, of uniform noise, or of
+    the committed CRF scenes (their first 32x64 pixels per cell)."""
+    rs = np.random.RandomState(seed)
+    if kind == "flat":
+        rgb = np.full((Z, 3, P), 131.0, np.float32)
+    elif kind == "noise":
+        rgb = rs.uniform(0, 255, (Z, 3, P)).astype(np.float32)
+    else:
+        rgb = np.stack([make_scene(64, 128, 5, seed + z)[0][:32, :64]
+                        .reshape(P, 3).T for z in range(Z)])
+    attrs = np.zeros((Z, CK.ATTR_ROWS, P), np.float32)
+    attrs[:, :3] = rgb
+    attrs[:, CK.ATTR_BSCALE] = rs.uniform(0.5, 4.0, (Z, P))
+    return attrs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("values", ["f32", "bf16"])
+@pytest.mark.parametrize("nc", [9, 13, 15, 21])
+@pytest.mark.parametrize("L", [1, 2, 5, 21])
+@pytest.mark.parametrize("kind", ["flat", "noise", "structured"])
+def test_splat_on_flat_noise_and_structured_cells(cuda, kind, L, nc,
+                                                  values):
+    """f32 values with rgb planes (the norm pass) or bf16 values with packed
+    attrs planes (the iterations), on 3 cells of 2048 pixels."""
+    Z, P = 3, 2048
+    inv_step = (nc - 1.5) / 255.0
+    attrs = _splat_cells(kind, Z, P, 7)
+    rs = np.random.RandomState(8)
+    if values == "f32":
+        rgb = torch.from_numpy(np.ascontiguousarray(attrs[:, :3])).to(cuda)
+        v = torch.from_numpy(rs.rand(Z, L, P).astype(np.float32)).to(cuda)
+        dt = torch.float32
+    else:
+        rgb = torch.from_numpy(attrs).to(cuda)
+        v = torch.from_numpy(rs.rand(Z, L, P).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+        dt = torch.bfloat16
+    kw = dict(nc=nc, L=L, inv_step=inv_step, out_dtype=dt)
+    before = CK.splat_planes.launches
+    got = CK.splat_planes(rgb, v, **kw)
+    want = CK.splat_planes_reference(rgb, v, **kw)
+    torch.cuda.synchronize()
+    assert CK.splat_planes.launches == before + 1
+    err, ok = CK.max_err_vs_plain("splat_planes", got, want)
+    assert ok, (kind, L, nc, values, err)
+
+
+def _step_calls(cuda, cfg, H, W, L, unary):
+    """The step's calls of a CRF run with the plain versions: (args, kw,
+    out), through mean_field_batched or, with the explicit unary, through
+    mean_field."""
+    scenes = [make_scene(H, W, L, seed) for seed in (1, 2)]
+    with CK.plain_versions() as calls:
+        if unary:
+            im, mask = scenes[0]
+            U = CRF.dense_crf.unary_from_labels(
+                torch.from_numpy(mask).reshape(-1), L, 0.7,
+                zero_unsure=False)
+            CRF.mean_field(torch.from_numpy(im).to(cuda), U.to(cuda), cfg, L)
+        else:
+            imgs = torch.from_numpy(np.stack([s[0] for s in scenes]))
+            masks = torch.from_numpy(np.stack([s[1] for s in scenes]))
+            CRF.mean_field_batched(imgs.to(cuda), masks.to(cuda), cfg, L)
+    return calls["mf_step_planes"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,H,W,L,unary,fused", [
+    # nc 15, stride 2 (4 calls with the subsampled copy, the last without):
+    # the 21-label instantiation, then the run-time label count
+    (CRF.PRODUCTION_CONFIG, 128, 256, 21, False, True),
+    (CRF.PRODUCTION_CONFIG, 128, 256, 11, False, True),
+    # nc 21: 5 labels fuse, 21 labels (a 389 KB grid) take two kernels
+    (CRF.FAITHFUL_CONFIG, 64, 256, 5, False, True),
+    (CRF.FAITHFUL_CONFIG, 64, 256, 21, False, False),
+    # the explicit-unary form, one image (Z < the SMs: several blocks a cell)
+    (CRF.PRODUCTION_CONFIG, 80, 120, 11, True, True),
+    (CRF.CrfConfig(), 128, 256, 21, True, False),
+    (CRF.CrfConfig(), 128, 256, 5, True, True),
+    # 40 labels: past the registers' 32, two kernels, logits in shared memory
+    (CRF.THROUGHPUT_CONFIG, 64, 128, 40, False, False),
+])
+def test_step_forms_match_reference_and_each_other(cuda, cfg, H, W, L,
+                                                   unary, fused):
+    calls = _step_calls(cuda, cfg, H, W, L, unary)
+    assert len(calls) == cfg.n_iters
+    strides = set()
+    for args, kw, want in calls:
+        assert (args[4] is not None) == unary
+        Z, _, P = args[0].shape
+        plan = CK.step_plan(Z, P, kw["nc"], L)
+        assert plan.fused == fused
+        strides.add(kw["sub_stride"])
+        before = CK.mf_step_planes.launches
+        got = CK.mf_step_planes(*args, **kw)
+        two = CK.mf_step_with_plan(
+            CK.two_kernel_step_plan(kw["nc"], L), *args, **kw)
+        torch.cuda.synchronize()
+        assert CK.mf_step_planes.launches == before + 2
+        for out in (got, two):
+            err, ok = CK.max_err_vs_plain("mf_step_planes", out, want)
+            assert ok, (L, unary, err)
+        # one summation order in both forms: equal bit for bit
+        assert all(torch.equal(a, b) for a, b in zip(got, two))
+    assert strides == {1, cfg.splat_stride}
+
+
+@pytest.mark.gpu
+def test_splat_and_step_raise_instead_of_falling_back(cuda, monkeypatch):
+    """A launch the library reports as failed, or a plan its launcher does
+    not reproduce, raises; the count of launches does not move and no plain
+    version runs in the kernel's place."""
+    attrs = torch.from_numpy(_splat_cells("noise", 2, 256, 3)).to(cuda)
+    v = torch.rand(2, 3, 256, device=cuda).to(torch.bfloat16)
+    kw = dict(nc=15, L=3, inv_step=1 / 19.5, out_dtype=torch.bfloat16)
+    real = CK.splat_plan(2, 256, 3, 15)
+    bad = dataclasses.replace(real, smem=real.smem + 16)
+    monkeypatch.setattr(CK, "splat_plan", lambda *a: bad)
+    before = CK.splat_planes.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CK.splat_planes(attrs, v, **kw)
+    assert CK.splat_planes.launches == before
+    monkeypatch.undo()
+
+    calls = _step_calls(cuda, CRF.PRODUCTION_CONFIG, 64, 128, 5, False)
+    args, skw, _ = calls[0]
+    Z, _, P = args[0].shape
+    plan = CK.step_plan(Z, P, skw["nc"], 5)
+    before = CK.mf_step_planes.launches
+    for wrong in (dataclasses.replace(plan, smem=plan.smem + 16),
+                  dataclasses.replace(CK.two_kernel_step_plan(skw["nc"], 5),
+                                      lp=8 + 4)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            CK.mf_step_with_plan(wrong, *args, **skw)
+    assert CK.mf_step_planes.launches == before
+
+    class FailedLaunch:               # the library reports a launch error
+        @staticmethod
+        def crf_mf_step_launch(*a):
+            return 9                  # cudaErrorInvalidConfiguration
+
+        @staticmethod
+        def crf_splat_launch(*a):
+            return 9
+
+        @staticmethod
+        def crf_error(code):
+            return b"invalid configuration argument"
+    monkeypatch.setattr(CK, "_lib", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CK.mf_step_planes(*args, **skw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CK.splat_planes(attrs, v, **kw)
+    assert CK.mf_step_planes.launches == before
