@@ -114,7 +114,12 @@ that ``fused_mbconv``'s launch plan may choose at each main-path block shape
 only the splat and the step on those scenes (phase 7's), through the
 wrappers' public API: a copy of this file run from the root of another
 checkout (a parent commit) times that checkout's kernels, for a comparison
-in one call.
+in one call.  ``--train-phases`` does the same for the training block's
+five phases: each held to its plain version and timed (CUDA events, and
+device time in a CUDA graph) beside its bound at every block shape of the
+net at B=16, per step, with a ``torch.profiler`` split of B34 by kernel.
+``--train-plan-sweep`` times every tile and chunk that the halo phases'
+launch plan (``train_plan``) may choose at those shapes.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -652,6 +657,146 @@ def plan_sweep() -> int:
     return 0
 
 
+def train_block_calls(dev, B, H, W, cin, ce, cout, rate, skip, seed):
+    """One training block forward and backward at B with seeded weights,
+    every phase through its plain version on ``dev``: the recorded
+    {phase: [(args, kw, out)]}, one call each."""
+    import numpy as np
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    r = np.random.RandomState(seed)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (r.randn(*s) * sc).astype(np.float32)).to(dev)
+    x = t(B, H, W, cin).to(torch.bfloat16).requires_grad_()
+    w = [t(cin, ce, sc=0.3), 1 + t(ce, sc=0.1), t(ce, sc=0.1),
+         t(9, ce, sc=0.3), 1 + t(ce, sc=0.1), t(ce, sc=0.1),
+         t(ce, cout, sc=0.2), 1 + t(cout, sc=0.1), t(cout, sc=0.1)]
+    w = [v.requires_grad_() for v in w]
+    with FMT.plain_versions() as calls:
+        out, _ = FMT.block_train(x, *w, rate=rate, skip=skip)
+        (out.float() * t(B, H, W, cout)).sum().backward()
+    return calls
+
+
+def train_phase_times(card) -> dict:
+    """``--train-phases``: each training phase per launch at every block
+    shape of the net at B=16, seeded inputs from the plain versions, held to
+    its plain version, timed with CUDA events and as device time in a CUDA
+    graph beside its bound; per step (each shape times its block count);
+    and a ``torch.profiler`` split of B34 by kernel name.  Only the
+    wrappers' public API is used, so a copy of this file run from the root
+    of a parent checkout times that checkout's kernels.  The counts of
+    launches move; callers restore them."""
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    from deeplab_tpu_torch.models import mobilenetv2 as M
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    step = {n: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+            for n in FMT.PHASES}
+    failed = []
+    for ids, cin, ce, cout, rate, skip, st in fused_shapes(M):
+        H = W = SIZE // st
+        calls = train_block_calls(dev, TRAIN_B, H, W, cin, ce, cout, rate,
+                                  skip, SEED + 600 + ids[0])
+        row = []
+        for name in FMT.PHASES:
+            kernel = getattr(FMT, name)
+            args, kw, want = calls[name][0]
+            with torch.no_grad():
+                got = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                _, rel, ok = FMT.max_err_vs_plain(got, want)
+                if not ok:
+                    failed.append(f"{name} at blocks {ids}: (abs, rel) by "
+                                  f"output " + str([
+                                      FMT.max_err_vs_plain(g, w)[:2]
+                                      for g, w in zip(got, want)]))
+                del got
+                ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+                dev_ms = graph_ms(lambda: kernel(*args, **kw), iters=5)
+            bms, _ = train_bound_ms(name, args, want)
+            for k, v in (("ms", ms), ("device_ms", dev_ms),
+                         ("bound_ms", bms)):
+                step[name][k] += len(ids) * v
+            row.append(f"{name} {ms:.4f} (device {dev_ms:.4f}, bound "
+                       f"{bms:.4f}{'' if ok else ', FAILS its plain version'}"
+                       f", rel {rel:.2e})")
+        args, kw, _ = calls["b34"][0]
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CUDA]) as pr:
+            for _ in range(3):
+                FMT.b34(*args, **kw)
+            torch.cuda.synchronize()
+        split = sorted(((e.key.replace("(anonymous namespace)::", "")
+                         .split("(")[0][:40],
+                         e.self_device_time_total / 3e3)
+                        for e in pr.key_averages()
+                        if e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+        print(f"  train phases, blocks {ids} {cin}->{ce}->{cout} rate {rate} "
+              f"{TRAIN_B}x{H}x{W}, ms a launch: " + "; ".join(row)
+              + "; B34 by kernel (device ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split)
+              + f" [{card}]", flush=True)
+        del calls
+    for name in FMT.PHASES:
+        s = step[name]
+        print(f"  train phase {name} per step ({TRAIN_PER_STEP} launches, "
+              f"B={TRAIN_B}): {s['ms']:.4f} ms (device {s['device_ms']:.4f}),"
+              f" bound {s['bound_ms']:.4f} ms [{card}]", flush=True)
+    if failed:
+        raise AssertionError("phases that disagree with their plain "
+                             "versions: " + "; ".join(failed))
+    return step
+
+
+def train_plan_sweep(card) -> int:
+    """``--train-plan-sweep``: every (tile, chunk) that ``train_plan`` may
+    choose for F2 and B34, forced, held to the plain version and timed
+    (device time in a CUDA graph) at each block shape of the net at B=16,
+    beside the plan's choice and its cost model's estimate."""
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    from deeplab_tpu_torch.models import mobilenetv2 as M
+    dev = torch.device("cuda")
+    tiles, chunks = FMT.TRAIN_TILES, FMT.TRAIN_CHUNKS
+    bad = []
+    for ids, cin, ce, cout, rate, skip, st in fused_shapes(M):
+        H = W = SIZE // st
+        calls = train_block_calls(dev, TRAIN_B, H, W, cin, ce, cout, rate,
+                                  skip, SEED + 600 + ids[0])
+        for name in ("f2", "b34"):
+            args, kw, want = calls[name][0]
+            kernel = getattr(FMT, name)
+            chosen = FMT.train_plan(name, TRAIN_B, H, W, cin, ce, cout, rate)
+            for tile in tiles:
+                for ck in chunks:
+                    FMT.TRAIN_TILES, FMT.TRAIN_CHUNKS = (tile,), (ck,)
+                    FMT.train_plan.cache_clear()
+                    try:
+                        p = FMT.train_plan(name, TRAIN_B, H, W, cin, ce, cout,
+                                           rate)
+                    except ValueError:
+                        continue
+                    with torch.no_grad():
+                        ok = FMT.max_err_vs_plain(kernel(*args, **kw),
+                                                  want)[2]
+                        ms = graph_ms(lambda: kernel(*args, **kw), iters=5)
+                    if not ok:
+                        bad.append((name, ids, tile, ck))
+                    mark = ("  <- plan" if (p.th, p.tw, p.ck) == (
+                        chosen.th, chosen.tw, chosen.ck) else "")
+                    print(f"  {name} blocks {ids} {cin}->{ce} rate {rate} "
+                          f"{TRAIN_B}x{H}x{W}: {tile[0]}x{tile[1]} chunk {ck}"
+                          f" stages {p.stages}: {ms:.4f} ms"
+                          f"{'' if ok else ' FAILS its plain version'}, "
+                          f"estimate {p.est_clk:.0f} clk{mark} [{card}]",
+                          flush=True)
+            FMT.TRAIN_TILES, FMT.TRAIN_CHUNKS = tiles, chunks
+            FMT.train_plan.cache_clear()
+        del calls
+    print(card)
+    return 1 if bad else 0
+
+
 def crf_scene_batches(dev):
     """(name, images, masks) at PRODUCTION_CONFIG's serving batch: the
     structured 512x512 scenes, one flat color (every pixel of a cell on one
@@ -733,6 +878,19 @@ def main() -> int:
         card = card_line()
         build.build(["crf_fused"])
         crf_scene_times(card)
+        print(card)
+        return 0
+    if "--train-plan-sweep" in sys.argv[1:]:
+        from deeplab_tpu_torch.kernels import build
+        build.build(["fused_mbconv_train"])
+        return train_plan_sweep(card_line())
+    if "--train-phases" in sys.argv[1:]:
+        from deeplab_tpu_torch.kernels import build
+        card = card_line()
+        for kern, info in ptxas_table(
+                build.build(["fused_mbconv_train"])["fused_mbconv_train"]):
+            print(f"  [fused_mbconv_train] {kern}: {info}")
+        train_phase_times(card)
         print(card)
         return 0
     import numpy as np

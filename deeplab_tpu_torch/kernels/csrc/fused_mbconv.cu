@@ -131,55 +131,14 @@ __host__ inline int smem_layout(Args& a, int ck) {
 
 using mbconv::relu6;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Swizzles: the x tile, e and the w1 stages have unpadded rows, their
-// 16-byte chunks (8 floats for e) permuted by row so that the 8 rows an
-// ldmatrix phase reads, and the 4 rows a half-warp's float2 stores write,
-// fall in distinct banks.
-// w1 stage row k of CK bf16: chunk c at c ^ w1_swz(k).
-template <int CK>
-__device__ __forceinline__ int w1_swz(int k) {
-  return CK == 32 ? (k >> 1) & 3 : (k >> 2) & 1;
-}
-// e row R of CK floats: float column c at c ^ e_swz(R).
-template <int CK>
-__device__ __forceinline__ int e_swz(int R) {
-  return CK == 32 ? (R & 3) << 3 : ((R >> 1) & 1) << 3;
-}
-// x tile row R: 16-byte chunk c at c ^ xs_swz(R) where the row has 4 (mod
-// 8) chunks of 16 bytes (cin_p = 32, 96, 160, ...; swz set), else at c in
-// a row padded by one chunk.
-__device__ __forceinline__ int xs_chunk(int swz, int R, int c) {
-  return swz ? c ^ ((R >> 1) & 3) : c;
-}
-
-// 16-byte async copy; bytes < 16 zero-fill the rest (0: all zero, no read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+using mbconv::cp16;
+using mbconv::cp_commit;
+using mbconv::cp_wait;
+using mbconv::e_swz;
+using mbconv::ldm_x4;
+using mbconv::ldm_x4_t;
+using mbconv::w1_swz;
+using mbconv::xs_chunk;
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {

@@ -23,26 +23,66 @@
 // the bf16 products lie above the card's ~295 flop/byte ridge, while F3 and
 // the saved-tensor reads sit below it: each phase's bound is the larger of
 // its bytes at 3.35 TB/s and its flops at 989 (bf16) and 67 (f32) TFLOP/s.
+// The halo phases F2 and B34 stay far above that bound (about 12x, PERF.md),
+// held there by shared memory rather than by device memory: each chunk of
+// Ce re-reads the tile's x box through ldmatrix for the expand (the TPU
+// design recomputes the expand rather than save a Ce-wide tensor, and so
+// does this one), and the taps read aq and dd nine times a value, phases
+// that run between barriers with one block of 16 warps per SM (measured
+// per chunk: taps and expand about even at rate 4, the taps two thirds of
+// it at rates 1 and 2).
 //
-// Design (simple first, no TMA/wgmma/pipelining).  The TPU phases walk 8-row
-// planes with a VMEM-resident accumulator carried across a sequential grid;
-// here blocks run in any order, so:
-//   - halo phases (F2, B34) give each block one 8x8 output tile of one image,
-//     stage x with a +-rate halo once as bf16, and walk Ce in chunks of 32
-//     (expand with mma.sync bf16 / f32 accumulate -> shared memory -> taps in
-//     f32), as fused_mbconv.cu does; B34 accumulates dx over all of Ce in f32
-//     registers and rounds once;
+// Design.  The TPU phases walk 8-row planes with a VMEM-resident accumulator
+// carried across a sequential grid; here blocks run in any order, so:
+//   - the halo phases F2 and B34 take the toolbox of fused_mbconv.cu.  A
+//     launch plan in plain Python (train_plan in kernels/fused_mbconv_train.py)
+//     picks the output tile (16x16, 8x16 or 8x8), the chunk of Ce (32 or 16)
+//     and the ring depth (2 or 3) per shape and phase; the launcher refuses a
+//     plan whose shared memory lay_halo does not reproduce.  A block of 16
+//     warps per (tile, image) expands only the tile's in-image halo box,
+//     packed into whole m-tiles of 16 pixels, so the zero padding costs no
+//     tensor-core work and dd is read only inside the image.  Expanded
+//     pixels per output pixel on a 64x64 map (train_halo): rate 1 1.25x at
+//     16x16; rate 2 1.44x at 16x16; rate 4 1.89x at 16x16 and 2.58x at 8x16
+//     (fixed 8x8 tiles over full boxes would expand 1.56x, 2.25x, 4.00x).
+//     The rate-4 blocks (Cin = 160) fit F2 at 16x16 and B34 at 8x16, both in
+//     chunks of 16;
+//   - every copy is a 16-byte cp.async (8 bytes for dq's rows): the x tile
+//     once per block, each chunk's w1 slice (contiguous runs of (Cin, Ce),
+//     read k-major by ldmatrix.trans, no repacking), taps and per-channel
+//     vectors through the ring, chunk c + 1's dd rows while chunk c + 1's
+//     expand runs; the thread that copies a dd quad converts it (dd =
+//     a2*ddh + m0 + m1*dq), so that needs no barrier of its own;
+//   - the expand runs on mma.sync m16n8k16 fed by ldmatrix from XOR-swizzled
+//     tiles (the x tile, the w1 stages);
+//   - aq is held as bf16 (relu6 of a bf16 value is one), dd as f32, in
+//     unpadded rows: a warp's taps read neighbouring box rows, which then
+//     fall in disjoint banks.  A tap table built once per block holds each
+//     tap's row offset (the zero row outside the image), two 16-byte loads
+//     a pixel.  F2 takes four channels a thread, B34 (eleven sums a
+//     channel) two; the tile's sums are added in registers, across the
+//     lanes of a warp by fixed shuffles and across the warps in warp order:
+//     one partial per (tile, channel) and a second pass, no atomics;
+//   - two barriers a chunk: [taps of chunk c] [their sums into the partials,
+//     the expand of chunk c + 1 (B34: with its dd copied and converted),
+//     chunk c + S's stage copied];
+//   - B34 writes dvl = q(a1*dv1) (pixels x Ce, bf16) and leaves its two
+//     products to GEMM kernels that read dvl, x and w1 as they lie, with
+//     ldmatrix (.trans where the operand is pixel-major) from cp.async rings:
+//     dx = dvl @ w1^T (128 pixels a block; holding dx's accumulator through
+//     the taps cost the halo kernel its registers) and dW1^T = dvl^T x (128
+//     channels a block over pixel splits), each warp two m-tiles and half
+//     of Cin;
 //   - pixel-local phases (F1, F3) take groups of 64 consecutive pixels;
-//   - weight gradients (dW2 in B2, dW1^T after B34) give each block a chunk of
-//     32 expanded channels and a strided share of the pixel groups, with the
-//     chunk's gradient in registers;
+//   - dW2 in B2 gives each block a chunk of 32 expanded channels and a
+//     strided share of the pixel groups, with the chunk's gradient in
+//     registers;
 //   - every sum over pixels is written as per-block partials and reduced by a
 //     second pass in a fixed order: no float atomics, so results repeat bit for
 //     bit from run to run.
 // B2 first writes gyq = q(gy) once (pixels x Cout, bf16), then reads it by
 // 16-byte copies in every chunk; it saves ddh (f32) so that B34 needs neither
-// g nor y_raw nor a second product with w2 on its halo; B34 saves q(a1*dv1)
-// for the dW1^T product.  Built with
+// g nor y_raw nor a second product with w2 on its halo.  Built with
 // -fmad=false: the elementwise chains round where the plain versions round.
 
 #include <cuda_bf16.h>
@@ -56,14 +96,22 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using mbconv::cp16;
+using mbconv::cp8;
+using mbconv::cp_commit;
+using mbconv::cp_wait;
 using mbconv::for_each_acc;
+using mbconv::ldm_x4;
+using mbconv::ldm_x4_t;
+using mbconv::mma16816;
 using mbconv::mma_tile;
 using mbconv::mma_tile_kn;
 using mbconv::qbf;
 using mbconv::relu6;
+using mbconv::w1_swz;
+using mbconv::xs_chunk;
 
-constexpr int TH = 8, TW = 8, NO = TH * TW;  // halo phases: output tile
-constexpr int CK = 32;                       // expanded channels per chunk
+constexpr int CK = 32;                       // F1, B2: expanded channels per chunk
 constexpr int GP = 64;                       // pixel-local phases: pixels/group
 constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
 constexpr int F_LD = CK + 4;                 // f32 (pixel, channel) row stride
@@ -72,8 +120,20 @@ constexpr int P_LD = GP + 8;                 // bf16 (channel, pixel) row stride
 constexpr size_t SMEM_MAX = 232448;
 constexpr int RED_Y = 8;                     // row groups of the reduction
 constexpr int TARGET_CTAS = 264;             // two per SM of the H100's 132
+// F2 and B34 (train_plan): 16 warps a block; dW1^T: 8 warps, 128 channels of
+// Ce and 64 pixels a step, a ring of 3
+constexpr int HALO_WARPS = 16, HALO_THREADS = 32 * HALO_WARPS;
+constexpr int WG_THREADS = 256, WG_M = 128, WG_GP = 64, WG_STAGES = 3;
+// dx = dvl @ w1^T (B34's second kernel): 8 warps, 128 pixels a block, Ce in
+// chunks of 64 through a ring of 3
+constexpr int DX_THREADS = 256, DX_M = 128, DX_K = 64, DX_STAGES = 3;
 
 enum Phase { F1 = 0, F2 = 1, F3 = 2, B2 = 3, B34 = 4 };
+
+enum {
+  ERR_ARGS = 100001,  // an argument the kernel does not take
+  ERR_PLAN = 100002,  // a launch plan this file does not agree with
+};
 
 struct Args {
   const bf16 *x, *w1, *w2, *dq, *g, *y;
@@ -84,7 +144,10 @@ struct Args {
   int B, H, W, Cin, Ce, Cout, rate;
   long long P;
   int n_groups, n_chunks, splits, tiles_x, tiles_y, n_tiles;
-  int cin_p, xs_ld, hw, nh, nh_p, cout_k, cout_ld;
+  int cin_p, xs_ld, cout_k, cout_ld;
+  // the halo phases' plan and the geometry it implies
+  int th, tw, twl, ck, stages, nt, smem, warps;
+  int rows, xt_ld, xt_swz;
 };
 
 struct Bump {
@@ -96,29 +159,16 @@ struct Bump {
   }
 };
 
-// shared-memory layouts (byte offsets), one per kernel
+// shared-memory layouts (byte offsets) of the pixel-local kernels
 struct LF1 { size_t xs, w1s, es, total; };
-struct LF2 { size_t xs, w1s, es, wds, ds, total; };
 struct LF3 { size_t bs, w2s, total; };
 struct LB2 { size_t gyq, w2c, bqT, dqf, t1s, t2s, total; };
-struct LB34 { size_t xs, w1s, w1c, es, dds, eqc, dvs, wds, reds, total; };
-struct LWG { size_t dvT, xT, total; };
 
 __host__ __device__ inline LF1 lay_f1(const Args& a) {
   Bump b; LF1 l;
   l.xs = b.take(2 * size_t(GP) * a.xs_ld);
   l.w1s = b.take(2 * size_t(CK) * a.xs_ld);
   l.es = b.take(4 * size_t(GP) * F_LD);
-  l.total = b.o;
-  return l;
-}
-__host__ __device__ inline LF2 lay_f2(const Args& a) {
-  Bump b; LF2 l;
-  l.xs = b.take(2 * size_t(a.nh_p) * a.xs_ld);
-  l.w1s = b.take(2 * size_t(CK) * a.xs_ld);
-  l.es = b.take(4 * size_t(a.nh_p) * F_LD);
-  l.wds = b.take(4 * 9 * CK);
-  l.ds = b.take(4 * size_t(NO) * F_LD);
   l.total = b.o;
   return l;
 }
@@ -140,48 +190,8 @@ __host__ __device__ inline LB2 lay_b2(const Args& a) {
   l.total = b.o;
   return l;
 }
-__host__ __device__ inline LB34 lay_b34(const Args& a) {
-  Bump b; LB34 l;
-  l.xs = b.take(2 * size_t(a.nh_p) * a.xs_ld);
-  l.w1s = b.take(2 * size_t(CK) * a.xs_ld);
-  l.w1c = b.take(2 * size_t(a.Cin) * H_LD);
-  l.es = b.take(4 * size_t(a.nh_p) * F_LD);
-  l.dds = b.take(4 * size_t(a.nh_p) * F_LD);
-  l.eqc = b.take(4 * size_t(NO) * F_LD);
-  l.dvs = b.take(2 * size_t(NO) * H_LD);
-  l.wds = b.take(4 * 9 * CK);
-  l.reds = b.take(4 * size_t(NTHREADS / CK) * 11 * CK);
-  l.total = b.o;
-  return l;
-}
-__host__ __device__ inline LWG lay_wg(const Args& a) {
-  Bump b; LWG l;
-  l.dvT = b.take(2 * size_t(CK) * P_LD);
-  l.xT = b.take(2 * size_t(a.Cin) * P_LD);
-  l.total = b.o;
-  return l;
-}
 
 __device__ __forceinline__ bf16 bzero() { return __float2bfloat16(0.f); }
-
-// halo pixel hp of the tile at (ty0, tx0) -> image pixel index, or -1
-__device__ __forceinline__ int halo_pix(const Args& a, int hp, int ty0, int tx0) {
-  if (hp >= a.nh) return -1;
-  const int gy = ty0 - a.rate + hp / a.hw, gx = tx0 - a.rate + hp % a.hw;
-  if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W) return -1;
-  return gy * a.W + gx;
-}
-
-// x with its +-rate halo as bf16 rows (zero outside the image and past Cin)
-__device__ void stage_x_halo(const Args& a, bf16* xs, size_t img, int ty0, int tx0) {
-  for (int i = threadIdx.x; i < a.nh_p * a.cin_p; i += NTHREADS) {
-    const int hp = i / a.cin_p, k = i % a.cin_p;
-    const int pix = halo_pix(a, hp, ty0, tx0);
-    bf16 v = bzero();
-    if (pix >= 0 && k < a.Cin) v = a.x[(img + pix) * a.Cin + k];
-    xs[hp * a.xs_ld + k] = v;
-  }
-}
 
 // this chunk's expand weights, n-major: w1s[n][k] = w1[k][c0 + n]
 __device__ void stage_w1(const Args& a, bf16* w1s, int c0) {
@@ -190,25 +200,6 @@ __device__ void stage_w1(const Args& a, bf16* w1s, int c0) {
     bf16 v = bzero();
     if (c0 + n < a.Ce && k < a.Cin) v = a.w1[size_t(k) * a.Ce + c0 + n];
     w1s[n * a.xs_ld + k] = v;
-  }
-}
-
-__device__ void stage_taps(const Args& a, float* wds, int c0) {
-  for (int i = threadIdx.x; i < 9 * CK; i += NTHREADS) {
-    const int c = i % CK, row = i / CK;
-    wds[i] = c0 + c < a.Ce ? a.wdw[row * a.Ce + c0 + c] : 0.f;
-  }
-}
-
-// expand over the halo pixels: epi(hp, n, f32 product) for each (pixel, chunk
-// channel); warps take 16-pixel m-tiles in turn
-template <typename Epi>
-__device__ void expand_halo(const Args& a, const bf16* xs, const bf16* w1s, Epi epi) {
-  const int warp = threadIdx.x >> 5;
-  for (int mt = warp; mt < a.nh_p / 16; mt += NWARPS) {
-    float acc[CK / 8][4] = {};
-    mma_tile<CK / 8>(acc, xs, a.xs_ld, mt * 16, w1s, a.xs_ld, a.cin_p, 0, 1, CK / 8);
-    for_each_acc<CK / 8>(acc, mt * 16, 0, 1, CK / 8, epi);
   }
 }
 
@@ -247,62 +238,6 @@ __global__ void __launch_bounds__(NTHREADS) f1_kernel(const Args a) {
       }
       if (c0 + c < a.Ce)
         a.part[(long long)blockIdx.x * 2 * a.Ce + (sq ? a.Ce : 0) + c0 + c] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------- F2 ----
-__global__ void __launch_bounds__(NTHREADS) f2_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const LF2 L = lay_f2(a);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L.w1s);
-  float* es = reinterpret_cast<float*>(smem + L.es);
-  float* wds = reinterpret_cast<float*>(smem + L.wds);
-  float* ds = reinterpret_cast<float*>(smem + L.ds);
-  const int tid = threadIdx.x, b = blockIdx.y, r = a.rate, hw = a.hw;
-  const int ty0 = (blockIdx.x / a.tiles_x) * TH, tx0 = (blockIdx.x % a.tiles_x) * TW;
-  const size_t img = size_t(b) * a.H * a.W;
-  const long long prow = ((long long)b * gridDim.x + blockIdx.x) * 2 * a.Ce;
-  stage_x_halo(a, xs, img, ty0, tx0);
-  for (int c0 = 0; c0 < a.Ce; c0 += CK) {
-    stage_w1(a, w1s, c0);
-    stage_taps(a, wds, c0);
-    __syncthreads();
-    expand_halo(a, xs, w1s, [&](int hp, int n, float v) {
-      float act = 0.f;
-      if (c0 + n < a.Ce && halo_pix(a, hp, ty0, tx0) >= 0)
-        act = relu6(qbf(qbf(qbf(v) * a.a1[c0 + n]) + a.c1[c0 + n]));
-      es[hp * F_LD + n] = act;
-    });
-    __syncthreads();
-    // taps in f32, dx outer and dy inner (the plain version's order)
-    for (int i = tid; i < NO * CK; i += NTHREADS) {
-      const int c = i % CK, p = i / CK, oy = p / TW, ox = p % TW;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          s += es[((oy + k * r) * hw + ox + j * r) * F_LD + c] * wds[(k * 3 + j) * CK + c];
-      const float d = qbf(s);
-      const int gy = ty0 + oy, gx = tx0 + ox;
-      const bool valid = gy < a.H && gx < a.W;
-      if (valid && c0 + c < a.Ce)
-        a.dq_out[(img + size_t(gy) * a.W + gx) * a.Ce + c0 + c] = __float2bfloat16(d);
-      ds[p * F_LD + c] = valid ? d : 0.f;
-    }
-    __syncthreads();
-    if (tid < 64) {
-      const int c = tid & 31;
-      const bool sq = tid >= 32;
-      float s = 0.f;
-      for (int p = 0; p < NO; ++p) {
-        const float v = ds[p * F_LD + c];
-        s += sq ? v * v : v;
-      }
-      if (c0 + c < a.Ce) a.part[prow + (sq ? a.Ce : 0) + c0 + c] = s;
     }
     __syncthreads();
   }
@@ -446,152 +381,771 @@ __global__ void __launch_bounds__(NTHREADS) b2_kernel(const Args a) {
   });
 }
 
-// --------------------------------------------------------------- B34 ----
-// NTX: dx n-tiles per warp (4 pixel m-tiles x 2 interleaved n groups)
-template <int NTX>
-__global__ void __launch_bounds__(NTHREADS) b34_kernel(const Args a) {
+// ------------------------------------------------ halo phases F2, B34 ----
+// One block of 16 warps per (TH x TW output tile, image); the plan
+// (train_plan in kernels/fused_mbconv_train.py) gives the tile, chunk CK and
+// ring depth, and lay_halo reproduces its shared memory.
+
+__host__ __device__ inline int a16(int n) { return (n + 15) & ~15; }
+
+// Rows of aq (bf16) and dd (f32) hold CK values, unpadded: a row of aq is
+// ESW = CK / 2 32-bit words, a row of dd twice that, so that one table
+// entry, a row's word offset T in aq, addresses both (dd at 2T).  The taps
+// read a warp's pixels from neighbouring box rows, which unpadded rows of
+// 8 or 16 words (32 for dd) put in disjoint banks.
+__host__ __device__ inline int esw(int ck) { return ck / 2; }
+constexpr int TAB_LD = 16;  // the tap table: 9 entries a pixel in 32 bytes
+
+struct Halo {  // a block's view of its shared memory
+  bf16* xs;     // [rows][xt_ld] x over the in-image halo box, swizzled
+  bf16* es;     // [rows + 1][CK] aq of the chunk; row `rows` zero
+  float* dds;   // [rows + 1][CK] dd; row `rows` zero                (B34)
+  bf16* dqr;    // [rows][CK] dq's raw rows of the chunk            (B34)
+  bf16* eqc;    // [TP][CK] eq at the tile's pixels                  (B34)
+  short* tab;   // [TP][16] word offset in aq of each tap's box row, that
+                // of the zero row outside the image
+  short* ctab;  // [rows] tile pixel of each box row, or -1          (B34)
+  float* red;   // [16 warps][2 or 11][CK] the warps' sums of a chunk
+  int zoff;     // the zero row's word offset
+};
+
+// The layout train_smem (kernels/fused_mbconv_train.py) computes.  Stage s
+// at stage + s * stage_bytes: w1 slice [cin_p][CK] (w1_swz), taps [9][CK],
+// then vectors of CK f32: a1, c1 (F2); a1, c1, a2, m0, m1, mu1, rstd1 (B34).
+struct LHalo {
+  int xs, es, dds, dqr, eqc, tab, ctab, red, stage, stage_bytes;
+  int s_wdw, s_vec, total;
+};
+
+__host__ __device__ inline LHalo lay_halo(int phase, const Args& a) {
+  const int ck = a.ck, tp = a.th * a.tw, rows = a.rows;
+  LHalo l{};
+  int o = 0;
+  l.xs = o; o += a16(2 * rows * a.xt_ld);
+  l.es = o; o += a16(2 * (rows + 1) * ck);
+  if (phase == B34) {
+    l.dds = o; o += a16(4 * (rows + 1) * ck);
+    l.dqr = o; o += a16(2 * rows * ck);
+    l.eqc = o; o += a16(2 * tp * ck);
+  }
+  l.tab = o; o += a16(2 * TAB_LD * tp);
+  if (phase == B34) { l.ctab = o; o += a16(2 * rows); }
+  l.red = o; o += a16(4 * (phase == B34 ? 11 : 2) * HALO_WARPS * ck);
+  l.stage = o;
+  l.s_wdw = a16(2 * a.cin_p * ck);
+  l.s_vec = l.s_wdw + a16(4 * 9 * ck);
+  l.stage_bytes = l.s_vec + (phase == B34 ? 7 : 2) * a16(4 * ck);
+  l.total = o + a.stages * l.stage_bytes;
+  return l;
+}
+
+__device__ __forceinline__ Halo halo_view(int phase, const Args& a,
+                                          unsigned char* smem) {
+  const LHalo l = lay_halo(phase, a);
+  Halo h;
+  h.xs = reinterpret_cast<bf16*>(smem + l.xs);
+  h.es = reinterpret_cast<bf16*>(smem + l.es);
+  h.dds = reinterpret_cast<float*>(smem + l.dds);
+  h.dqr = reinterpret_cast<bf16*>(smem + l.dqr);
+  h.eqc = reinterpret_cast<bf16*>(smem + l.eqc);
+  h.tab = reinterpret_cast<short*>(smem + l.tab);
+  h.ctab = reinterpret_cast<short*>(smem + l.ctab);
+  h.red = reinterpret_cast<float*>(smem + l.red);
+  h.zoff = a.rows * esw(a.ck);
+  return h;
+}
+
+struct HStage {
+  bf16* w1;     // [cin_p][CK], 16-byte chunks swizzled (w1_swz)
+  float* wdw;   // [9][CK]
+  float* vec;   // [n][CK]
+};
+
+__device__ __forceinline__ HStage hstage(int phase, const Args& a,
+                                         unsigned char* smem, int s) {
+  const LHalo l = lay_halo(phase, a);
+  unsigned char* base = smem + l.stage + s * l.stage_bytes;
+  return {reinterpret_cast<bf16*>(base), reinterpret_cast<float*>(base + l.s_wdw),
+          reinterpret_cast<float*>(base + l.s_vec)};
+}
+
+// The tile's geometry: its in-image halo box [sy0, sy1) x [sx0, sx1), whose
+// pixels, row-major, are the rows of the x tile, aq and dd.
+struct Tile {
+  int ty0, tx0, sy0, sx0, hx, nv;
+  size_t img;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& a) {
+  Tile t;
+  t.ty0 = (blockIdx.x / a.tiles_x) * a.th;
+  t.tx0 = (blockIdx.x % a.tiles_x) * a.tw;
+  const int r = a.rate;
+  t.sy0 = max(t.ty0 - r, 0);
+  t.sx0 = max(t.tx0 - r, 0);
+  const int sy1 = min(t.ty0 + a.th + r, a.H), sx1 = min(t.tx0 + a.tw + r, a.W);
+  t.hx = sx1 - t.sx0;
+  t.nv = (sy1 - t.sy0) * t.hx;
+  t.img = size_t(blockIdx.y) * a.H * a.W;
+  return t;
+}
+
+__device__ __forceinline__ size_t box_pix(const Args& a, const Tile& t, int hp) {
+  return t.img + size_t(t.sy0 + hp / t.hx) * a.W + t.sx0 + hp % t.hx;
+}
+
+// f32 rows [c0, c0 + CK) of a (n, Ce) array into dst[n][CK], zero past Ce
+// (Ce % 8 == 0: whole 16-byte vectors)
+template <int CK>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src, int n,
+                                        int Ce, int c0) {
+  for (int i = threadIdx.x; i < n * (CK / 4); i += HALO_THREADS) {
+    const int row = i / (CK / 4), q = i % (CK / 4), col = c0 + 4 * q;
+    const bool in = col < Ce;
+    cp16(dst + row * CK + 4 * q, in ? (const void*)(src + size_t(row) * Ce + col)
+                                    : (const void*)src, in ? 16 : 0);
+  }
+}
+
+// chunk c0's w1 slice (contiguous runs of (Cin, Ce): k-major, no repacking),
+// taps and per-channel vectors into a stage
+template <int CK>
+__device__ __forceinline__ void load_stage(int phase, const Args& a,
+                                           const HStage& st, int c0) {
+  for (int i = threadIdx.x; i < a.Cin * (CK / 8); i += HALO_THREADS) {
+    const int k = i / (CK / 8), q = i % (CK / 8), col = c0 + 8 * q;
+    const bool in = col < a.Ce;
+    cp16(st.w1 + k * CK + 8 * (q ^ w1_swz<CK>(k)),
+         in ? (const void*)(a.w1 + size_t(k) * a.Ce + col) : (const void*)a.w1,
+         in ? 16 : 0);
+  }
+  cp_rows<CK>(st.wdw, a.wdw, 9, a.Ce, c0);
+  const float* vecs[7] = {a.a1, a.c1, a.a2, a.m0, a.m1, a.mu1, a.rstd1};
+  const int nvec = phase == B34 ? 7 : 2;
+  for (int v = 0; v < nvec; ++v) cp_rows<CK>(st.vec + v * CK, vecs[v], 1, a.Ce, c0);
+}
+
+// Once per block: the x tile (16-byte copies, zero past Cin), the tap table,
+// the zero rows, w1's rows past Cin in every stage, and (B34) the box-row
+// table.
+template <int CK>
+__device__ void halo_setup(int phase, const Args& a, const Tile& t, const Halo& h,
+                           unsigned char* smem) {
+  const int tid = threadIdx.x, vq = a.cin_p / 8;
+  for (int i = tid; i < t.nv * vq; i += HALO_THREADS) {
+    const int hp = i / vq, q = i % vq;
+    const bool in = 8 * q < a.Cin;
+    cp16(h.xs + hp * a.xt_ld + 8 * xs_chunk(a.xt_swz, hp, q),
+         in ? (const void*)(a.x + box_pix(a, t, hp) * a.Cin + 8 * q)
+            : (const void*)a.x, in ? 16 : 0);
+  }
+  const int tp = a.th * a.tw, r = a.rate;
+  for (int i = tid; i < tp * 9; i += HALO_THREADS) {
+    const int p = i / 9, tap = i % 9, ti = tap / 3, tj = tap % 3;
+    const int py = t.ty0 + (p >> a.twl), px = t.tx0 + (p & (a.tw - 1));
+    const int yy = py + (ti - 1) * r, xx = px + (tj - 1) * r;
+    const bool in = yy >= 0 && yy < a.H && xx >= 0 && xx < a.W && py < a.H && px < a.W;
+    h.tab[p * TAB_LD + tap] =
+        (short)(in ? ((yy - t.sy0) * t.hx + xx - t.sx0) * esw(CK) : h.zoff);
+  }
+  for (int i = tid; i < CK; i += HALO_THREADS) {
+    h.es[a.rows * CK + i] = bzero();
+    if (phase == B34) h.dds[a.rows * CK + i] = 0.f;
+  }
+  for (int s = 0; s < a.stages; ++s) {
+    bf16* w1s = hstage(phase, a, smem, s).w1;
+    for (int i = tid; i < (a.cin_p - a.Cin) * CK; i += HALO_THREADS)
+      w1s[a.Cin * CK + i] = bzero();
+  }
+  if (phase == B34)
+    for (int hp = tid; hp < a.rows; hp += HALO_THREADS) {
+      int p = -1;
+      if (hp < t.nv) {
+        const int py = t.sy0 + hp / t.hx - t.ty0, px = t.sx0 + hp % t.hx - t.tx0;
+        if (py >= 0 && py < a.th && px >= 0 && px < a.tw) p = py * a.tw + px;
+      }
+      h.ctab[hp] = (short)p;
+    }
+}
+
+// The expand of a chunk over the tile's halo box: epi(row, n, v0, v1) with
+// the f32 products of channels n, n + 1 (n even) at box row `row`.  Units of
+// 32 box rows (two m-tiles sharing each B fragment) x 16 channels over the
+// warps; A (the x tile) by ldmatrix, B (the k-major w1 slice) by
+// ldmatrix.trans.
+template <int CK, typename Epi>
+__device__ __forceinline__ void expand_box(const Args& a, const Halo& h,
+                                           const HStage& st, int nv, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt_n = (nv + 15) >> 4, mp_n = (mt_n + 1) >> 1;
+  for (int u = warp; u < mp_n * (CK / 16); u += HALO_WARPS) {
+    const int mt = 2 * (u / (CK / 16)), nh = u % (CK / 16);
+    const bool two = mt + 1 < mt_n;  // warp-uniform
+    float acc[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+    const int ra = mt * 16 + (lane & 15);  // rows ra and ra + 16 swizzle alike
+    const bf16* pa = h.xs + ra * a.xt_ld;
+    const int kb = lane & 15;
+    const bf16* pb = st.w1 + kb * CK + 8 * ((2 * nh + (lane >> 4)) ^ w1_swz<CK>(kb));
+#pragma unroll 2
+    for (int kk = 0; kk < a.cin_p; kk += 16) {
+      uint32_t a0[4], a1[4], bf[4];
+      const int ca = 8 * xs_chunk(a.xt_swz, ra, (kk >> 3) + (lane >> 4));
+      ldm_x4(a0, pa + ca);
+      ldm_x4_t(bf, pb + kk * CK);
+      mma16816(acc[0][0], a0, bf[0], bf[1]);
+      mma16816(acc[0][1], a0, bf[2], bf[3]);
+      if (two) {
+        ldm_x4(a1, pa + 16 * a.xt_ld + ca);
+        mma16816(acc[1][0], a1, bf[0], bf[1]);
+        mma16816(acc[1][1], a1, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (m == 1 && !two) break;
+      const int r0 = (mt + m) * 16 + g;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = nh * 16 + j * 8 + 2 * t;
+        epi(r0, n, acc[m][j][0], acc[m][j][1]);
+        epi(r0 + 8, n, acc[m][j][2], acc[m][j][3]);
+      }
+    }
+  }
+}
+
+// aq = relu6(q(q(q(v) * a1) + c1)) of channels n, n + 1 into row R of aq;
+// eq = q(v) back to the caller
+template <int CK>
+__device__ __forceinline__ void put_aq(const Halo& h, const HStage& st, int R, int n,
+                                       float v0, float v1, float& eq0, float& eq1) {
+  eq0 = qbf(v0);
+  eq1 = qbf(v1);
+  const float2 a1 = *reinterpret_cast<const float2*>(st.vec + n);
+  const float2 c1 = *reinterpret_cast<const float2*>(st.vec + CK + n);
+  reinterpret_cast<__nv_bfloat162*>(h.es)[R * esw(CK) + (n >> 1)] =
+      __floats2bfloat162_rn(relu6(qbf(qbf(eq0 * a1.x) + c1.x)),
+                            relu6(qbf(qbf(eq1 * a1.y) + c1.y)));
+}
+
+// a pixel's 9 tap offsets from its row of the tap table (two 16-byte loads)
+__device__ __forceinline__ void taps_of(const Halo& h, int p, int (&off)[9]) {
+  const int4* t4 = reinterpret_cast<const int4*>(h.tab + p * TAB_LD);
+  const int4 u = t4[0], v = t4[1];
+  const int w[5] = {u.x, u.y, u.z, u.w, v.x};
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    off[i] = (i & 1) ? int(unsigned(w[i >> 1]) >> 16) : (w[i >> 1] & 0xffff);
+}
+
+__device__ __forceinline__ float2 bf2f(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// warp sum over the lanes that share a channel pair (lane % CP), in a fixed
+// butterfly order
+template <int CP>
+__device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int o = CP; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// this chunk's per-channel tile sums: rows x CK of the warps' sums added in
+// warp order, into part[tile][rows][Ce]
+template <int CK>
+__device__ __forceinline__ void finish_sums(const Args& a, const Halo& h, int nrow,
+                                            int c0) {
+  const int tid = threadIdx.x;
+  if (tid >= nrow * CK) return;
+  const int row = tid / CK, c = tid % CK;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < HALO_WARPS; ++w) s += h.red[(w * nrow + row) * CK + c];
+  if (c0 + c < a.Ce)
+    a.part[((long long)blockIdx.y * gridDim.x + blockIdx.x) * nrow * a.Ce +
+           (long long)row * a.Ce + c0 + c] = s;
+}
+
+// ---------------------------------------------------------------- F2 ----
+// Per chunk: [taps of chunk c -> dq and its sums] barrier [the sums of c
+// into the partials, the expand of chunk c + 1 -> aq, chunk c + S's stage
+// copied] barrier.
+template <int CK, int TP>
+__global__ void __launch_bounds__(HALO_THREADS, 1) f2_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const LB34 L = lay_b34(a);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L.w1s);
-  bf16* w1c = reinterpret_cast<bf16*>(smem + L.w1c);
-  float* es = reinterpret_cast<float*>(smem + L.es);
-  float* dds = reinterpret_cast<float*>(smem + L.dds);
-  float* eqc = reinterpret_cast<float*>(smem + L.eqc);
-  bf16* dvs = reinterpret_cast<bf16*>(smem + L.dvs);
-  float* wds = reinterpret_cast<float*>(smem + L.wds);
-  float* reds = reinterpret_cast<float*>(smem + L.reds);
-  const int tid = threadIdx.x, warp = tid >> 5, b = blockIdx.y;
-  const int r = a.rate, hw = a.hw, Ce = a.Ce, Cin = a.Cin;
-  const int ty0 = (blockIdx.x / a.tiles_x) * TH, tx0 = (blockIdx.x % a.tiles_x) * TW;
-  const size_t img = size_t(b) * a.H * a.W;
-  const long long prow = ((long long)b * gridDim.x + blockIdx.x) * 11 * Ce;
-  const int mw = warp & 3, ntx0 = warp >> 2, n_tiles_x = Cin / 8;
-  float acc[NTX][4] = {};
-  stage_x_halo(a, xs, img, ty0, tx0);
-  for (int c0 = 0; c0 < Ce; c0 += CK) {
-    stage_w1(a, w1s, c0);
-    stage_taps(a, wds, c0);
-    // w1 columns of this chunk: the B operand of dx = dvl @ w1^T, n-major (k, c)
-    for (int i = tid; i < Cin * CK; i += NTHREADS) {
-      const int n = i / CK, k = i % CK;
-      w1c[n * H_LD + k] = c0 + k < Ce ? a.w1[size_t(n) * Ce + c0 + k] : bzero();
-    }
-    // dd on the halo, zero outside the image
-    for (int i = tid; i < a.nh_p * CK; i += NTHREADS) {
-      const int hp = i / CK, c = i % CK, ch = c0 + c;
-      const int pix = halo_pix(a, hp, ty0, tx0);
-      float v = 0.f;
-      if (pix >= 0 && ch < Ce) {
-        const size_t o = (img + pix) * Ce + ch;
-        v = a.a2[ch] * a.ddh[o] + a.m0[ch] + a.m1[ch] * __bfloat162float(a.dq[o]);
-      }
-      dds[hp * F_LD + c] = v;
-    }
-    __syncthreads();
-    expand_halo(a, xs, w1s, [&](int hp, int n, float v) {
-      const int ch = c0 + n;
-      float eq = 0.f, act = 0.f;
-      if (ch < Ce) {
-        eq = qbf(v);
-        if (halo_pix(a, hp, ty0, tx0) >= 0)
-          act = relu6(qbf(qbf(eq * a.a1[ch]) + a.c1[ch]));
-      }
-      es[hp * F_LD + n] = act;
-      const int hy = hp / hw - r, hx = hp % hw - r;
-      if (hp < a.nh && hy >= 0 && hy < TH && hx >= 0 && hx < TW)
-        eqc[(hy * TW + hx) * F_LD + n] = eq;
+  const Halo h = halo_view(F2, a, smem);
+  const Tile t = tile_of(a);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_chunks = (a.Ce + CK - 1) / CK, S = a.stages;
+  for (int s = 0; s < S; ++s) {
+    if (s == 0) halo_setup<CK>(F2, a, t, h, smem);
+    if (s < n_chunks) load_stage<CK>(F2, a, hstage(F2, a, smem, s), s * CK);
+    cp_commit();
+  }
+  auto wait_ring = [&]() { if (S == 3) cp_wait<1>(); else cp_wait<0>(); };
+  auto expand = [&](int c) {
+    const HStage st = hstage(F2, a, smem, c % S);
+    expand_box<CK>(a, h, st, t.nv, [&](int R, int n, float v0, float v1) {
+      float e0, e1;
+      put_aq<CK>(h, st, R, n, v0, v1, e0, e1);
     });
-    __syncthreads();
-    // transposed taps (dx outer, dy inner), relu6' mask, BN1 grad terms.
-    // Thread tid takes channel tid % 32 at pixels tid / 32 + 8k, and keeps
-    // its share of this tile's U1, U2 and dWdw[t] = sum dd(p) aq(p + t).
-    float red[11] = {};
-    const int c = tid % CK, ch = c0 + c;
-#pragma unroll 1
-    for (int p = tid / CK; p < NO; p += NTHREADS / CK) {
-      const int oy = p / TW, ox = p % TW;
-      float da = 0.f;
+  };
+  // taps in f32, dx outer and dy inner (the plain version's order); four
+  // channels a thread, pixels warp * SUB + lane / CQ + k * STEP (the tile's
+  // rows are TW = 8 or 16 pixels: TP = 64 is 8x8, else TW = 16)
+  constexpr int CQ = CK / 4, SUB = 32 / CQ, STEP = HALO_WARPS * SUB;
+  constexpr int TWL = TP == 64 ? 3 : 4;
+  const int cq = lane % CQ, ch = 4 * cq;
+  const uint2* ew = reinterpret_cast<const uint2*>(h.es) + cq;  // aq at word T
+  auto taps = [&](int c) {
+    const HStage st = hstage(F2, a, smem, c % S);
+    const int c0 = c * CK;
+    float4 w[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) w[i] = *reinterpret_cast<const float4*>(st.wdw + i * CK + ch);
+    float sm[4] = {}, sq[4] = {};
+#pragma unroll
+    for (int k = 0; k < (TP + STEP - 1) / STEP; ++k) {
+      const int p = warp * SUB + lane / CQ + k * STEP;
+      if (TP % STEP && p >= TP) break;  // warp-uniform
+      int off[9];
+      taps_of(h, p, off);
+      float4 v[9];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        // word offset T of a row: a uint2 index T / 2 (rows hold an even
+        // number of words)
+        const uint2 u = ew[off[i] >> 1];
+        const float2 lo = bf2f(u.x), hi = bf2f(u.y);
+        v[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      float d[4] = {};
 #pragma unroll
       for (int j = 0; j < 3; ++j)
 #pragma unroll
-        for (int k = 0; k < 3; ++k)
-          da += dds[((oy + (2 - k) * r) * hw + ox + (2 - j) * r) * F_LD + c] *
-                wds[(k * 3 + j) * CK + c];
-      const int gy = ty0 + oy, gx = tx0 + ox;
-      const bool valid = gy < a.H && gx < a.W && ch < Ce;
-      float dvl = 0.f;
-      if (valid) {
-        const float eq = eqc[p * F_LD + c];
-        const float v1 = qbf(qbf(eq * a.a1[ch]) + a.c1[ch]);
-        const float dv1 = v1 > 0.f && v1 < 6.f ? da : 0.f;
-        red[0] += dv1;
-        red[1] += dv1 * ((eq - a.mu1[ch]) * a.rstd1[ch]);
-        dvl = a.a1[ch] * dv1;
+        for (int i = 0; i < 3; ++i) {
+          const float4 e = v[i * 3 + j], f = w[i * 3 + j];
+          d[0] += e.x * f.x;
+          d[1] += e.y * f.y;
+          d[2] += e.z * f.z;
+          d[3] += e.w * f.w;
+        }
+      if (off[4] != h.zoff) {  // the pixel lies in the image
+        const __nv_bfloat162 q01 = __floats2bfloat162_rn(d[0], d[1]);
+        const __nv_bfloat162 q23 = __floats2bfloat162_rn(d[2], d[3]);
+        const float2 f01 = __bfloat1622float2(q01), f23 = __bfloat1622float2(q23);
+        const float df[4] = {f01.x, f01.y, f23.x, f23.y};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          sm[r] += df[r];
+          sq[r] += df[r] * df[r];
+        }
+        if (c0 + ch < a.Ce) {
+          const size_t pix = t.img + size_t(t.ty0 + (p >> TWL)) * a.W + t.tx0 +
+                             (p & ((1 << TWL) - 1));
+          uint2 o;
+          o.x = *reinterpret_cast<const uint32_t*>(&q01);
+          o.y = *reinterpret_cast<const uint32_t*>(&q23);
+          *reinterpret_cast<uint2*>(a.dq_out + pix * a.Ce + c0 + ch) = o;
+        }
       }
-      // dd is zero outside the image, so invalid pixels add nothing here
-      const float ddc = dds[((oy + r) * hw + ox + r) * F_LD + c];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          red[2 + k * 3 + j] += ddc * es[((oy + k * r) * hw + ox + j * r) * F_LD + c];
-      const bf16 dq = __float2bfloat16(dvl);
-      dvs[p * H_LD + c] = dq;
-      if (valid) a.dvl[(img + size_t(gy) * a.W + gx) * Ce + ch] = dq;
     }
 #pragma unroll
-    for (int row = 0; row < 11; ++row)
-      reds[((tid / CK) * 11 + row) * CK + c] = red[row];
-    __syncthreads();
-    mma_tile<NTX>(acc, dvs, H_LD, mw * 16, w1c, H_LD, CK, ntx0, 2, n_tiles_x);
-    // this tile's per-channel sums, the 8 pixel groups added in order
-    for (int idx = tid; idx < 11 * CK; idx += NTHREADS) {
-      const int row = idx / CK, cc = idx % CK;
-      float sum = 0.f;
-#pragma unroll
-      for (int grp = 0; grp < NTHREADS / CK; ++grp) sum += reds[(grp * 11 + row) * CK + cc];
-      if (c0 + cc < Ce) a.part[prow + row * Ce + c0 + cc] = sum;
+    for (int r = 0; r < 4; ++r) {
+      sm[r] = lane_sum<CQ>(sm[r]);
+      sq[r] = lane_sum<CQ>(sq[r]);
     }
-    __syncthreads();
+    if (lane < CQ) {
+      float* rd = h.red + warp * 2 * CK;
+      *reinterpret_cast<float4*>(rd + ch) = make_float4(sm[0], sm[1], sm[2], sm[3]);
+      *reinterpret_cast<float4*>(rd + CK + ch) = make_float4(sq[0], sq[1], sq[2], sq[3]);
+    }
+  };
+
+  wait_ring();
+  __syncthreads();
+  expand(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    __syncthreads();   // aq of chunk c complete; the sums of c - 1 read
+    taps(c);
+    wait_ring();       // chunk c + 1's stage
+    __syncthreads();   // taps done: aq free, the warps' sums complete
+    finish_sums<CK>(a, h, 2, c * CK);
+    if (c + 1 < n_chunks) expand(c + 1);
+    if (c + S < n_chunks) load_stage<CK>(F2, a, hstage(F2, a, smem, c % S), (c + S) * CK);
+    cp_commit();
   }
-  for_each_acc<NTX>(acc, mw * 16, ntx0, 2, n_tiles_x, [&](int p, int n, float v) {
-    const int gy = ty0 + p / TW, gx = tx0 + p % TW;
-    if (gy < a.H && gx < a.W)
-      a.dxp[(img + size_t(gy) * a.W + gx) * Cin + n] = __float2bfloat16(v);
-  });
+  cp_wait<0>();
+}
+
+// --------------------------------------------------------------- B34 ----
+// Per chunk: [transposed taps of chunk c -> dv1, dvl (to device memory for
+// dx and dW1^T); U1, U2 and dWdw sums] barrier [the sums of c into the
+// partials, chunk c + 1's dd copied in flight while its expand runs -> aq
+// and eq, then converted; chunk c + S's stage copied] barrier.
+template <int CK, int TP>
+__global__ void __launch_bounds__(HALO_THREADS, 1) b34_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Halo h = halo_view(B34, a, smem);
+  const Tile t = tile_of(a);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_chunks = (a.Ce + CK - 1) / CK, S = a.stages;
+  constexpr int DS = CK;  // dd row stride (f32)
+
+  // dd's raw rows of chunk c: ddh (f32) into dds, dq (bf16) into dqr, four
+  // channels a copy; the thread that copies a quad converts it
+  auto copy_dd = [&](int c) {
+    const int c0 = c * CK;
+    for (int i = tid; i < t.nv * (CK / 4); i += HALO_THREADS) {
+      const int hp = i / (CK / 4), q = i % (CK / 4), col = c0 + 4 * q;
+      const bool in = col < a.Ce;
+      const size_t o = box_pix(a, t, hp) * a.Ce + col;
+      cp16(h.dds + hp * DS + 4 * q, in ? (const void*)(a.ddh + o) : (const void*)a.ddh,
+           in ? 16 : 0);
+      cp8(h.dqr + hp * CK + 4 * q, in ? (const void*)(a.dq + o) : (const void*)a.dq,
+          in ? 8 : 0);
+    }
+  };
+  // dd = a2*ddh + m0 + m1*dq on the thread's own quads (zero past Ce)
+  auto convert_dd = [&](int c) {
+    const HStage st = hstage(B34, a, smem, c % S);
+    for (int i = tid; i < t.nv * (CK / 4); i += HALO_THREADS) {
+      const int hp = i / (CK / 4), q = i % (CK / 4);
+      float4* dp = reinterpret_cast<float4*>(h.dds + hp * DS + 4 * q);
+      const float4 d = *dp;
+      const uint2 rq = *reinterpret_cast<const uint2*>(h.dqr + hp * CK + 4 * q);
+      const float2 q01 = bf2f(rq.x), q23 = bf2f(rq.y);
+      const float4 a2 = *reinterpret_cast<const float4*>(st.vec + 2 * CK + 4 * q);
+      const float4 m0 = *reinterpret_cast<const float4*>(st.vec + 3 * CK + 4 * q);
+      const float4 m1 = *reinterpret_cast<const float4*>(st.vec + 4 * CK + 4 * q);
+      *dp = make_float4(a2.x * d.x + m0.x + m1.x * q01.x, a2.y * d.y + m0.y + m1.y * q01.y,
+                        a2.z * d.z + m0.z + m1.z * q23.x, a2.w * d.w + m0.w + m1.w * q23.y);
+    }
+  };
+  auto expand = [&](int c) {
+    const HStage st = hstage(B34, a, smem, c % S);
+    expand_box<CK>(a, h, st, t.nv, [&](int R, int n, float v0, float v1) {
+      float e0, e1;
+      put_aq<CK>(h, st, R, n, v0, v1, e0, e1);
+      const int p = h.ctab[R];
+      if (p >= 0)
+        *reinterpret_cast<__nv_bfloat162*>(h.eqc + p * CK + n) =
+            __floats2bfloat162_rn(e0, e1);
+    });
+  };
+
+  // transposed taps of dd (dx outer, dy inner), the relu6' mask, U1/U2 and
+  // dWdw[t] = sum dd(p) aq(p + t); a channel pair a thread
+  constexpr int CP = CK / 2, SUB = 32 / CP, STEP = HALO_WARPS * SUB;
+  constexpr int TWL = TP == 64 ? 3 : 4;  // TW = 8 or 16 pixels
+  const int cp = lane % CP, ch = 2 * cp;
+  const uint32_t* ew = reinterpret_cast<const uint32_t*>(h.es) + cp;
+  const float2* dw = reinterpret_cast<const float2*>(h.dds) + cp;  // dd at 2T
+  auto taps = [&](int c) {
+    const HStage st = hstage(B34, a, smem, c % S);
+    const int c0 = c * CK;
+    // the taps are read from shared memory where they are used: these sums
+    // hold most of the registers
+    const float2* w = reinterpret_cast<const float2*>(st.wdw + ch);
+    float red[11][2];
+#pragma unroll
+    for (int k = 0; k < 11; ++k) red[k][0] = red[k][1] = 0.f;
+#pragma unroll
+    for (int k = 0; k < TP / STEP; ++k) {
+      const int p = warp * SUB + lane / CP + k * STEP;
+      int off[9];
+      taps_of(h, p, off);
+      float da0 = 0.f, da1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float2 d = dw[off[(2 - i) * 3 + (2 - j)]];
+          const float2 wk = w[(i * 3 + j) * (CK / 2)];
+          da0 += d.x * wk.x;
+          da1 += d.y * wk.y;
+        }
+      const float2 ddc = dw[off[4]];  // zero outside the image
+      const float2 a1 = *reinterpret_cast<const float2*>(st.vec + ch);
+      const float2 c1 = *reinterpret_cast<const float2*>(st.vec + CK + ch);
+      const float2 mu = *reinterpret_cast<const float2*>(st.vec + 5 * CK + ch);
+      const float2 rs = *reinterpret_cast<const float2*>(st.vec + 6 * CK + ch);
+      const bool valid = off[4] != h.zoff;  // the pixel lies in the image
+      // eq is set only at the tile's pixels in the image
+      const float2 eq = valid ? bf2f(*reinterpret_cast<const uint32_t*>(h.eqc + p * CK + ch))
+                              : make_float2(0.f, 0.f);
+      const float v10 = qbf(qbf(eq.x * a1.x) + c1.x), v11 = qbf(qbf(eq.y * a1.y) + c1.y);
+      const float dv0 = valid && v10 > 0.f && v10 < 6.f ? da0 : 0.f;
+      const float dv1 = valid && v11 > 0.f && v11 < 6.f ? da1 : 0.f;
+      red[0][0] += dv0;
+      red[0][1] += dv1;
+      red[1][0] += dv0 * ((eq.x - mu.x) * rs.x);
+      red[1][1] += dv1 * ((eq.y - mu.y) * rs.y);
+      if (valid && c0 + ch < a.Ce) {
+        const size_t pix = t.img + size_t(t.ty0 + (p >> TWL)) * a.W + t.tx0 +
+                           (p & ((1 << TWL) - 1));
+        *reinterpret_cast<__nv_bfloat162*>(a.dvl + pix * a.Ce + c0 + ch) =
+            __floats2bfloat162_rn(a1.x * dv0, a1.y * dv1);
+      }
+      // dd is zero outside the image, so pixels outside add nothing here
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        const float2 e = bf2f(ew[off[i]]);
+        red[2 + i][0] += ddc.x * e.x;
+        red[2 + i][1] += ddc.y * e.y;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 11; ++k) {
+      const float r0 = lane_sum<CP>(red[k][0]), r1 = lane_sum<CP>(red[k][1]);
+      if (lane < CP) {
+        h.red[(warp * 11 + k) * CK + ch] = r0;
+        h.red[(warp * 11 + k) * CK + ch + 1] = r1;
+      }
+    }
+  };
+
+  // prologue: the x tile, chunk 0's dd and the first S stages in flight
+  for (int s = 0; s < S; ++s) {
+    if (s == 0) {
+      halo_setup<CK>(B34, a, t, h, smem);
+      copy_dd(0);
+    }
+    if (s < n_chunks) load_stage<CK>(B34, a, hstage(B34, a, smem, s), s * CK);
+    cp_commit();
+  }
+  cp_wait<0>();
+  __syncthreads();   // every thread's copies landed: the x tile, stage 0
+  convert_dd(0);
+  expand(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    __syncthreads();   // aq, eq, dd of chunk c complete
+    taps(c);
+    __syncthreads();   // the warps' sums complete; aq, dd and stage c free
+    finish_sums<CK>(a, h, 11, c * CK);
+    if (c + 1 < n_chunks) copy_dd(c + 1);
+    cp_commit();
+    if (c + 1 < n_chunks) expand(c + 1);
+    if (c + S < n_chunks) load_stage<CK>(B34, a, hstage(B34, a, smem, c % S), (c + S) * CK);
+    cp_commit();
+    // this thread's dd quads of chunk c + 1 (the stage of c + 1 landed one
+    // chunk ago: every thread waited for it before this chunk's barriers)
+    if (S == 3) cp_wait<1>(); else cp_wait<0>();
+    if (c + 1 < n_chunks) convert_dd(c + 1);
+  }
+  cp_wait<0>();
+}
+
+// ------------------------------------------------------- dx = dvl @ w1^T ----
+// B34's main part of dx: a GEMM of depth Ce over dvl (pixels x Ce, which
+// b34_kernel writes) and w1 (Cin x Ce), rounded once.  A block of 8 warps
+// takes 128 pixels and all of Cin: 4 pairs of pixel m-tiles x 2 halves of
+// Cin, NT n-tiles a warp (as dW1^T's).  Ce runs in chunks of 64 through a
+// cp.async ring of DX_STAGES, both operands as they lie (rows of 64
+// channels, 16-byte chunks XOR-swizzled by row), A by ldmatrix and B (w1's
+// rows are Cin) by ldmatrix without a transpose.
+template <int NT>
+__global__ void __launch_bounds__(DX_THREADS) dx_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const long long p0 = (long long)blockIdx.x * DX_M;
+  const int Ce = a.Ce, Cin = a.Cin, n_chunks = (Ce + DX_K - 1) / DX_K;
+  const int a_bytes = 2 * DX_M * DX_K, st_bytes = a_bytes + 2 * a.cin_p * DX_K;
+  auto As = [&](int s) { return reinterpret_cast<bf16*>(smem + s * st_bytes); };
+  auto Bs = [&](int s) { return reinterpret_cast<bf16*>(smem + s * st_bytes + a_bytes); };
+  constexpr int Q = DX_K / 8;  // 16-byte chunks a row
+  // rows of w1 past Cin are zero in every stage
+  for (int s = 0; s < DX_STAGES; ++s)
+    for (int i = tid; i < (a.cin_p - Cin) * DX_K; i += DX_THREADS)
+      Bs(s)[Cin * DX_K + i] = bzero();
+  auto load = [&](int c) {
+    const int s = c % DX_STAGES, c0 = c * DX_K;
+    bf16* A = As(s);
+    for (int e = tid; e < DX_M * Q; e += DX_THREADS) {
+      const int p = e / Q, q = e % Q, col = c0 + 8 * q;
+      const bool in = p0 + p < a.P && col < Ce;
+      cp16(A + p * DX_K + 8 * (q ^ (p & 7)),
+           in ? (const void*)(a.dvl + (p0 + p) * Ce + col) : (const void*)a.dvl,
+           in ? 16 : 0);
+    }
+    bf16* B = Bs(s);
+    for (int e = tid; e < Cin * Q; e += DX_THREADS) {
+      const int n = e / Q, q = e % Q, col = c0 + 8 * q;
+      const bool in = col < Ce;
+      cp16(B + n * DX_K + 8 * (q ^ (n & 7)),
+           in ? (const void*)(a.w1 + size_t(n) * Ce + col) : (const void*)a.w1,
+           in ? 16 : 0);
+    }
+  };
+  const int wm = warp & 3, wn = warp >> 2;  // pixels 32 wm.., n-tiles wn*NT..
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+  for (int c = 0; c < DX_STAGES - 1; ++c) {
+    if (c < n_chunks) load(c);
+    cp_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_wait<DX_STAGES - 2>();
+    __syncthreads();   // chunk c landed (and the zero rows); c - 1's stage free
+    if (c + DX_STAGES - 1 < n_chunks) load(c + DX_STAGES - 1);
+    cp_commit();
+    const bf16* A = As(c % DX_STAGES);
+    const bf16* B = Bs(c % DX_STAGES);
+#pragma unroll
+    for (int kk = 0; kk < DX_K; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int ra = wm * 32 + m * 16 + (lane & 15), qa = (kk >> 3) + (lane >> 4);
+        ldm_x4(af[m], A + ra * DX_K + 8 * (qa ^ (ra & 7)));
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const int nt = wn * NT + j;
+        if (nt * 8 >= a.cin_p) continue;  // past w1's rows (pairs stay below)
+        uint32_t bf[4];
+        const int n = nt * 8 + ((lane >> 4) & 1) * 8 + (lane & 7);
+        const int kc = (kk >> 3) + ((lane >> 3) & 1);
+        ldm_x4(bf, B + n * DX_K + 8 * (kc ^ (n & 7)));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma16816(acc[m][j], af[m], bf[0], bf[1]);
+          mma16816(acc[m][j + 1], af[m], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = (wn * NT + j) * 8 + 2 * tq;
+      if (n >= Cin) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long p = p0 + wm * 32 + m * 16 + g + 8 * hh;
+        if (p < a.P)
+          *reinterpret_cast<__nv_bfloat162*>(a.dxp + p * Cin + n) =
+              __floats2bfloat162_rn(acc[m][j][2 * hh], acc[m][j][2 * hh + 1]);
+      }
+    }
 }
 
 // ----------------------------------------------- weight gradient dW1^T ----
-// grid (Ce chunks, pixel splits): dW1^T[c][k] = sum_p dvl[p][c] * x[p][k]
-template <int NTW>
-__global__ void __launch_bounds__(NTHREADS) wg_kernel(const Args a) {
+// dW1^T[c][k] = sum_p dvl[p][c] x[p][k]: a GEMM of depth P over groups of 64
+// pixels, both operands pixel-major as B34 and the caller left them, read
+// by ldmatrix.trans from 16-byte cp.async copies (a ring of WG_STAGES).
+// Grid (Ce / 128, pixel splits); 8 warps: 4 pairs of channel m-tiles x 2
+// halves of Cin, NT n-tiles a warp; the split's sums into part2.  Two
+// blocks an SM (at most 128 registers a thread) hide the ring's latency:
+// the widest instance runs in 0.74 of its time at one.
+template <int NT>
+__global__ void __launch_bounds__(WG_THREADS, 2) wg_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const LWG L = lay_wg(a);
-  bf16* dvT = reinterpret_cast<bf16*>(smem + L.dvT);
-  bf16* xT = reinterpret_cast<bf16*>(smem + L.xT);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int c0 = blockIdx.x * CK, split = blockIdx.y, Ce = a.Ce, Cin = a.Cin;
-  const int mw2 = warp & 1, nt2 = warp >> 1;
-  float acc[NTW][4] = {};
-  for (int grp = split; grp < a.n_groups; grp += a.splits) {
-    const long long p0 = (long long)grp * GP;
-    for (int i = tid; i < GP * CK; i += NTHREADS) {
-      const int p = i / CK, c = i % CK;
-      dvT[c * P_LD + p] = p0 + p < a.P && c0 + c < Ce ? a.dvl[(p0 + p) * Ce + c0 + c] : bzero();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int c0 = blockIdx.x * WG_M, split = blockIdx.y, Ce = a.Ce, Cin = a.Cin;
+  const int dv_bytes = a16(2 * WG_GP * WG_M), st_bytes = dv_bytes + a16(2 * WG_GP * a.xt_ld);
+  auto dvs = [&](int s) { return reinterpret_cast<bf16*>(smem + s * st_bytes); };
+  auto xgs = [&](int s) { return reinterpret_cast<bf16*>(smem + s * st_bytes + dv_bytes); };
+  const int n_mine = (a.n_groups - split + a.splits - 1) / a.splits;
+  // group i of this split: dvl rows (64 x 128 channels, chunk ^ row) and x
+  // rows (64 x cin_p, the x tile's swizzle), zero past P, Ce and Cin
+  auto load = [&](int i) {
+    const int s = i % WG_STAGES;
+    const long long p0 = (long long)(split + i * a.splits) * WG_GP;
+    bf16* dv = dvs(s);
+    for (int e = tid; e < WG_GP * (WG_M / 8); e += WG_THREADS) {
+      const int p = e / (WG_M / 8), q = e % (WG_M / 8), col = c0 + 8 * q;
+      const bool in = p0 + p < a.P && col < Ce;
+      cp16(dv + p * WG_M + 8 * (q ^ (p & 7)),
+           in ? (const void*)(a.dvl + (p0 + p) * Ce + col) : (const void*)a.dvl,
+           in ? 16 : 0);
     }
-    for (int i = tid; i < GP * Cin; i += NTHREADS) {
-      const int p = i / Cin, k = i % Cin;
-      xT[k * P_LD + p] = p0 + p < a.P ? a.x[(p0 + p) * Cin + k] : bzero();
+    bf16* xg = xgs(s);
+    const int vq = a.cin_p / 8;
+    for (int e = tid; e < WG_GP * vq; e += WG_THREADS) {
+      const int p = e / vq, q = e % vq;
+      const bool in = p0 + p < a.P && 8 * q < Cin;
+      cp16(xg + p * a.xt_ld + 8 * xs_chunk(a.xt_swz, p, q),
+           in ? (const void*)(a.x + (p0 + p) * Cin + 8 * q) : (const void*)a.x,
+           in ? 16 : 0);
     }
-    __syncthreads();
-    mma_tile<NTW>(acc, dvT, P_LD, mw2 * 16, xT, P_LD, GP, nt2, 4, Cin / 8);
-    __syncthreads();
+  };
+  const int wm = warp & 3, wn = warp >> 2;  // channels c0 + 32 wm, n-tiles wn*NT
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+  for (int i = 0; i < WG_STAGES - 1; ++i) {
+    if (i < n_mine) load(i);
+    cp_commit();
   }
-  for_each_acc<NTW>(acc, mw2 * 16, nt2, 4, Cin / 8, [&](int m, int n, float v) {
-    if (c0 + m < Ce)
-      a.part2[(long long)split * Ce * Cin + (long long)(c0 + m) * Cin + n] = v;
-  });
+  for (int i = 0; i < n_mine; ++i) {
+    cp_wait<WG_STAGES - 2>();
+    __syncthreads();   // group i landed; group i - 1's stage free
+    if (i + WG_STAGES - 1 < n_mine) load(i + WG_STAGES - 1);
+    cp_commit();
+    const bf16* dv = dvs(i % WG_STAGES);
+    const bf16* xg = xgs(i % WG_STAGES);
+#pragma unroll
+    for (int kk = 0; kk < WG_GP; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        // A (channel m, pixel k) stored pixel-major: ldmatrix.trans
+        const int p = kk + ((lane >> 4) & 1) * 8 + (lane & 7);
+        const int q = (wm * 32 + m * 16) / 8 + ((lane >> 3) & 1);
+        ldm_x4_t(af[m], dv + p * WG_M + 8 * (q ^ (p & 7)));
+      }
+      const int pb = kk + (lane & 15);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        if ((wn * NT + j) * 8 >= a.cin_p) continue;  // past the x rows
+        uint32_t bf[4];
+        const int q = (wn * NT + j) + (lane >> 4);
+        ldm_x4_t(bf, xg + pb * a.xt_ld + 8 * xs_chunk(a.xt_swz, pb, q));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma16816(acc[m][j], af[m], bf[0], bf[1]);
+          mma16816(acc[m][j + 1], af[m], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = (wn * NT + j) * 8 + 2 * tq;
+      if (n >= Cin) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = c0 + wm * 32 + m * 16 + g + 8 * hh;
+        if (row < Ce)
+          *reinterpret_cast<float2*>(a.part2 + ((long long)split * Ce + row) * Cin + n) =
+              make_float2(acc[m][j][2 * hh], acc[m][j][2 * hh + 1]);
+      }
+    }
 }
 
 // -------------------------------------------- deterministic reduction ----
@@ -626,12 +1180,13 @@ cudaError_t pick(int need, F launch, NTList<N, Ns...>) {
 }
 
 template <typename K>
-cudaError_t run(K kern, dim3 grid, size_t smem, const Args& a, cudaStream_t s) {
+cudaError_t run(K kern, dim3 grid, size_t smem, const Args& a, cudaStream_t s,
+                int threads = NTHREADS) {
   if (smem > SMEM_MAX) return cudaErrorInvalidConfiguration;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return e;
-  kern<<<grid, NTHREADS, smem, s>>>(a);
+  kern<<<grid, threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -642,7 +1197,11 @@ cudaError_t reduce(const float* part, long long rows, long long cols, float* out
   return cudaGetLastError();
 }
 
-// geometry from dims = (B, H, W, Cin, Ce, Cout, rate); false if unsupported
+// dims = (B, H, W, Cin, Ce, Cout, rate, then the halo phases' plan: th, tw,
+// ck, stages, nt, smem, warps, splits; zeros for the other phases)
+constexpr int N_DIMS = 15;
+
+// geometry from dims; false if the kernel does not take the shape
 bool geometry(int phase, const int* d, Args& a) {
   a = Args{};
   a.B = d[0]; a.H = d[1]; a.W = d[2]; a.Cin = d[3]; a.Ce = d[4]; a.Cout = d[5];
@@ -658,18 +1217,71 @@ bool geometry(int phase, const int* d, Args& a) {
   a.n_chunks = (a.Ce + CK - 1) / CK;
   const int want = (TARGET_CTAS + a.n_chunks - 1) / a.n_chunks;
   a.splits = want < a.n_groups ? want : a.n_groups;
-  a.tiles_x = (a.W + TW - 1) / TW;
-  a.tiles_y = (a.H + TH - 1) / TH;
-  a.n_tiles = a.B * a.tiles_x * a.tiles_y;
   a.cin_p = (a.Cin + 15) / 16 * 16;
   a.xs_ld = a.cin_p + 8;
-  a.hw = TW + 2 * a.rate;
-  a.nh = (TH + 2 * a.rate) * a.hw;
-  a.nh_p = (a.nh + 15) / 16 * 16;
   a.cout_k = (a.Cout + 15) / 16 * 16;
   a.cout_ld = a.cout_k + 8;
+  if (phase == F2 || phase == B34) {
+    if (a.Ce % 8) return false;  // whole 16-byte vectors of every Ce-wide row
+    a.th = d[7]; a.tw = d[8]; a.ck = d[9]; a.stages = d[10]; a.nt = d[11];
+    a.smem = d[12]; a.warps = d[13];
+    if (a.th <= 0 || a.tw <= 0) return false;
+    a.twl = a.tw == 16 ? 4 : 3;
+    a.tiles_x = (a.W + a.tw - 1) / a.tw;
+    a.tiles_y = (a.H + a.th - 1) / a.th;
+    a.n_tiles = a.B * a.tiles_x * a.tiles_y;
+    const int r = a.rate;
+    a.rows = a16((a.th + 2 * r < a.H ? a.th + 2 * r : a.H) *
+                 (a.tw + 2 * r < a.W ? a.tw + 2 * r : a.W));
+    a.xt_swz = (a.cin_p / 8) % 8 == 4;
+    a.xt_ld = a.xt_swz ? a.cin_p : a.cin_p + 8;
+    if (phase == B34) a.splits = d[14];
+  }
   return true;
 }
+
+int wg_smem(const Args& a) {
+  return WG_STAGES * (a16(2 * WG_GP * WG_M) + a16(2 * WG_GP * a.xt_ld));
+}
+
+int dx_smem(const Args& a) { return DX_STAGES * (2 * DX_M * DX_K + 2 * a.cin_p * DX_K); }
+
+// the plan train_plan chose, checked: a tile, chunk, ring and accumulator
+// this file instantiates, and the shared memory its layout reproduces
+bool plan_ok(int phase, const Args& a) {
+  const bool tile = (a.th == 16 && a.tw == 16) || (a.th == 8 && a.tw == 16) ||
+                    (a.th == 8 && a.tw == 8);
+  if (!tile || (a.ck != 16 && a.ck != 32) || a.stages < 2 || a.stages > 3 ||
+      a.warps != HALO_WARPS || a.smem != lay_halo(phase, a).total ||
+      size_t(a.smem) > SMEM_MAX || (a.rows + 1) * esw(a.ck) > 32767)
+    return false;
+  if (phase != B34) return true;
+  // dx and dW1^T: NT n-tiles a warp, two warps across Cin
+  const bool nt = a.nt == 2 || a.nt == 4 || a.nt == 6 || a.nt == 10;
+  return nt && 2 * a.nt * 8 >= a.Cin && a.splits >= 1 && a.splits <= 65535 &&
+         size_t(wg_smem(a)) <= SMEM_MAX && size_t(dx_smem(a)) <= SMEM_MAX;
+}
+
+// The instantiations: TRAIN_TILES and TRAIN_CHUNKS in
+// kernels/fused_mbconv_train.py; TP = TH * TW.
+template <template <int, int> class K>
+cudaError_t launch_halo(const Args& a, cudaStream_t s) {
+  const dim3 grid(a.tiles_x * a.tiles_y, a.B);
+  const int tp = a.th * a.tw;
+#define HALO_CASE(CK_, TP_)                                                   \
+  if (a.ck == CK_ && tp == TP_)                                               \
+    return run(K<CK_, TP_>::fn(), grid, a.smem, a, s, HALO_THREADS);
+  HALO_CASE(16, 64) HALO_CASE(16, 128) HALO_CASE(16, 256)
+  HALO_CASE(32, 64) HALO_CASE(32, 128) HALO_CASE(32, 256)
+#undef HALO_CASE
+  return (cudaError_t)ERR_PLAN;
+}
+template <int CK_, int TP_> struct F2K {
+  static auto fn() { return f2_kernel<CK_, TP_>; }
+};
+template <int CK_, int TP_> struct B34K {
+  static auto fn() { return b34_kernel<CK_, TP_>; }
+};
 
 struct Scratch { size_t dvl, part, part2, total; };
 
@@ -704,8 +1316,8 @@ Scratch scratch_plan(int phase, const Args& a) {
 
 extern "C" {
 
-// Scratch bytes phase `phase` needs at dims (B, H, W, Cin, Ce, Cout, rate),
-// or -1 when the kernel does not take the shape.
+// Scratch bytes phase `phase` needs at dims (B, H, W, Cin, Ce, Cout, rate,
+// plan...), or -1 when the kernel does not take the shape.
 long long mbt_scratch_bytes(int phase, const int* dims) {
   Args a;
   if (phase < F1 || phase > B34 || !geometry(phase, dims, a)) return -1;
@@ -720,12 +1332,18 @@ long long mbt_scratch_bytes(int phase, const int* dims) {
 //   B2:  dq, g, y, a2, c2, mu2, rstd2, w2, gA3, k0, k1, t(2, Ce), dw2, ddh, scratch
 //   B34: x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, u(11, Ce), dxp,
 //        dw1t, scratch
-// Returns 0 or the cudaError_t of the first launch that failed.
+// dims: N_DIMS ints (geometry above).  Returns 0, ERR_ARGS, ERR_PLAN (a plan
+// of train_plan that this file does not reproduce) or the cudaError_t of the
+// first launch that failed.
 int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream) {
   static const int want[] = {4, 8, 5, 15, 16};
   Args a;
   if (phase < F1 || phase > B34 || n_ptrs != want[phase] || !geometry(phase, dims, a))
-    return int(cudaErrorInvalidValue);
+    return ERR_ARGS;
+  if ((phase == F2 || phase == B34) && !plan_ok(phase, a)) return ERR_PLAN;
+  if (phase == F2 || phase == B34)  // 16-byte copies of every operand
+    for (int i = 0; i < n_ptrs; ++i)
+      if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return ERR_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto P = [&](int i) { return ptrs[i]; };
   const Scratch sp = scratch_plan(phase, a);
@@ -738,7 +1356,6 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
     a.part2 = reinterpret_cast<float*>(scratch + sp.part2);
   }
   const long long Ce = a.Ce;
-  const dim3 tiles(a.tiles_x * a.tiles_y, a.B);
   cudaError_t e = cudaSuccess;
   switch (phase) {
     case F1: {
@@ -751,7 +1368,7 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
       a.x = (const bf16*)P(0); a.w1 = (const bf16*)P(1);
       a.a1 = (const float*)P(2); a.c1 = (const float*)P(3); a.wdw = (const float*)P(4);
       a.dq_out = (bf16*)P(6);
-      e = run(f2_kernel, tiles, lay_f2(a).total, a, s);
+      e = launch_halo<F2K>(a, s);
       if (e == cudaSuccess) e = reduce(a.part, a.n_tiles, 2 * Ce, (float*)P(5), s);
       break;
     }
@@ -789,26 +1406,38 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
       a.m0 = (const float*)P(8); a.m1 = (const float*)P(9);
       a.mu1 = (const float*)P(10); a.rstd1 = (const float*)P(11);
       a.dxp = (bf16*)P(13);
-      e = pick((a.Cin / 8 + 1) / 2, [&](auto n) {
-        return run(b34_kernel<decltype(n)::value>, tiles, lay_b34(a).total, a, s);
-      }, NTList<2, 4, 6, 10>{});
+      e = launch_halo<B34K>(a, s);
       if (e == cudaSuccess) e = reduce(a.part, a.n_tiles, 11 * Ce, (float*)P(12), s);
-      if (e == cudaSuccess)
-        e = pick((a.Cin / 8 + 3) / 4, [&](auto n) {
-          return run(wg_kernel<decltype(n)::value>, dim3(a.n_chunks, a.splits),
-                     lay_wg(a).total, a, s);
-        }, NTList<1, 2, 3, 5>{});
+      if (e == cudaSuccess) {
+        const dim3 dgrid(unsigned((a.P + DX_M - 1) / DX_M));
+        const dim3 wgrid((a.Ce + WG_M - 1) / WG_M, a.splits);
+        const int ds = dx_smem(a), ws = wg_smem(a);
+        switch (a.nt) {
+#define NT_CASE(N)                                                            \
+  case N:                                                                     \
+    e = run(dx_kernel<N>, dgrid, ds, a, s, DX_THREADS);                       \
+    if (e == cudaSuccess) e = run(wg_kernel<N>, wgrid, ws, a, s, WG_THREADS); \
+    break;
+          NT_CASE(2) NT_CASE(4) NT_CASE(6) NT_CASE(10)
+#undef NT_CASE
+          default: e = (cudaError_t)ERR_PLAN;
+        }
+      }
       if (e == cudaSuccess)
         e = reduce(a.part2, a.splits, Ce * a.Cin, (float*)P(14), s);
       break;
     }
-    default: e = cudaErrorInvalidValue;
+    default: e = (cudaError_t)ERR_ARGS;
   }
   return int(e);
 }
 
 const char* mbt_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case ERR_ARGS: return "arguments the fused_mbconv_train kernels do not take";
+    case ERR_PLAN: return "a launch plan the fused_mbconv_train kernels do not agree with";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
 }  // extern "C"

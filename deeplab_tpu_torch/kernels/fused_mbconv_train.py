@@ -36,10 +36,17 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import functools
+import math
 import sys
 
 import torch
 import torch.nn.functional as F
+
+from deeplab_tpu_torch.kernels.fused_mbconv import (SM_COUNT, SMEM_LIMIT,
+                                                    _a16, _axis_boxes, _ceil)
+from deeplab_tpu_torch.kernels.fused_mbconv import mbconv_halo as train_halo
 
 PHASES = ("f1", "f2", "f3", "b2", "b34")
 # the TPU kernels they replace: deeplab_tpu/kernels/fused_mbconv_train.py
@@ -59,6 +66,170 @@ PLAIN_BF16_REL, PLAIN_F32_REL = 2.0 ** -7, 1e-3
 FLIP_SHARE, FLIP_REL = 1e-3, 0.05
 
 _PHASE_ID = {n: i for i, n in enumerate(PHASES)}
+
+# ---------------------------------------------------------------------------
+# launch plan of the halo phases F2 and B34 (csrc/fused_mbconv_train.cu
+# checks it and never recomputes it differently)
+# ---------------------------------------------------------------------------
+
+TRAIN_WARPS = 16             # F2 and B34: 512 threads, at most 128 registers
+# output tiles (TH, TW) and expanded channels per chunk the plan may choose
+TRAIN_TILES = ((16, 16), (8, 16), (8, 8))
+TRAIN_CHUNKS = (32, 16)
+# B34's second and third kernels, dx = dvl @ w1^T and dW1^T = dvl^T x: 8
+# warps a block, two m-tiles and one half of Cin (NT n-tiles) a warp, rings
+# of 3.  dx: 128 pixels a block, Ce in chunks of DX_K; dW1^T: 128 expanded
+# channels a block, 64 pixels a k-step
+WG_WARPS, WG_M, WG_GP, WG_STAGES = 8, 128, 64, 3
+DX_WARPS, DX_M, DX_K, DX_STAGES = 8, 128, 64, 3
+WG_NT = (2, 4, 6, 10)
+TAB_LD = 16                  # tap-table entries a pixel (9 used)
+# the cost model, clocks a block spends per chunk: a fixed part (barriers,
+# copies, loop), per round of the expand's 32-pixel units per 16-deep
+# k-step, per tap pass of a channel pair a thread (F2's 9 taps; B34's 18
+# and its elementwise terms count 2.5), and per halo value of dd converted
+# a thread
+_CLK_CHUNK, _CLK_EXPAND, _CLK_TAPS, _CLK_DD = 2150.0, 97.0, 1060.0, 60.0
+
+
+def _box_rows(H, W, th, tw, rate) -> int:
+    """Rows of the largest in-image halo box, in whole m-tiles of 16."""
+    return _a16(min(th + 2 * rate, H) * min(tw + 2 * rate, W))
+
+
+def _xs_ld(Cin) -> int:
+    """Row stride (bf16) of the x tile: rows of 4 (mod 8) 16-byte chunks are
+    swizzled, others padded by one chunk."""
+    cin_p = _a16(Cin)
+    return cin_p if (cin_p // 8) % 8 == 4 else cin_p + 8
+
+
+def train_smem(phase, H, W, Cin, rate, th, tw, ck, stages) -> int:
+    """Dynamic shared memory of one F2 or B34 block, in the layout of
+    csrc/fused_mbconv_train.cu (``lay_halo``).  Both: the x tile over the
+    in-image halo box, the expanded activation aq of a chunk (bf16, plus a
+    zero row), the tap table, the per-warp sums, and ``stages`` buffers of
+    one chunk's w1 slice, taps and per-channel vectors.  B34 adds dd (f32,
+    plus a zero row) with dq's raw rows, eq at the tile's pixels, and the
+    box-row-to-pixel table."""
+    cin_p, tp = _a16(Cin), th * tw
+    rows = _box_rows(H, W, th, tw, rate)
+    common = (_a16(2 * rows * _xs_ld(Cin)) + _a16(2 * (rows + 1) * ck)
+              + _a16(2 * TAB_LD * tp))
+    if phase == "f2":
+        stage = _a16(2 * cin_p * ck) + 2 * _a16(4 * ck) + _a16(4 * 9 * ck)
+        return (common + _a16(4 * 2 * TRAIN_WARPS * ck) + stages * stage)
+    stage = _a16(2 * cin_p * ck) + _a16(4 * 9 * ck) + 7 * _a16(4 * ck)
+    return (common + _a16(4 * (rows + 1) * ck) + _a16(2 * rows * ck)
+            + _a16(2 * tp * ck) + _a16(2 * rows)
+            + _a16(4 * 11 * TRAIN_WARPS * ck) + stages * stage)
+
+
+def tap_offset_fits(H, W, th, tw, rate, ck) -> bool:
+    """The tap table holds word offsets into aq as 16-bit integers."""
+    return (_box_rows(H, W, th, tw, rate) + 1) * (ck // 2) <= 32767
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """One F2 or B34 launch: a block of ``warps`` warps per (TH x TW output
+    tile, image), expanded channels in chunks of ``ck`` through a ring of
+    ``stages`` buffers, ``smem`` bytes of dynamic shared memory, the grid
+    ``(tiles_y * tiles_x, B)``; B34 also its dx and dW1^T kernels' ``nt``
+    n-tiles a warp, dW1^T over ``splits`` pixel splits."""
+    phase: str
+    th: int
+    tw: int
+    ck: int
+    stages: int
+    nt: int
+    smem: int
+    tiles_y: int
+    tiles_x: int
+    B: int
+    warps: int
+    splits: int
+    halo: float      # expanded pixels per output pixel, over the whole map
+    est_clk: float   # the cost model's estimate (clocks), for the choice
+
+    @property
+    def grid(self):
+        return (self.tiles_y * self.tiles_x, self.B)
+
+    @property
+    def fields(self):
+        """What the launcher takes after the shape: (th, tw, ck, stages, nt,
+        smem, warps, splits)."""
+        return (self.th, self.tw, self.ck, self.stages, self.nt, self.smem,
+                self.warps, self.splits)
+
+
+def wg_smem(Cin) -> int:
+    """Dynamic shared memory of one dW1^T block: WG_STAGES buffers of a
+    64-pixel group's dvl (128 channels) and x rows."""
+    return WG_STAGES * (_a16(2 * WG_GP * WG_M) + _a16(2 * WG_GP * _xs_ld(Cin)))
+
+
+def dx_smem(Cin) -> int:
+    """Dynamic shared memory of one dx block: DX_STAGES buffers of 128
+    pixels' dvl and of w1's rows (Cin padded to 16), DX_K channels each."""
+    return DX_STAGES * (2 * DX_M * DX_K + 2 * _a16(Cin) * DX_K)
+
+
+@functools.lru_cache(maxsize=512)
+def train_plan(phase, B, H, W, Cin, Ce, Cout, rate) -> TrainPlan:
+    """Choose the tile, chunk and ring depth of an F2 or B34 launch.  Among
+    the tiles and chunks whose shared memory fits, take the least estimated
+    time: whole waves of one block per SM, times the chunks, times the cost
+    model's clocks per chunk.  Then three stages where they fit, else two.
+    B34's dx and dW1^T kernels hold half of Cin a warp; dW1^T runs over
+    pixel splits for about two blocks per SM."""
+    if phase not in ("f2", "b34"):
+        raise ValueError(f"no launch plan for phase {phase!r}")
+    if Cin % 8 or Ce % 8 or Cin > 160 or rate < 1:
+        raise ValueError(f"{phase}: unsupported shape Cin={Cin} Ce={Ce} "
+                         f"rate={rate}")
+    best = None
+    ksteps = _ceil(Cin, 16)
+    for th, tw in TRAIN_TILES:
+        tp = th * tw
+        ty, tx = _ceil(H, th), _ceil(W, tw)
+        boxes = max(y * x for y in _axis_boxes(H, th, rate)
+                    for x in _axis_boxes(W, tw, rate))
+        for ck in TRAIN_CHUNKS:
+            if (train_smem(phase, H, W, Cin, rate, th, tw, ck, 2) > SMEM_LIMIT
+                    or not tap_offset_fits(H, W, th, tw, rate, ck)):
+                continue
+            units = _ceil(_ceil(boxes, 16), 2) * (ck // 16)
+            taps = tp * ck / (2 * 32 * TRAIN_WARPS)
+            clk = (_CLK_CHUNK + _CLK_EXPAND * _ceil(units, TRAIN_WARPS)
+                   * ksteps)
+            if phase == "f2":
+                clk += _CLK_TAPS * taps
+            else:
+                clk += (2.5 * _CLK_TAPS * taps
+                        + _CLK_DD * boxes * ck / (32 * TRAIN_WARPS))
+            est = math.ceil(B * ty * tx / SM_COUNT) * _ceil(Ce, ck) * clk
+            if best is None or est < best[0]:
+                best = (est, th, tw, ck, ty, tx)
+    if best is None:
+        raise ValueError(f"{phase}: no tile fits Cin={Cin} rate={rate} at "
+                         f"{H}x{W}")
+    est, th, tw, ck, ty, tx = best
+    stages = 3 if train_smem(phase, H, W, Cin, rate, th, tw, ck,
+                             3) <= SMEM_LIMIT else 2
+    nt = splits = 0
+    if phase == "b34":
+        nt = min(n for n in WG_NT if 2 * n * 8 >= Cin)
+        m_blocks = _ceil(Ce, WG_M)
+        groups = _ceil(B * H * W, WG_GP)
+        splits = max(1, min(groups, _ceil(2 * SM_COUNT, m_blocks)))
+    return TrainPlan(phase, th, tw, ck, stages, nt,
+                     train_smem(phase, H, W, Cin, rate, th, tw, ck, stages),
+                     ty, tx, B, TRAIN_WARPS, splits,
+                     train_halo(H, W, th, tw, rate), est)
+
+
 _SIG = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
 
@@ -206,8 +377,11 @@ def b34_reference(x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, *,
 # kernel wrappers: a CUDA tensor launches the phase's kernel or raises
 # ---------------------------------------------------------------------------
 
-def _dims(B, H, W, Cin, Ce, Cout, rate):
-    return (ctypes.c_int * 7)(B, H, W, Cin, Ce, Cout, rate)
+def _dims(B, H, W, Cin, Ce, Cout, rate, plan=None):
+    """The launcher's dims: the shape, then the halo phases' plan
+    (``TrainPlan.fields``; zeros for the other phases)."""
+    fields = plan.fields if plan is not None else (0,) * 8
+    return (ctypes.c_int * 15)(B, H, W, Cin, Ce, Cout, rate, *fields)
 
 
 def _launch(name: str, tensors, dims):
@@ -273,8 +447,9 @@ def f2(x, w1, a1, c1, wdw, *, rate: int):
                      ("c1", c1, (Ce,), _F32), ("wdw", wdw, (9, Ce), _F32)])
     out = torch.empty((2, Ce), dtype=_F32, device=x.device)
     dq = torch.empty((B, H, W, Ce), dtype=x.dtype, device=x.device)
+    plan = train_plan("f2", B, H, W, Cin, Ce, 8, rate)
     _launch("f2", [x, w1, a1, c1, wdw, out, dq],
-            _dims(B, H, W, Cin, Ce, 8, rate))
+            _dims(B, H, W, Cin, Ce, 8, rate, plan))
     f2.launches += 1
     return out[0], out[1], dq
 
@@ -329,8 +504,9 @@ def b34(x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, *, rate: int):
     u = torch.empty((11, Ce), dtype=_F32, device=x.device)
     dxp = torch.empty((B, H, W, Cin), dtype=x.dtype, device=x.device)
     dw1t = torch.empty((Ce, Cin), dtype=_F32, device=x.device)
+    plan = train_plan("b34", B, H, W, Cin, Ce, 8, rate)
     _launch("b34", [x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, u,
-                    dxp, dw1t], _dims(B, H, W, Cin, Ce, 8, rate))
+                    dxp, dw1t], _dims(B, H, W, Cin, Ce, 8, rate, plan))
     b34.launches += 1
     return u[0], u[1], u[2:], dxp, dw1t
 

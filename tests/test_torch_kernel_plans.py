@@ -2,8 +2,10 @@
 
 ``fused_mbconv``'s plan (``kernels/fused_mbconv.py::mbconv_plan``), the
 CRF row blur's (``kernels/crf_fused.py::blur_plan``), the splat's
-(``splat_plan``) and the mean-field step's (``step_plan``) are plain Python
-that the CUDA launchers check and never recompute differently.  Here: every
+(``splat_plan``), the mean-field step's (``step_plan``) and the training
+block's halo phases' (``kernels/fused_mbconv_train.py::train_plan``) are
+plain Python that the CUDA launchers check and never recompute
+differently.  Here: every
 main-path shape fits in a block's 232,448 bytes of shared memory; the tiles,
 warps, chunks and label groups cover every output exactly once, ragged
 edges included (the kernels' index arithmetic, mirrored); the recompute
@@ -23,6 +25,7 @@ from deeplab_tpu_torch import crf as CRF
 from deeplab_tpu_torch.crf import dense_crf as DC
 from deeplab_tpu_torch.kernels import crf_fused as CK
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
+from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 from deeplab_tpu_torch.models import mobilenetv2 as M
 
 LIMIT = 232448
@@ -514,3 +517,219 @@ def test_step_scratch_index_map_round_trips():
         for lab in (0, 3, 4, 7, 8, L - 1):
             assert (scratch[(lab // 4) * n3 * 4 + li_off + lab % 4]
                     == grid.reshape(-1)[dc_off + lab * C])
+
+
+# ---------------------------------------------------------------------------
+# The training block's halo phases F2 and B34 (csrc/fused_mbconv_train.cu)
+# and B34's dW1^T kernel: launch plans (kernels/fused_mbconv_train.py::
+# train_plan).
+
+# tests/test_torch_kernels_gpu.py's training shapes: (rate, Cin, Ce, H, W)
+# at B=2, ragged maps included
+TRAIN_GPU_SHAPES = [(1, 24, 144, 20, 36), (2, 32, 200, 16, 13),
+                    (4, 16, 96, 8, 8), (4, 160, 960, 16, 16),
+                    (2, 32, 192, 24, 24), (4, 160, 960, 19, 35),
+                    (2, 96, 576, 37, 21), (1, 24, 144, 26, 7)]
+
+
+def _train_cases():
+    for B in (2, 16):
+        for cin, ce, cout, rate, hw in MAIN:
+            yield B, hw, hw, cin, ce, cout, rate
+    for rate, cin, ce, H, W in TRAIN_GPU_SHAPES:
+        yield 2, H, W, cin, ce, 8, rate
+    for cin, ce, cout, rate, _ in MAIN:
+        for H, W in ((37, 21), (26, 7)):
+            yield 2, H, W, cin, ce, cout, rate
+
+
+@pytest.mark.parametrize("phase", ["f2", "b34"])
+@pytest.mark.parametrize("case", list(_train_cases()))
+def test_train_plan_fits_and_is_instantiated(case, phase):
+    B, H, W, cin, ce, cout, rate = case
+    p = FMT.train_plan(phase, B, H, W, cin, ce, cout, rate)
+    assert p.smem <= LIMIT
+    assert p.smem == FMT.train_smem(phase, H, W, cin, rate, p.th, p.tw, p.ck,
+                                    p.stages)
+    assert (p.th, p.tw) in FMT.TRAIN_TILES and p.ck in FMT.TRAIN_CHUNKS
+    assert p.stages in (2, 3) and p.warps == FMT.TRAIN_WARPS
+    assert p.grid == (p.tiles_y * p.tiles_x, B) and B <= 65535
+    # the tap table's 16-bit word offsets reach the zero row
+    rows = FMT._box_rows(H, W, p.th, p.tw, rate)
+    assert (rows + 1) * (p.ck // 2) <= 32767
+    if phase == "b34":
+        assert p.nt in FMT.WG_NT and 2 * p.nt * 8 >= cin
+        assert 1 <= p.splits <= -(-B * H * W // FMT.WG_GP)
+        assert FMT.wg_smem(cin) <= LIMIT and FMT.dx_smem(cin) <= LIMIT
+    else:
+        assert p.nt == p.splits == 0
+
+
+def _train_coverage(H, W, th, tw, rate, ck, phase):
+    """The halo kernels' tile, box, tap-table, box-row-table and taps
+    arithmetic (csrc/fused_mbconv_train.cu), mirrored: the count of each
+    output pixel, the largest box, and for one tile the count of each
+    (tile pixel, channel) the taps visit."""
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    twl = {8: 3, 16: 4}[tw]
+    rows = FMT._box_rows(H, W, th, tw, rate)
+    seen, nv_max = {}, 0
+    for blk in range(tiles_x * tiles_y):
+        ty0, tx0 = (blk // tiles_x) * th, (blk % tiles_x) * tw
+        sy0, sx0 = max(ty0 - rate, 0), max(tx0 - rate, 0)
+        sy1, sx1 = min(ty0 + th + rate, H), min(tx0 + tw + rate, W)
+        hx = sx1 - sx0
+        nv = (sy1 - sy0) * hx
+        nv_max = max(nv_max, nv)
+        ctab = {}
+        for hp in range(rows):
+            if hp < nv:
+                py, px = sy0 + hp // hx - ty0, sx0 + hp % hx - tx0
+                if 0 <= py < th and 0 <= px < tw:
+                    ctab[hp] = py * tw + px
+        for p in range(th * tw):
+            gy, gx = ty0 + (p >> twl), tx0 + (p & (tw - 1))
+            inside = gy < H and gx < W
+            for tap in range(9):
+                yy, xx = gy + (tap // 3 - 1) * rate, gx + (tap % 3 - 1) * rate
+                ok = inside and 0 <= yy < H and 0 <= xx < W
+                R = (yy - sy0) * hx + xx - sx0 if ok else rows
+                if ok:  # a tap in the image lies in the box, at its pixel
+                    assert 0 <= R < nv and R < rows
+                    assert (sy0 + R // hx, sx0 + R % hx) == (yy, xx)
+                if tap == 4:  # the centre tap says whether the pixel counts
+                    assert (R != rows) == inside
+                    if inside:
+                        assert ctab[R] == p
+            if inside:
+                seen[gy, gx] = seen.get((gy, gx), 0) + 1
+        # each pixel of the tile that lies in the image has one box row
+        assert sorted(ctab.values()) == sorted(
+            p for p in range(th * tw)
+            if ty0 + (p >> twl) < H and tx0 + (p & (tw - 1)) < W)
+    # the taps: F2 four channels a thread, B34 two
+    per = 4 if phase == "f2" else 2
+    cl, warps = ck // per, FMT.TRAIN_WARPS
+    sub, tp = 32 // cl, th * tw
+    step = warps * sub
+    taps = {}
+    for warp in range(warps):
+        for lane in range(32):
+            for k in range(-(-tp // step)):
+                p = warp * sub + lane // cl + k * step
+                if p >= tp:
+                    break
+                for c in range(per * (lane % cl), per * (lane % cl) + per):
+                    taps[p, c] = taps.get((p, c), 0) + 1
+    return seen, nv_max, rows, taps
+
+
+@pytest.mark.parametrize("phase", ["f2", "b34"])
+@pytest.mark.parametrize("case", [
+    (16, 64, 64, 160, 960, 160, 4), (16, 64, 64, 160, 960, 320, 4),
+    (16, 64, 64, 64, 384, 64, 2), (16, 128, 128, 24, 144, 24, 1),
+    (2, 37, 21, 96, 576, 160, 2), (2, 26, 7, 32, 192, 64, 1),
+    (2, 19, 35, 160, 960, 160, 4), (2, 8, 8, 16, 96, 16, 4),
+    (2, 20, 36, 24, 144, 24, 1), (2, 16, 13, 32, 200, 64, 2)])
+def test_train_tiles_cover_every_output_once(case, phase):
+    """Each tile and chunk the kernels may be given (where it fits), at the
+    net's maps and ragged ones."""
+    B, H, W, cin, ce, cout, rate = case
+    for tile in FMT.TRAIN_TILES:
+        for ck in FMT.TRAIN_CHUNKS:
+            if FMT.train_smem(phase, H, W, cin, rate, *tile, ck, 2) > LIMIT:
+                continue
+            seen, nv_max, rows, taps = _train_coverage(H, W, *tile, rate, ck,
+                                                       phase)
+            assert len(seen) == H * W and set(seen.values()) == {1}
+            assert -(-nv_max // 16) * 16 <= rows
+            assert len(taps) == tile[0] * tile[1] * ck
+            assert set(taps.values()) == {1}
+
+
+@pytest.mark.parametrize("P,cin", [(2 * 64 * 64, 160), (2 * 37 * 21, 96),
+                                   (2 * 26 * 7, 24), (16 * 64 * 64, 64)])
+def test_train_dx_warps_cover_each_output_once(P, cin):
+    """dx's blocks (128 pixels), warps (two pixel m-tiles and one half of
+    Cin each) and stored n-tiles cover each (pixel, input channel) of dx
+    once; the pairs of n-tiles they load lie in w1's rows padded to 16."""
+    nt, cin_p = FMT.train_plan("b34", 2, 64, 64, cin, 6 * cin, 8, 1).nt, \
+        -(-cin // 16) * 16
+    got = {}
+    for blk in range(-(-P // FMT.DX_M)):
+        for warp in range(FMT.DX_WARPS):
+            wm, wn = warp & 3, warp >> 2
+            for j in range(0, nt, 2):
+                if (wn * nt + j) * 8 >= cin_p:   # the kernel skips the pair
+                    continue
+                assert (wn * nt + j + 2) * 8 <= cin_p
+                for jj in (j, j + 1):
+                    for m in range(2):
+                        for r in range(16):
+                            p = blk * FMT.DX_M + wm * 32 + m * 16 + r
+                            for n in range((wn * nt + jj) * 8,
+                                           (wn * nt + jj) * 8 + 8):
+                                if p < P and n < cin:
+                                    got[p, n] = got.get((p, n), 0) + 1
+    assert len(got) == P * cin and set(got.values()) == {1}
+
+
+@pytest.mark.parametrize("cin,ce", [(24, 144), (32, 192), (64, 384),
+                                    (96, 576), (160, 960), (16, 96),
+                                    (32, 200)])
+def test_train_weight_gradient_warps_cover_each_entry_once(cin, ce):
+    """dW1^T's blocks (128 channels of Ce), warps (two channel m-tiles and
+    one half of Cin each) and stored n-tiles cover each (channel, input
+    channel) of the (Ce, Cin) gradient once; its pixel splits each group of
+    64 pixels once."""
+    p = FMT.train_plan("b34", 2, 64, 64, cin, ce, 8, 2)
+    nt, cin_p = p.nt, -(-cin // 16) * 16
+    got = {}
+    for blk in range(-(-ce // FMT.WG_M)):
+        for warp in range(FMT.WG_WARPS):
+            wm, wn = warp & 3, warp >> 2
+            for j in range(0, nt, 2):
+                if (wn * nt + j) * 8 >= cin_p:   # the kernel skips the pair
+                    continue
+                for jj in (j, j + 1):
+                    for m in range(2):
+                        for r in range(16):
+                            row = blk * FMT.WG_M + wm * 32 + m * 16 + r
+                            for n in range((wn * nt + jj) * 8,
+                                           (wn * nt + jj) * 8 + 8):
+                                if row < ce and n < cin:
+                                    got[row, n] = got.get((row, n), 0) + 1
+    assert len(got) == ce * cin and set(got.values()) == {1}
+    groups = -(-2 * 64 * 64 // FMT.WG_GP)
+    mine = [g for s in range(p.splits)
+            for g in range(s, groups, p.splits)]
+    assert sorted(mine) == list(range(groups))
+
+
+@pytest.mark.parametrize("tile,rate,factor", [
+    ((16, 16), 1, 1.25), ((16, 16), 2, 1.44), ((16, 16), 4, 1.89),
+    ((8, 16), 4, 2.58)])
+def test_train_halo_factor_stated_in_the_header(tile, rate, factor):
+    """csrc/fused_mbconv_train.cu states these for a 64x64 map, beside the
+    full boxes of fixed 8x8 tiles that the design replaced."""
+    got = FMT.train_halo(64, 64, *tile, rate)
+    assert abs(got - factor) <= 0.005
+    with open(FMT.__file__.replace("fused_mbconv_train.py",
+                                   "csrc/fused_mbconv_train.cu")) as f:
+        header = f.read().split("#include")[0]
+    assert f"{factor:.2f}x" in header
+    for r, old in ((1, 1.56), (2, 2.25), (4, 4.00)):
+        assert f"{old:.2f}x" in header
+        assert round((8 + 2 * r) ** 2 / 64, 2) == old
+
+
+def test_train_main_path_plans_at_the_training_batch():
+    """At B=16 the rate-4 blocks expand at most 2.58 pixels per output pixel
+    in both phases (the fixed 8x8 tiles over full boxes: 4.00), and every
+    block shape at most the old tiles' full box."""
+    for cin, ce, cout, rate, hw in MAIN:
+        for phase in ("f2", "b34"):
+            p = FMT.train_plan(phase, 16, hw, hw, cin, ce, cout, rate)
+            assert p.halo <= (8 + 2 * rate) ** 2 / 64
+            if rate == 4:
+                assert p.halo <= 2.58 + 0.005, (phase, p)

@@ -517,12 +517,90 @@ def test_train_phase_kernels_match_reference(cuda, rate, skip, Cin, Ce, Cout,
         assert ok, (name, err, rel)
 
 
+# the training block's shapes on the 512x512 net: (Cin, Ce, Cout, rate,
+# skip, map side)
+TRAIN_BLOCKS = [(24, 144, 24, 1, True, 128), (32, 192, 32, 1, True, 64),
+                (32, 192, 64, 1, False, 64), (64, 384, 64, 2, True, 64),
+                (64, 384, 96, 2, False, 64), (96, 576, 96, 2, True, 64),
+                (96, 576, 160, 2, False, 64), (160, 960, 160, 4, True, 64),
+                (160, 960, 320, 4, False, 64)]
+
+
+def _halo_phases_match(dev, rate, skip, Cin, Ce, Cout, H, W):
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    calls = _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W)
+    for name in ("f2", "b34"):
+        args, kw, want = calls[name][0]
+        kernel = getattr(FMT, name)
+        before = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err, rel, ok = FMT.max_err_vs_plain(got, want)
+        assert ok, (name, err, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(None, None), (37, 21), (19, 35)])
+@pytest.mark.parametrize("block", TRAIN_BLOCKS)
+def test_halo_phases_at_every_block_shape(cuda, block, H, W):
+    """F2 and B34 at each block shape of the net, B=2: on its own map, and
+    on two ragged maps that no tile divides.  (On a 26x7 map, 364 pixels,
+    the widest blocks' U2 differs from the plain version's at two channels
+    by one bf16 rounding of eq, whose f32 sums the tensor cores and the
+    plain product add in different orders; FLIP_* allows one such element
+    of a (Ce,) sum.)"""
+    Cin, Ce, Cout, rate, skip, side = block
+    H, W = (side, side) if H is None else (H, W)
+    _halo_phases_match(cuda, rate, skip, Cin, Ce, Cout, H, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ck", [32, 16])
+@pytest.mark.parametrize("tile", [(16, 16), (8, 16), (8, 8)])
+@pytest.mark.parametrize("block,H,W", [
+    ((24, 144, 24, 1, True), 20, 36),
+    ((64, 384, 64, 2, True), 21, 19),
+    ((96, 576, 96, 4, True), 19, 35),
+    ((160, 960, 160, 4, False), 19, 35),   # the widest: some tiles refused
+    ((32, 200, 64, 2, False), 16, 13),     # Ce not a multiple of the chunk
+])
+def test_halo_phases_at_each_tile(cuda, monkeypatch, ck, tile, block, H, W):
+    """Each tile and chunk train_plan can choose, forced, for F2 and B34 at
+    ragged maps: the halo box clipped at every edge, the ring, the dx
+    accumulator layout.  A tile the plan cannot take (shared memory, or no
+    instantiated accumulator) is refused there with ValueError."""
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    Cin, Ce, Cout, rate, skip = block
+    monkeypatch.setattr(FMT, "TRAIN_TILES", (tile,))
+    monkeypatch.setattr(FMT, "TRAIN_CHUNKS", (ck,))
+    FMT.train_plan.cache_clear()
+    try:
+        fits = {}
+        for phase in ("f2", "b34"):
+            try:
+                p = FMT.train_plan(phase, 2, H, W, Cin, Ce, 8, rate)
+                assert (p.th, p.tw, p.ck) == tile + (ck,)
+                fits[phase] = True
+            except ValueError:
+                fits[phase] = False
+        assert fits["f2"] or not fits["b34"]   # B34 needs more than F2
+        if fits["b34"]:
+            _halo_phases_match(cuda, rate, skip, Cin, Ce, Cout, H, W)
+        elif fits["f2"]:
+            calls = _train_block_calls(cuda, rate, skip, Cin, Ce, Cout, H, W)
+            args, kw, want = calls["f2"][0]
+            assert FMT.max_err_vs_plain(FMT.f2(*args, **kw), want)[2]
+    finally:
+        FMT.train_plan.cache_clear()
+
+
 @pytest.mark.gpu
 def test_train_phase_sums_repeat_bit_for_bit(cuda):
     """Per-block partials and a fixed-order second pass: no atomics."""
     from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     calls = _train_block_calls(cuda, 2, True, 32, 192, 32, 24, 24)
-    for name in ("f1", "b2", "b34"):
+    for name in ("f1", "f2", "b2", "b34"):
         args, kw, _ = calls[name][0]
         a = getattr(FMT, name)(*args, **kw)
         b = getattr(FMT, name)(*args, **kw)
