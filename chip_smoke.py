@@ -119,7 +119,14 @@ five phases: each held to its plain version and timed (CUDA events, and
 device time in a CUDA graph) beside its bound at every block shape of the
 net at B=16, per step, with a ``torch.profiler`` split of B34 by kernel.
 ``--train-plan-sweep`` times every tile and chunk that the halo phases'
-launch plan (``train_plan``) may choose at those shapes.
+launch plan (``train_plan``) may choose at those shapes.  B2 and B34 are
+also split by kernel there.  ``--sepconv-shapes`` holds ``fused_sepconv``
+to its plain version and times it at each launch shape of the Xception net
+at B=8, output stride 16 and 8, beside its bound and the cuDNN composition,
+with the build's registers and spills (public API only, so a copy run from
+a parent checkout times the parent's kernel); ``--sepconv-plan-sweep``
+times every chunk and pass width that ``sepconv_plan`` may choose at those
+shapes.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -179,6 +186,29 @@ XCEPTION_OS, SEPCONV_PER_FORWARD = 16, 65
 # be at most 1.5x as far from float32 as the composition (max |error|) and
 # trail its argmax agreement with float32 by at most F32_AGREE_MARGIN.
 SEPCONV_F32_RATIO = 1.5
+# The stride-1 SepConv_BN launches of the 512x512 Xception net per forward,
+# at output stride 16 and 8: (Cin, Cout, rate, map side, pre_relu) ->
+# launches (pre_relu False: depth_activation, ReLU after each BN).
+# tests/test_torch_kernel_plans.py holds the same table to the net's calls.
+XCEPTION_SHAPES = {
+    16: {(64, 128, 1, 256, True): 1, (128, 128, 1, 256, True): 1,
+         (128, 256, 1, 128, True): 1, (256, 256, 1, 128, True): 1,
+         (256, 728, 1, 64, True): 1, (728, 728, 1, 64, True): 1,
+         (728, 728, 1, 32, True): 49, (728, 1024, 1, 32, True): 1,
+         (1024, 1024, 1, 32, True): 1, (1024, 1536, 2, 32, False): 1,
+         (1536, 1536, 2, 32, False): 1, (1536, 2048, 2, 32, False): 1,
+         (2048, 256, 6, 32, False): 1, (2048, 256, 12, 32, False): 1,
+         (2048, 256, 18, 32, False): 1, (304, 256, 1, 128, False): 1,
+         (256, 256, 1, 128, False): 1},
+    8: {(64, 128, 1, 256, True): 1, (128, 128, 1, 256, True): 1,
+        (128, 256, 1, 128, True): 1, (256, 256, 1, 128, True): 1,
+        (256, 728, 1, 64, True): 1, (728, 728, 1, 64, True): 2,
+        (728, 728, 2, 64, True): 49, (728, 1024, 2, 64, True): 1,
+        (1024, 1024, 2, 64, True): 1, (1024, 1536, 4, 64, False): 1,
+        (1536, 1536, 4, 64, False): 1, (1536, 2048, 4, 64, False): 1,
+        (2048, 256, 12, 64, False): 1, (2048, 256, 24, 64, False): 1,
+        (2048, 256, 36, 64, False): 1, (304, 256, 1, 128, False): 1,
+        (256, 256, 1, 128, False): 1}}
 
 CRF_PER_REQUEST = {"splat_planes": 6, "slice_attrs_planes": 1,
                    "gaussian_blur_planes": 5, "mf_step_planes": 5}
@@ -525,6 +555,161 @@ def sepconv_bound_ms(B, H, W, cin, cout, act_bytes):
     return 1e3 * t, ("bytes" if t == t_bytes else "operations")
 
 
+def sepconv_composition(x, w, rate, pre_relu, act):
+    """The fused SepConv_BN as the plain layer composition under "mixed",
+    its yardstick: two cuDNN convs in bf16 with the folded BN as their bias
+    (the 3x3 depthwise at the rate, grouped, then the 1x1 pointwise), the
+    ReLUs where the layer has them, the output in f32.  x (B, H, W, Cin)
+    f32; returns a callable."""
+    import torch.nn.functional as F
+    wdw, bdw, wpw, bpw = w
+    cin = wdw.shape[1]
+    bf = torch.bfloat16
+    kd = wdw.t().reshape(cin, 1, 3, 3).contiguous().to(bf)
+    kp = wpw.t().contiguous().to(bf)[:, :, None, None]
+    bdw, bpw = bdw.to(bf), bpw.to(bf)
+    xn = x.permute(0, 3, 1, 2)          # channels-last memory
+
+    def run():
+        v = xn.to(bf)
+        if pre_relu:
+            v = torch.relu(v)
+        d = F.conv2d(v, kd, bdw, padding=rate, dilation=rate, groups=cin)
+        if act:
+            d = torch.relu(d)
+        o = F.conv2d(d, kp, bpw)
+        if act:
+            o = torch.relu(o)
+        return o.float()
+    return run
+
+
+def sepconv_weights(cin, cout, dev, gen):
+    """Seeded folded weights of one SepConv_BN: (wdw, bdw, wpw, bpw)."""
+    wdw = torch.randn((9, cin), generator=gen, device=dev) * 0.3
+    bdw = torch.randn((cin,), generator=gen, device=dev) * 0.1
+    wpw = (torch.randn((cin, cout), generator=gen, device=dev)
+           * cin ** -0.5).to(torch.bfloat16)
+    bpw = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    return wdw, bdw, wpw, bpw
+
+
+def sepconv_shape_times(card) -> dict:
+    """``--sepconv-shapes``: ``fused_sepconv`` at each launch shape of the
+    512x512 Xception net at B=8, output stride 16 and 8, "mixed", seeded
+    weights: held to its plain version (KERNEL_REL_TOL), timed with CUDA
+    events and as device time in a CUDA graph, beside its bound and the
+    cuDNN composition; per forward (each shape times its launches).  Uses
+    only the wrapper's public API, so a copy of this file run from the root
+    of a parent checkout times that checkout's kernel.  Returns {OS: per
+    forward totals}."""
+    from deeplab_tpu_torch.kernels import fused_mbconv as FM
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    res, bad = {}, []
+    for OS, shapes in XCEPTION_SHAPES.items():
+        tot = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+               "composition_ms": 0.0}
+        for (cin, cout, rate, side, pre), n in shapes.items():
+            w = sepconv_weights(cin, cout, dev, gen)
+            x = torch.randn((SERVE_B, side, side, cin), generator=gen,
+                            device=dev)
+            kw = dict(rate=rate, pre_relu=pre, act_mid=not pre,
+                      act_out=not pre, mxu_bf16=True)
+            with torch.inference_mode():
+                got = FM.fused_sepconv(x, *w, **kw)
+                ref = FM.fused_sepconv_reference(x, *w, **kw)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                ok = math.isfinite(err) and err <= KERNEL_REL_TOL["mixed"] * scale
+                del got, ref
+                ms = cuda_ms(lambda: FM.fused_sepconv(x, *w, **kw), 10)
+                dev_ms = graph_ms(lambda: FM.fused_sepconv(x, *w, **kw), 5)
+                comp = cuda_ms(sepconv_composition(x, w, rate, pre, not pre),
+                               10)
+            bms, bb = sepconv_bound_ms(SERVE_B, side, side, cin, cout, 4)
+            for k, v in (("ms", ms), ("device_ms", dev_ms),
+                         ("bound_ms", bms), ("composition_ms", comp)):
+                tot[k] += n * v
+            if not ok:
+                bad.append((OS, cin, cout, rate, side))
+            print(f"  OS {OS} {cin}->{cout} rate {rate} {side}x{side} "
+                  f"pre_relu {int(pre)} x{n} B={SERVE_B}: kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f}), composition {comp:.4f} ms, bound "
+                  f"{bms:.4f} ms ({bb}), {bms / dev_ms:.3f} of bound, rel err "
+                  f"{err / max(scale, 1e-30):.2e}"
+                  f"{'' if ok else ' FAILS its plain version'} [{card}]",
+                  flush=True)
+        print(f"  OS {OS} per forward ({sum(shapes.values())} launches, "
+              f"B={SERVE_B}): kernel {tot['ms']:.4f} ms (device "
+              f"{tot['device_ms']:.4f}), composition "
+              f"{tot['composition_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+              f"ms [{card}]", flush=True)
+        res[OS] = tot
+    if bad:
+        raise AssertionError(f"fused_sepconv disagrees at {bad}")
+    return res
+
+
+def sepconv_plan_sweep(card) -> int:
+    """``--sepconv-plan-sweep``: every (chunk, pass width) that
+    ``sepconv_plan`` may choose, forced (the plan then picks the Cout
+    groups and ring), held to the plain version and timed (device time in
+    a CUDA graph) at each Xception launch shape at B=8, "mixed", beside
+    the plan's choice and its cost model's estimate: the data the cost
+    model is fitted to."""
+    from deeplab_tpu_torch.kernels import fused_mbconv as FM
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED + 22)
+    chunks, nts = FM.SEPCONV_CHUNKS, FM.SEPCONV_NT
+    bad = []
+    seen = set()
+    for OS, shapes in XCEPTION_SHAPES.items():
+        for (cin, cout, rate, side, pre), n in shapes.items():
+            if (cin, cout, rate, side) in seen:
+                continue
+            seen.add((cin, cout, rate, side))
+            w = sepconv_weights(cin, cout, dev, gen)
+            x = torch.randn((SERVE_B, side, side, cin), generator=gen,
+                            device=dev)
+            kw = dict(rate=rate, pre_relu=pre, act_mid=not pre,
+                      act_out=not pre, mxu_bf16=True)
+            chosen = FM.sepconv_plan(SERVE_B, side, side, cin, cout, rate)
+            with torch.inference_mode():
+                ref = FM.fused_sepconv_reference(x, *w, **kw)
+                scale = ref.abs().max().item()
+                for ck in chunks:
+                    for nt in nts:
+                        FM.SEPCONV_CHUNKS, FM.SEPCONV_NT = (ck,), (nt,)
+                        FM.sepconv_plan.cache_clear()
+                        try:
+                            p = FM.sepconv_plan(SERVE_B, side, side, cin,
+                                                cout, rate)
+                        except ValueError:
+                            continue
+                        err = (FM.fused_sepconv(x, *w, **kw) - ref
+                               ).abs().max().item()
+                        ok = err <= KERNEL_REL_TOL["mixed"] * scale
+                        if not ok:
+                            bad.append((cin, cout, rate, side, ck, nt))
+                        ms = graph_ms(lambda: FM.fused_sepconv(x, *w, **kw),
+                                      5)
+                        mark = ("  <- plan" if (p.ck, p.nt) == (
+                            chosen.ck, chosen.nt) else "")
+                        print(f"  {cin}->{cout} rate {rate} {side}x{side}"
+                              f" x{n} (OS {OS}): {p.th}x{p.tw} chunk {ck} "
+                              f"nt {nt} groups {p.groups} passes {p.passes} "
+                              f"stages {p.stages}: {ms:.4f} ms"
+                              f"{'' if ok else ' FAILS its plain version'}"
+                              f", estimate {p.est_clk:.0f} clk{mark} "
+                              f"[{card}]", flush=True)
+            FM.SEPCONV_CHUNKS, FM.SEPCONV_NT = chunks, nts
+            FM.sepconv_plan.cache_clear()
+    print(card)
+    return 1 if bad else 0
+
+
 def dw_bound_ms(x):
     """Least time for one fused_dw_bn_relu6 launch: x read once and the
     output written once (the taps and affine are 11 C floats) at 3.35 TB/s,
@@ -720,23 +905,25 @@ def train_phase_times(card) -> dict:
             row.append(f"{name} {ms:.4f} (device {dev_ms:.4f}, bound "
                        f"{bms:.4f}{'' if ok else ', FAILS its plain version'}"
                        f", rel {rel:.2e})")
-        args, kw, _ = calls["b34"][0]
-        with torch.no_grad(), profile(
-                activities=[ProfilerActivity.CUDA]) as pr:
-            for _ in range(3):
-                FMT.b34(*args, **kw)
-            torch.cuda.synchronize()
-        split = sorted(((e.key.replace("(anonymous namespace)::", "")
-                         .split("(")[0][:40],
-                         e.self_device_time_total / 3e3)
-                        for e in pr.key_averages()
-                        if e.self_device_time_total > 0),
-                       key=lambda kv: -kv[1])
+        by_kernel = []
+        for name in ("b2", "b34"):
+            args, kw, _ = calls[name][0]
+            with torch.no_grad(), profile(
+                    activities=[ProfilerActivity.CUDA]) as pr:
+                for _ in range(3):
+                    getattr(FMT, name)(*args, **kw)
+                torch.cuda.synchronize()
+            split = sorted(((e.key.replace("(anonymous namespace)::", "")
+                             .split("(")[0][:40],
+                             e.self_device_time_total / 3e3)
+                            for e in pr.key_averages()
+                            if e.self_device_time_total > 0),
+                           key=lambda kv: -kv[1])
+            by_kernel.append(f"; {name.upper()} by kernel (device ms): "
+                             + ", ".join(f"{k} {v:.4f}" for k, v in split))
         print(f"  train phases, blocks {ids} {cin}->{ce}->{cout} rate {rate} "
               f"{TRAIN_B}x{H}x{W}, ms a launch: " + "; ".join(row)
-              + "; B34 by kernel (device ms): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in split)
-              + f" [{card}]", flush=True)
+              + "".join(by_kernel) + f" [{card}]", flush=True)
         del calls
     for name in FMT.PHASES:
         s = step[name]
@@ -880,6 +1067,19 @@ def main() -> int:
         crf_scene_times(card)
         print(card)
         return 0
+    if "--sepconv-shapes" in sys.argv[1:]:
+        from deeplab_tpu_torch.kernels import build
+        card = card_line()
+        for kern, info in ptxas_table(
+                build.build(["fused_sepconv"])["fused_sepconv"]):
+            print(f"  [fused_sepconv] {kern}: {info}")
+        sepconv_shape_times(card)
+        print(card)
+        return 0
+    if "--sepconv-plan-sweep" in sys.argv[1:]:
+        from deeplab_tpu_torch.kernels import build
+        build.build(["fused_sepconv"])
+        return sepconv_plan_sweep(card_line())
     if "--train-plan-sweep" in sys.argv[1:]:
         from deeplab_tpu_torch.kernels import build
         build.build(["fused_mbconv_train"])
@@ -2021,28 +2221,33 @@ def main() -> int:
         xnet = xc["net"]
         gen = torch.Generator(dev).manual_seed(SEED + 13)
         saved = counts()
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "composition_ms": 0.0}
         by = {"bytes": 0.0, "operations": 0.0}
         per_shape = []
         for key, (w, kw, n) in xc["calls"].items():
-            cin, cout, _, H, W = key[:5]
+            cin, cout, rate, H, W, pre, act = key
             x = torch.randn((SERVE_B, H, W, cin), generator=gen, device=dev)
             with torch.inference_mode():
                 ms = cuda_ms(lambda: FM.fused_sepconv(x, *w, **kw), 20)
                 plain = cuda_ms(lambda: FM.fused_sepconv_reference(
                     x, *w, **kw), 5, warmup=1)
+                comp = cuda_ms(sepconv_composition(x, w, rate, pre, act), 20)
             bms, bb = sepconv_bound_ms(SERVE_B, H, W, cin, cout, 4)
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain
             tot["bound_ms"] += n * bms
+            tot["composition_ms"] += n * comp
             by[bb] += n * bms
             per_shape.append((n * ms, key, n))
             print(f"  fused_sepconv {sepconv_label(key)} x{n} B={SERVE_B} f32 "
-                  f"io: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                  f"{bms:.4f} ms ({bb}), {bms / ms:.3f} of bound [{card}]")
+                  f"io: kernel {ms:.4f} ms, plain {plain:.4f} ms, composition "
+                  f"{comp:.4f} ms, bound {bms:.4f} ms ({bb}), "
+                  f"{bms / ms:.3f} of bound [{card}]")
         print(f"  per forward ({SEPCONV_PER_FORWARD} launches, B={SERVE_B}): "
               f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-              f"bound {tot['bound_ms']:.4f} ms [{card}]")
+              f"composition {tot['composition_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms [{card}]")
         for t, key, n in sorted(per_shape, key=lambda r: -r[0])[:4]:
             print(f"    slowest: {sepconv_label(key)} x{n}: {t:.4f} ms per "
                   f"forward")
@@ -2568,7 +2773,8 @@ def main() -> int:
         "max_abs_err": sepconv_report["max_abs_err"],
         "ms": sepconv_report["ms"], "plain_ms": sepconv_report["plain_ms"],
         "bound_ms": sepconv_report["bound_ms"],
-        "bound_by": sepconv_report["bound_by"], "library_ms": None}, {
+        "bound_by": sepconv_report["bound_by"], "library_ms": None,
+        "composition_ms": sepconv_report["composition_ms"]}, {
         "name": "fused_dw_bn_relu6", "route": "cuda",
         "source": "deeplab_tpu_torch/kernels/csrc/fused_dw.cu",
         "replaces": "deeplab_tpu/kernels/fused_dw.py:66",

@@ -74,16 +74,26 @@
 //     channels a block over pixel splits), each warp two m-tiles and half
 //     of Cin;
 //   - pixel-local phases (F1, F3) take groups of 64 consecutive pixels;
-//   - dW2 in B2 gives each block a chunk of 32 expanded channels and a
-//     strided share of the pixel groups, with the chunk's gradient in
-//     registers;
+//   - B2 is bound by bytes: its largest stream is ddh, P x Ce f32 written
+//     (151 MB at the 128x128 block, B=16), then dq read and gyq = q(gy)
+//     (P x Cout bf16, written once by gy_kernel) read once per chunk of
+//     Ce.  Its plan (train_plan "b2") gives each block of 16 warps a chunk
+//     of CEB = 64 or 128 expanded channels (the widest whose dW2, CEB x
+//     Cout f32, fits the warps' registers: gyq read Ce / CEB times, not
+//     Ce / 32) and every splits-th group of 64 pixels, the splits sized to
+//     one wave.  Each group's gyq and dq rows come in by 16-byte cp.async
+//     through a ring of 2 or 3 stages while earlier groups compute; ddh's
+//     product (gyq @ w2^T, w2's rows held n-major) and dW2's (q(b)^T gyq,
+//     both operands read with ldmatrix.trans) run on mma.sync from
+//     swizzle-free padded rows (odd counts of 16-byte units); ddh leaves
+//     through a staging tile in 16-byte rows; T1/T2 stay in registers,
+//     summed across lanes by fixed shuffles and across warps in warp order;
 //   - every sum over pixels is written as per-block partials and reduced by a
 //     second pass in a fixed order: no float atomics, so results repeat bit for
 //     bit from run to run.
-// B2 first writes gyq = q(gy) once (pixels x Cout, bf16), then reads it by
-// 16-byte copies in every chunk; it saves ddh (f32) so that B34 needs neither
-// g nor y_raw nor a second product with w2 on its halo.  Built with
-// -fmad=false: the elementwise chains round where the plain versions round.
+// B2 saves ddh (f32) so that B34 needs neither g nor y_raw nor a second
+// product with w2 on its halo.  Built with -fmad=false: the elementwise
+// chains round where the plain versions round.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,21 +115,18 @@ using mbconv::ldm_x4;
 using mbconv::ldm_x4_t;
 using mbconv::mma16816;
 using mbconv::mma_tile;
-using mbconv::mma_tile_kn;
 using mbconv::qbf;
 using mbconv::relu6;
 using mbconv::w1_swz;
 using mbconv::xs_chunk;
 
-constexpr int CK = 32;                       // F1, B2: expanded channels per chunk
+constexpr int CK = 32;                       // F1, F3: expanded channels per chunk
 constexpr int GP = 64;                       // pixel-local phases: pixels/group
 constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
 constexpr int F_LD = CK + 4;                 // f32 (pixel, channel) row stride
 constexpr int H_LD = CK + 8;                 // bf16 (pixel, channel) row stride
-constexpr int P_LD = GP + 8;                 // bf16 (channel, pixel) row stride
 constexpr size_t SMEM_MAX = 232448;
 constexpr int RED_Y = 8;                     // row groups of the reduction
-constexpr int TARGET_CTAS = 264;             // two per SM of the H100's 132
 // F2 and B34 (train_plan): 16 warps a block; dW1^T: 8 warps, 128 channels of
 // Ce and 64 pixels a step, a ring of 3
 constexpr int HALO_WARPS = 16, HALO_THREADS = 32 * HALO_WARPS;
@@ -159,11 +166,11 @@ struct Bump {
   }
 };
 
+__host__ __device__ inline int a16(int n) { return (n + 15) & ~15; }
+
 // shared-memory layouts (byte offsets) of the pixel-local kernels
 struct LF1 { size_t xs, w1s, es, total; };
 struct LF3 { size_t bs, w2s, total; };
-struct LB2 { size_t gyq, w2c, bqT, dqf, t1s, t2s, total; };
-
 __host__ __device__ inline LF1 lay_f1(const Args& a) {
   Bump b; LF1 l;
   l.xs = b.take(2 * size_t(GP) * a.xs_ld);
@@ -179,18 +186,6 @@ __host__ __device__ inline LF3 lay_f3(const Args& a) {
   l.total = b.o;
   return l;
 }
-__host__ __device__ inline LB2 lay_b2(const Args& a) {
-  Bump b; LB2 l;
-  l.gyq = b.take(2 * size_t(GP) * a.cout_ld);
-  l.w2c = b.take(2 * size_t(CK) * a.cout_ld);
-  l.bqT = b.take(2 * size_t(CK) * P_LD);
-  l.dqf = b.take(4 * size_t(GP) * F_LD);
-  l.t1s = b.take(4 * size_t(GP) * F_LD);
-  l.t2s = b.take(4 * size_t(GP) * F_LD);
-  l.total = b.o;
-  return l;
-}
-
 __device__ __forceinline__ bf16 bzero() { return __float2bfloat16(0.f); }
 
 // this chunk's expand weights, n-major: w1s[n][k] = w1[k][c0 + n]
@@ -300,93 +295,263 @@ __global__ void __launch_bounds__(NTHREADS) gy_kernel(const Args a) {
   *reinterpret_cast<uint4*>(a.gyq + i8) = ov;
 }
 
-// grid (Ce chunks, pixel splits).  NT2: dW2 n-tiles per warp (2 channel
-// m-tiles x 4 interleaved n groups).
-template <int NT2>
-__global__ void __launch_bounds__(NTHREADS) b2_kernel(const Args a) {
+// B2's plan (train_plan "b2"): a block of 16 warps per (chunk of CEB
+// expanded channels, pixel split), walking its split's 64-pixel groups
+// (every splits-th) with the chunk's dW2 (CEB x Cout) in registers.  Its
+// shared memory (lay_b2; b2_smem in kernels/fused_mbconv_train.py):
+// the chunk's w2 rows, n-major with rows of Cout padded to 16 plus 8
+// (an odd count of 16-byte units: ldmatrix rows in distinct banks); the
+// chunk's a2, c2, mu2, rstd2; the group's ddh staging (f32) and q(b)
+// (bf16) tiles; the warps' T1/T2 sums; then `stages` ring buffers of one
+// group's gyq and dq rows.
+constexpr int B2_GP = 64, B2_WARPS = 16, B2_THREADS = 32 * B2_WARPS;
+static_assert(B2_THREADS == 8 * B2_GP, "gyq's copy takes 8 threads a row");
+
+struct LB2 {
+  int w2c, vec, stg, bq, red, stage, s_dq, stage_bytes, total;
+  int gld, dld, sld;  // row strides (elements) of gyq and w2, dq and q(b), ddh
+};
+
+__host__ __device__ inline LB2 lay_b2(const Args& a) {
+  LB2 l;
+  const int ceb = a.ck;
+  l.gld = a.cout_k + 8;
+  l.dld = ceb + 8;
+  l.sld = ceb + 8;
+  int o = 0;
+  l.w2c = o; o += a16(2 * ceb * l.gld);
+  l.vec = o; o += a16(4 * 4 * ceb);
+  l.stg = o; o += a16(4 * B2_GP * l.sld);
+  l.bq = o;  o += a16(2 * B2_GP * l.dld);
+  l.red = o; o += a16(4 * 4 * 2 * ceb);
+  l.stage = o;
+  l.s_dq = a16(2 * B2_GP * l.gld);
+  l.stage_bytes = l.s_dq + a16(2 * B2_GP * l.dld);
+  l.total = o + a.stages * l.stage_bytes;
+  return l;
+}
+
+// grid (Ce chunks, pixel splits), 16 warps a block.  ddh = gyq @ w2^T: each
+// warp one pixel m-tile x a quarter of the chunk (NTD n-tiles); dW2 +=
+// q(b)^T gyq: each warp one channel m-tile x NT2 n-tiles of Cout.  Per
+// group, two barriers: [ddh's product; mask, T sums, ddh and q(b) into
+// shared memory] [dW2's product; ddh's rows out in 16-byte stores; the
+// ring copy of group i + S - 1].
+template <int CEB, int NT2>
+__global__ void __launch_bounds__(B2_THREADS, 1) b2_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NTD = CEB / 32;
+  constexpr int WM2 = CEB / 16;
   const LB2 L = lay_b2(a);
-  bf16* gyq = reinterpret_cast<bf16*>(smem + L.gyq);
   bf16* w2c = reinterpret_cast<bf16*>(smem + L.w2c);
-  bf16* bqT = reinterpret_cast<bf16*>(smem + L.bqT);
-  float* dqf = reinterpret_cast<float*>(smem + L.dqf);
-  float* t1s = reinterpret_cast<float*>(smem + L.t1s);
-  float* t2s = reinterpret_cast<float*>(smem + L.t2s);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int c0 = blockIdx.x * CK, split = blockIdx.y;
-  const int Ce = a.Ce, Cout = a.Cout, nv = a.cout_k / 8;
-  // w2 rows of this chunk: the B operand of ddh = gyq @ w2^T, n-major (c, k)
-  for (int i = tid; i < CK * a.cout_k; i += NTHREADS) {
-    const int n = i / a.cout_k, k = i % a.cout_k;
-    w2c[n * a.cout_ld + k] =
-        c0 + n < Ce && k < Cout ? a.w2[size_t(c0 + n) * Cout + k] : bzero();
-  }
-  const int mw = warp & 3, ntd = (warp >> 2) * 2;  // ddh: pixel m-tile
-  const int mw2 = warp & 1, nt2 = warp >> 1;       // dW2: channel m-tile
-  float accw[NT2][4] = {};
-  float tacc = 0.f;
-  for (int grp = split; grp < a.n_groups; grp += a.splits) {
-    const long long p0 = (long long)grp * GP;
-    // this group's gyq rows, 16 bytes a thread (zero past P and Cout)
-    for (int i = tid; i < GP * nv; i += NTHREADS) {
-      const int p = i / nv, n0 = (i % nv) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (p0 + p < a.P && n0 < Cout)
-        v = *reinterpret_cast<const uint4*>(a.gyq + (p0 + p) * Cout + n0);
-      *reinterpret_cast<uint4*>(gyq + p * a.cout_ld + n0) = v;
-    }
-    for (int i = tid; i < GP * CK; i += NTHREADS) {
-      const int p = i / CK, c = i % CK, ch = c0 + c;
-      float d = 0.f, bv = 0.f;
-      if (p0 + p < a.P && ch < Ce) {
-        d = __bfloat162float(a.dq[(p0 + p) * Ce + ch]);
-        bv = relu6(qbf(qbf(d * a.a2[ch]) + a.c2[ch]));
-      }
-      dqf[p * F_LD + c] = d;
-      bqT[c * P_LD + p] = __float2bfloat16(bv);
-    }
-    __syncthreads();
+  float* vec = reinterpret_cast<float*>(smem + L.vec);  // a2, c2, mu2, rstd2
+  float* stg = reinterpret_cast<float*>(smem + L.stg);
+  bf16* bq = reinterpret_cast<bf16*>(smem + L.bq);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * CEB, split = blockIdx.y;
+  const int Ce = a.Ce, Cout = a.Cout, S = a.stages, gv = a.cout_k / 8;
+  const int GLD = L.gld, DLD = L.dld, SLD = L.sld, n_out = Cout / 8;
+  const int n_mine =
+      split < a.n_groups ? (a.n_groups - split + a.splits - 1) / a.splits : 0;
+
+  // the chunks' blocks of a split walk its groups in the same order, so
+  // that they find each group's gyq rows in L2
+  auto group_p0 = [&](int i) {
+    return (long long)(split + (long long)i * a.splits) * B2_GP;
+  };
+  // group i's gyq rows (zero past P and Cout) and dq rows (zero past P, Ce)
+  auto issue = [&](int i) {
+    if (i >= n_mine) return;
+    const long long p0 = group_p0(i);
+    unsigned char* st = smem + L.stage + (i % S) * L.stage_bytes;
+    bf16* gs = reinterpret_cast<bf16*>(st);
+    bf16* ds = reinterpret_cast<bf16*>(st + L.s_dq);
+    // 8 threads a row (512 threads, 64 rows): no division
     {
-      float acc[2][4] = {};
-      mma_tile<2>(acc, gyq, a.cout_ld, mw * 16, w2c, a.cout_ld, a.cout_k, ntd, 1, CK / 8);
-      for_each_acc<2>(acc, mw * 16, ntd, 1, CK / 8, [&](int p, int c, float v) {
-        float t1 = 0.f, t2 = 0.f;
-        const int ch = c0 + c;
-        if (p0 + p < a.P && ch < Ce) {
-          const float d = dqf[p * F_LD + c];
-          const float v2 = qbf(qbf(d * a.a2[ch]) + a.c2[ch]);
-          const float ddh = v2 > 0.f && v2 < 6.f ? v : 0.f;
-          a.ddh_out[(p0 + p) * Ce + ch] = ddh;
-          t1 = ddh;
-          t2 = ddh * ((d - a.mu2[ch]) * a.rstd2[ch]);
-        }
-        t1s[p * F_LD + c] = t1;
-        t2s[p * F_LD + c] = t2;
-      });
+      const int p = tid >> 3;
+      for (int q = tid & 7; q < gv; q += 8) {
+        const bool in = p0 + p < a.P && 8 * q < Cout;
+        cp16(gs + p * GLD + 8 * q,
+             in ? (const void*)(a.gyq + (p0 + p) * Cout + 8 * q) : (const void*)a.gyq,
+             in ? 16 : 0);
+      }
     }
-    // dW2 += q(b)^T gyq: A (channel, pixel) from bqT, B (pixel, n) from gyq
-    mma_tile_kn<NT2>(accw, bqT, P_LD, mw2 * 16, gyq, a.cout_ld, GP, nt2, 4, Cout / 8);
-    __syncthreads();
-    if (tid < 64) {
-      const float* src = tid < 32 ? t1s : t2s;
-      for (int p = 0; p < GP; ++p) tacc += src[p * F_LD + (tid & 31)];
+    for (int v = tid; v < B2_GP * (CEB / 8); v += B2_THREADS) {
+      const int p = v / (CEB / 8), q = v % (CEB / 8);
+      const bool in = p0 + p < a.P && c0 + 8 * q < Ce;
+      cp16(ds + p * DLD + 8 * q,
+           in ? (const void*)(a.dq + (p0 + p) * Ce + c0 + 8 * q) : (const void*)a.dq,
+           in ? 16 : 0);
     }
-    __syncthreads();
+  };
+
+  // the chunk's w2 rows (with group 0's copies) and vectors
+  for (int v = tid; v < CEB * gv; v += B2_THREADS) {
+    const int c = v / gv, q = v % gv;
+    const bool in = c0 + c < Ce && 8 * q < Cout;
+    cp16(w2c + c * GLD + 8 * q,
+         in ? (const void*)(a.w2 + (size_t)(c0 + c) * Cout + 8 * q) : (const void*)a.w2,
+         in ? 16 : 0);
   }
-  if (tid < 64 && c0 + (tid & 31) < Ce)
-    a.part2[(long long)split * 2 * Ce + (tid >= 32 ? Ce : 0) + c0 + (tid & 31)] = tacc;
-  for_each_acc<NT2>(accw, mw2 * 16, nt2, 4, Cout / 8, [&](int m, int n, float v) {
-    if (c0 + m < Ce)
-      a.part[(long long)split * Ce * Cout + (long long)(c0 + m) * Cout + n] = v;
-  });
+  for (int i = tid; i < 4 * CEB; i += B2_THREADS) {
+    const int which = i / CEB, c = i % CEB;
+    const float* src = which == 0 ? a.a2 : which == 1 ? a.c2 : which == 2 ? a.mu2 : a.rstd2;
+    vec[i] = c0 + c < Ce ? src[c0 + c] : 0.f;
+  }
+  for (int i = 0; i < S - 1; ++i) {
+    issue(i);
+    cp_commit();
+  }
+
+  const int wmd = warp & 3, wnd = warp >> 2;     // ddh: pixel m-tile, quarter
+  const int wm2 = warp % WM2, wn2 = warp / WM2;  // dW2: channel m-tile, n group
+  float accw[NT2][4];
+  float tsum[NTD][2][2];  // [n-tile][T1, T2][column]
+#pragma unroll
+  for (int j = 0; j < NT2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) accw[j][q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NTD; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tsum[j][q >> 1][q & 1] = 0.f;
+
+  for (int i = 0; i < n_mine; ++i) {
+    if (S == 3) cp_wait<1>(); else cp_wait<0>();  // group i landed
+    __syncthreads();  // ... for every thread; group i - 1 done
+    const long long p0 = group_p0(i);
+    const unsigned char* st = smem + L.stage + (i % S) * L.stage_bytes;
+    const bf16* gs = reinterpret_cast<const bf16*>(st);
+    const bf16* ds = reinterpret_cast<const bf16*>(st + L.s_dq);
+
+    // ddh's product: 16 pixels x CEB / 4 channels a warp, k over Cout
+    float acc[NTD][4];
+#pragma unroll
+    for (int j = 0; j < NTD; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < a.cout_k; kk += 16) {
+      uint32_t af[4];
+      ldm_x4(af, gs + (wmd * 16 + (lane & 15)) * GLD + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NTD; j += 2) {
+        uint32_t bf[4];
+        const int c = (wnd * NTD + j) * 8 + (lane & 7) + ((lane >> 4) << 3);
+        ldm_x4(bf, w2c + c * GLD + kk + ((lane >> 3) & 1) * 8);
+        mma16816(acc[j], af, bf[0], bf[1]);
+        mma16816(acc[j + 1], af, bf[2], bf[3]);
+      }
+    }
+    // ddh = product * relu6'(v2); T1, T2 in registers; ddh and q(b) staged
+#pragma unroll
+    for (int j = 0; j < NTD; ++j) {
+      const int c = (wnd * NTD + j) * 8 + 2 * t;
+      const float2 va = *reinterpret_cast<const float2*>(vec + c);
+      const float2 vc = *reinterpret_cast<const float2*>(vec + CEB + c);
+      const float2 vm = *reinterpret_cast<const float2*>(vec + 2 * CEB + c);
+      const float2 vr = *reinterpret_cast<const float2*>(vec + 3 * CEB + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wmd * 16 + g + 8 * h;
+        const bool pin = p0 + p < a.P;
+        const float2 d = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ds + p * DLD + c));
+        float o[2], bb[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dv = e ? d.y : d.x;
+          const bool live = pin && c0 + c + e < Ce;
+          const float v2 = qbf(qbf(dv * (e ? va.y : va.x)) + (e ? vc.y : vc.x));
+          const float dh = live && v2 > 0.f && v2 < 6.f ? acc[j][2 * h + e] : 0.f;
+          tsum[j][0][e] += dh;
+          tsum[j][1][e] += dh * ((dv - (e ? vm.y : vm.x)) * (e ? vr.y : vr.x));
+          o[e] = dh;
+          bb[e] = live ? relu6(v2) : 0.f;
+        }
+        *reinterpret_cast<float2*>(stg + p * SLD + c) = make_float2(o[0], o[1]);
+        *reinterpret_cast<__nv_bfloat162*>(bq + p * DLD + c) =
+            __floats2bfloat162_rn(bb[0], bb[1]);
+      }
+    }
+    __syncthreads();
+
+    // dW2 += q(b)^T gyq: A (channel, pixel) and B (pixel, n) both stored
+    // pixel-major, read with ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < B2_GP; kk += 16) {
+      uint32_t af[4];
+      ldm_x4_t(af, bq + (kk + (lane & 7) + ((lane >> 4) << 3)) * DLD + wm2 * 16 +
+                       ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < NT2; j += 2) {
+        const int nt = wn2 * NT2 + j;
+        if (nt < n_out) {
+          uint32_t bf[4];
+          ldm_x4_t(bf, gs + (kk + (lane & 15)) * GLD + (nt + (lane >> 4)) * 8);
+          mma16816(accw[j], af, bf[0], bf[1]);
+          if (j + 1 < NT2 && nt + 1 < n_out) mma16816(accw[j + 1], af, bf[2], bf[3]);
+        }
+      }
+    }
+    // ddh's rows out, 16 bytes a store
+    for (int v = tid; v < B2_GP * (CEB / 4); v += B2_THREADS) {
+      const int p = v / (CEB / 4), q = v % (CEB / 4);
+      if (p0 + p < a.P && c0 + 4 * q < Ce)
+        *reinterpret_cast<float4*>(a.ddh_out + (p0 + p) * Ce + c0 + 4 * q) =
+            *reinterpret_cast<const float4*>(stg + p * SLD + 4 * q);
+    }
+    // group i + S - 1 into the stage group i - 1 left, after this group's
+    // work (measured 1-3% faster than before it)
+    issue(i + S - 1);
+    cp_commit();
+  }
+  cp_wait<0>();
+
+  // T1, T2: over a warp's 8 pixel rows by fixed shuffles, then over the 4
+  // pixel m-tiles in warp order: one partial per (split, channel)
+#pragma unroll
+  for (int j = 0; j < NTD; ++j)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = tsum[j][w][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red[(wmd * 2 + w) * CEB + (wnd * NTD + j) * 8 + 2 * t + e] = v;
+      }
+  __syncthreads();
+  for (int i = tid; i < 2 * CEB; i += B2_THREADS) {
+    const int w = i / CEB, c = i % CEB;
+    if (c0 + c < Ce) {
+      float s = 0.f;
+      for (int m = 0; m < 4; ++m) s += red[(m * 2 + w) * CEB + c];
+      a.part2[(long long)split * 2 * Ce + w * Ce + c0 + c] = s;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT2; ++j) {
+    const int nt = wn2 * NT2 + j;
+    if (nt >= n_out) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = c0 + wm2 * 16 + g + 8 * h;
+      if (row < Ce)
+        *reinterpret_cast<float2*>(a.part + ((long long)split * Ce + row) * Cout +
+                                   nt * 8 + 2 * t) =
+            make_float2(accw[j][2 * h], accw[j][2 * h + 1]);
+    }
+  }
 }
 
 // ------------------------------------------------ halo phases F2, B34 ----
 // One block of 16 warps per (TH x TW output tile, image); the plan
 // (train_plan in kernels/fused_mbconv_train.py) gives the tile, chunk CK and
 // ring depth, and lay_halo reproduces its shared memory.
-
-__host__ __device__ inline int a16(int n) { return (n + 15) & ~15; }
 
 // Rows of aq (bf16) and dd (f32) hold CK values, unpadded: a row of aq is
 // ESW = CK / 2 32-bit words, a row of dd twice that, so that one table
@@ -1197,8 +1362,8 @@ cudaError_t reduce(const float* part, long long rows, long long cols, float* out
   return cudaGetLastError();
 }
 
-// dims = (B, H, W, Cin, Ce, Cout, rate, then the halo phases' plan: th, tw,
-// ck, stages, nt, smem, warps, splits; zeros for the other phases)
+// dims = (B, H, W, Cin, Ce, Cout, rate, then the plan of F2, B2 or B34: th,
+// tw, ck, stages, nt, smem, warps, splits; zeros for F1 and F3)
 constexpr int N_DIMS = 15;
 
 // geometry from dims; false if the kernel does not take the shape
@@ -1214,9 +1379,6 @@ bool geometry(int phase, const int* d, Args& a) {
     return false;
   a.P = (long long)a.B * a.H * a.W;
   a.n_groups = int((a.P + GP - 1) / GP);
-  a.n_chunks = (a.Ce + CK - 1) / CK;
-  const int want = (TARGET_CTAS + a.n_chunks - 1) / a.n_chunks;
-  a.splits = want < a.n_groups ? want : a.n_groups;
   a.cin_p = (a.Cin + 15) / 16 * 16;
   a.xs_ld = a.cin_p + 8;
   a.cout_k = (a.Cout + 15) / 16 * 16;
@@ -1237,7 +1399,30 @@ bool geometry(int phase, const int* d, Args& a) {
     a.xt_ld = a.xt_swz ? a.cin_p : a.cin_p + 8;
     if (phase == B34) a.splits = d[14];
   }
+  if (phase == B2) {
+    if (a.Ce % 8) return false;  // whole 16-byte vectors of dq's rows
+    a.ck = d[9]; a.stages = d[10]; a.nt = d[11]; a.smem = d[12];
+    a.warps = d[13]; a.splits = d[14];
+    if (a.ck <= 0) return false;
+    a.n_chunks = (a.Ce + a.ck - 1) / a.ck;
+  }
   return true;
+}
+
+// B2's instantiations (CEB, NT2): B2_NT in kernels/fused_mbconv_train.py
+#define B2_CASES(X) X(128, 2) X(128, 4) X(128, 6) X(128, 10) \
+                    X(64, 1) X(64, 2) X(64, 3) X(64, 5) X(64, 10)
+
+bool b2_plan_ok(const Args& a) {
+  bool inst = false;
+#define B2_INST(C, N) inst = inst || (a.ck == C && a.nt == N);
+  B2_CASES(B2_INST)
+#undef B2_INST
+  const int wn2 = B2_WARPS / (a.ck / 16);
+  return inst && a.stages >= 2 && a.stages <= 3 && a.warps == B2_WARPS &&
+         a.nt * wn2 * 8 >= a.Cout && a.splits >= 1 && a.splits <= 65535 &&
+         a.splits <= a.n_groups && a.smem == lay_b2(a).total &&
+         size_t(a.smem) <= SMEM_MAX;
 }
 
 int wg_smem(const Args& a) {
@@ -1341,7 +1526,8 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
   if (phase < F1 || phase > B34 || n_ptrs != want[phase] || !geometry(phase, dims, a))
     return ERR_ARGS;
   if ((phase == F2 || phase == B34) && !plan_ok(phase, a)) return ERR_PLAN;
-  if (phase == F2 || phase == B34)  // 16-byte copies of every operand
+  if (phase == B2 && !b2_plan_ok(a)) return ERR_PLAN;
+  if (phase == F2 || phase == B2 || phase == B34)  // 16-byte copies
     for (int i = 0; i < n_ptrs; ++i)
       if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return ERR_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1389,11 +1575,15 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
       a.ddh_out = (float*)P(13);
       e = run(gy_kernel, dim3(unsigned((a.P * a.Cout / 8 + NTHREADS - 1) / NTHREADS)),
               0, a, s);
-      if (e == cudaSuccess)
-        e = pick((a.Cout / 8 + 3) / 4, [&](auto n) {
-        return run(b2_kernel<decltype(n)::value>, dim3(a.n_chunks, a.splits),
-                   lay_b2(a).total, a, s);
-      }, NTList<1, 2, 3, 5, 10>{});
+      if (e == cudaSuccess) {
+        e = (cudaError_t)ERR_PLAN;
+#define B2_RUN(C, N)                                                        \
+  if (a.ck == C && a.nt == N)                                               \
+    e = run(b2_kernel<C, N>, dim3(a.n_chunks, a.splits), a.smem, a, s,     \
+            B2_THREADS);
+        B2_CASES(B2_RUN)
+#undef B2_RUN
+      }
       if (e == cudaSuccess) e = reduce(a.part2, a.splits, 2 * Ce, (float*)P(11), s);
       if (e == cudaSuccess)
         e = reduce(a.part, a.splits, Ce * a.Cout, (float*)P(12), s);

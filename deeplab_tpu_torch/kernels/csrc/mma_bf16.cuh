@@ -61,38 +61,6 @@ __device__ __forceinline__ void mma_tile(float (&acc)[NT][4],
   }
 }
 
-__device__ __forceinline__ uint32_t pack2(const __nv_bfloat16* lo,
-                                          const __nv_bfloat16* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-// mma_tile with B stored k-major (k, n), row stride ldb: each B fragment
-// pairs two rows, so it is packed from 16-bit loads.
-template <int NT>
-__device__ __forceinline__ void mma_tile_kn(float (&acc)[NT][4],
-                                            const __nv_bfloat16* A, int lda, int m0,
-                                            const __nv_bfloat16* B, int ldb, int K,
-                                            int nt0, int nt_step, int n_tiles) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* ar0 = A + (m0 + g) * lda + 2 * t;
-  const __nv_bfloat16* ar1 = ar0 + 8 * lda;
-  for (int kk = 0; kk < K; kk += 16) {
-    const uint32_t af[4] = {ld32(ar0 + kk), ld32(ar1 + kk), ld32(ar0 + kk + 8),
-                            ld32(ar1 + kk + 8)};
-    const __nv_bfloat16* bk = B + (kk + 2 * t) * ldb + g;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int nt = nt0 + nt_step * j;
-      if (nt < n_tiles) {
-        const __nv_bfloat16* bc = bk + nt * 8;
-        mma16816(acc[j], af, pack2(bc, bc + ldb),
-                 pack2(bc + 8 * ldb, bc + 9 * ldb));
-      }
-    }
-  }
-}
-
 // Call f(row, col, value) for each accumulator element of the warp's tile
 // (rows m0 + g and m0 + g + 8; columns 8 nt_j + 2t and + 1).
 template <int NT, typename F>

@@ -38,7 +38,7 @@ from deeplab_tpu_torch.ops.bn import bn_scale_shift
 
 _SIGS = {"fused_mbconv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
          + [ctypes.c_void_p],
-         "fused_sepconv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+         "fused_sepconv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
          + [ctypes.c_void_p]}
 
 
@@ -92,6 +92,10 @@ def _ceil(a: int, b: int) -> int:
 
 def _a16(n: int) -> int:
     return _ceil(n, 16) * 16
+
+
+def _a1024(n: int) -> int:
+    return _ceil(n, 1024) * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +191,183 @@ def mbconv_plan(B, H, W, Cin, Ce, Cout, rate) -> MbconvPlan:
     return MbconvPlan(th, tw, ck, stages, nt,
                       mbconv_smem(H, W, Cin, Cout, rate, th, tw, ck, stages),
                       ty, tx, B, mbconv_halo(H, W, th, tw, rate), est)
+
+
+# Launch geometry of csrc/fused_sepconv.cu, decided here and checked there.
+SEPCONV_WARPS = 8            # 256 threads: two warpgroups
+# the output tile, 8 x 8 pixels: wgmma's 64 rows; each warpgroup multiplies
+# them by N = 16 NT output channels a pass
+SEPCONV_TILE = 8
+SEPCONV_CHUNKS = (64, 32, 16)  # input channels per pipeline stage
+SEPCONV_NT = (4, 8)          # a pass: 32 NT output channels
+# blocks an SM holds by registers: the NT = 4 instantiations are built for
+# two (at most 128 registers a thread), the NT = 8 ones for one
+SEPCONV_BLOCKS_PER_SM = {4: 2, 8: 1}
+_ST_PAD = 8                  # staging row padding (elements)
+# the cost model, clocks a block spends: a fixed part, per barrier
+# interval, per (pixel, input channel) of depthwise, per tensor-core flop
+# and per byte brought from L2 (the x box, wpw), fitted by least squares
+# to the times of every chunk, pass width and group count at the Xception
+# shapes on an H100 (``chip_smoke.py --sepconv-plan-sweep``; PERF.md)
+_SC_FIXED, _SC_INTERVAL, _SC_DW = 6975.0, 1066.0, 0.4529
+_SC_FLOP, _SC_L2 = 4.327e-4, 0.0262
+# a second block on an SM stretches each block's time by this share of
+# its own (the rest overlaps the other's waits); fitted with the above
+_SC_SHARE = 0.3
+
+
+def _sep_bands(n: int, t0: int, t: int, r: int):
+    """The in-image reach of a tile's taps along one axis of length n: the
+    union of [t0 + k r, t0 + k r + t), k = -1, 0, 1, clipped to [0, n), as
+    (lo, length) bands in order -- one span where r <= t, else three
+    disjoint bands (``bands_of`` in csrc/fused_sepconv.cu)."""
+    spans = ([(t0 - r, t0 + t + r)] if r <= t else
+             [(t0 + k * r, t0 + k * r + t) for k in (-1, 0, 1)])
+    out = []
+    for lo, hi in spans:
+        lo, hi = max(lo, 0), min(hi, n)
+        out.append((lo, max(hi - lo, 0)))
+    return out
+
+
+def _sep_extents(n: int, t: int, r: int):
+    """The box extent of each tile along one axis."""
+    return [sum(ln for _, ln in _sep_bands(n, t0, t, r))
+            for t0 in range(0, n, t)]
+
+
+def sepconv_box(H, W, th, tw, rate) -> int:
+    """Pixels of the largest in-image halo box over the map's tiles."""
+    return max(_sep_extents(H, th, rate)) * max(_sep_extents(W, tw, rate))
+
+
+def sepconv_halo(H, W, th, tw, rate) -> float:
+    """Box pixels staged per output pixel, over the whole map."""
+    return (sum(_sep_extents(H, th, rate)) * sum(_sep_extents(W, tw, rate))
+            / (H * W))
+
+
+def sepconv_np(nt) -> int:
+    """Output channels a pass: two warpgroups of 16 NT."""
+    return 32 * nt
+
+
+@dataclasses.dataclass(frozen=True)
+class SepconvPlan:
+    """One ``fused_sepconv`` launch: a block per (TH x TW output tile,
+    image, group of ``cg`` output channels), Cin in chunks of ``ck``
+    through rings of ``stages`` slots (x boxes, wpw k-slices), passes of
+    ``np_`` output channels with ``nt`` n-tiles a warp, the
+    depthwise held in ``a_slots`` chunk slots (all of Cin where a block
+    takes more than one pass), ``smem`` bytes of dynamic shared memory, and
+    the grid ``(tiles_y * tiles_x * groups, B)``."""
+    th: int
+    tw: int
+    ck: int
+    stages: int
+    nt: int
+    groups: int
+    cg: int
+    np_: int
+    a_slots: int
+    smem: int
+    tiles_y: int
+    tiles_x: int
+    B: int
+    halo: float      # box pixels staged per output pixel, over the map
+    est_clk: float   # the cost model's estimate (clocks), for the choice
+
+    @property
+    def grid(self):
+        return (self.tiles_y * self.tiles_x * self.groups, self.B)
+
+    @property
+    def passes(self) -> int:
+        return _ceil(self.cg, self.np_)
+
+
+def sepconv_smem(H, W, Cin, Cout, rate, th, tw, ck, stages, nt, cg,
+                 esz) -> int:
+    """Dynamic shared memory of one block, in the layout of
+    csrc/fused_sepconv.cu (``smem_layout``): the tap table, the box's
+    pixels, the depthwise's A chunk slots, the x ring of ``stages`` (each
+    the box plus a zero row, then the chunk's taps and bias) which the
+    warps' output staging reuses, and the wpw ring of ``stages`` k-slices;
+    A and the wpw ring start on 1024-byte lines (wgmma's swizzle).
+    ``esz``: bytes of an x element (4 under "mixed", 2 under bf16)."""
+    M, NP = th * tw, sepconv_np(nt)
+    rows = sepconv_box(H, W, th, tw, rate)
+    n_chunks = _ceil(Cin, ck)
+    a_slots = n_chunks if _ceil(cg, NP) > 1 else 2
+    xstage = _a16((rows + 1) * ck * esz) + _a16(4 * 10 * ck)
+    staging = SEPCONV_WARPS * 16 * (nt * 8 + _ST_PAD) * esz
+    o = _a1024(_a16(4 * 9 * M) + _a16(4 * rows))    # A: wgmma's swizzle
+    o = _a1024(o + _a16(2 * a_slots * M * ck) + _a16(max(stages * xstage,
+                                                         staging)))
+    return o + stages * 2 * ck * NP
+
+
+def _sep_rings(H, W, Cin, Cout, rate, th, tw, ck, nt, cg, esz):
+    """(stages, smem): three stages where they fit, else two; None when
+    not even two fit."""
+    smem = lambda stages: sepconv_smem(H, W, Cin, Cout, rate, th, tw, ck,
+                                       stages, nt, cg, esz)
+    if smem(2) > SMEM_LIMIT:
+        return None
+    stages = 3 if smem(3) <= SMEM_LIMIT else 2
+    return stages, smem(stages)
+
+
+@functools.lru_cache(maxsize=256)
+def sepconv_plan(B, H, W, Cin, Cout, rate, bf16: bool = False) -> SepconvPlan:
+    """Choose the chunk, pass width, Cout groups and ring depth of a
+    launch.  Among the choices whose shared memory fits, take the least
+    estimated time: whole waves of the blocks an SM holds (by shared
+    memory and registers), times the cost model's clocks a block (a fixed
+    part, the barrier intervals, the depthwise, the pointwise's
+    tensor-core work and its bytes from L2).  Three ring stages where they
+    fit, else two."""
+    if Cin % 8 or Cout % 8 or rate < 1:
+        raise ValueError(f"fused_sepconv: unsupported shape Cin={Cin} "
+                         f"Cout={Cout} rate={rate}")
+    esz = 2 if bf16 else 4
+    best = None
+    th = tw = SEPCONV_TILE
+    M = th * tw
+    ty, tx = _ceil(H, th), _ceil(W, tw)
+    halo_px = sepconv_halo(H, W, th, tw, rate) * M
+    for ck in SEPCONV_CHUNKS:
+        n_chunks = _ceil(Cin, ck)
+        for nt in SEPCONV_NT:
+            NP = sepconv_np(nt)
+            for G in range(1, _ceil(Cout, 64) + 1):
+                cg = _ceil(_ceil(Cout, G), 8) * 8
+                if (G - 1) * cg >= Cout:
+                    continue
+                rings = _sep_rings(H, W, Cin, Cout, rate, th, tw, ck, nt, cg,
+                                   esz)
+                if rings is None:
+                    continue
+                per_sm = max(1, min(SEPCONV_BLOCKS_PER_SM[nt],
+                                    (SMEM_LIMIT + 1024) // (rings[1] + 1024)))
+                passes = _ceil(cg, NP)
+                clk = (_SC_FIXED
+                       + _SC_INTERVAL * (passes * n_chunks + 1)
+                       + _SC_DW * M * Cin
+                       + _SC_FLOP * 2 * M * Cin * cg
+                       + _SC_L2 * (halo_px * Cin * esz + 2 * Cin * cg))
+                est = (math.ceil(B * ty * tx * G / (SM_COUNT * per_sm))
+                       * (1 + _SC_SHARE * (per_sm - 1)) * clk)
+                if best is None or est < best[0]:
+                    best = (est, ck, nt, G, cg, rings)
+    if best is None:
+        raise ValueError(f"fused_sepconv: no tile fits Cin={Cin} "
+                         f"Cout={Cout} rate={rate} at {H}x{W}")
+    est, ck, nt, G, cg, (stages, smem) = best
+    NP = sepconv_np(nt)
+    return SepconvPlan(th, tw, ck, stages, nt, G, cg, NP,
+                       _ceil(Cin, ck) if _ceil(cg, NP) > 1 else 2, smem,
+                       ty, tx, B, sepconv_halo(H, W, th, tw, rate), est)
 
 
 def fused_mbconv_reference(x, w1, b1, wdw, bdw, w2, b2, *, rate: int,
@@ -339,23 +520,30 @@ def fused_sepconv(x, wdw, bdw, wpw, bpw, *, rate: int, pre_relu: bool,
                          "the float32 policy keeps the plain composition")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported input dtype {x.dtype}")
-    if Cout % 8 or rate < 1:
-        raise ValueError(f"unsupported shape Cout={Cout}, rate={rate}")
+    if Cin % 8 or Cout % 8 or rate < 1:
+        raise ValueError(f"unsupported shape Cin={Cin}, Cout={Cout}, "
+                         f"rate={rate}")
     _check_weights(x, {"wdw": (wdw, (9, Cin), torch.float32),
                        "bdw": (bdw, (Cin,), torch.float32),
                        "wpw": (wpw, (Cin, Cout), torch.bfloat16),
                        "bpw": (bpw, (Cout,), torch.float32)})
-    if wpw.data_ptr() % 16:
-        raise ValueError("wpw must be 16-byte aligned (the kernel reads it "
-                         "by 16-byte vectors)")
+    for name, t in (("x", x), ("wdw", wdw), ("bdw", bdw), ("wpw", wpw)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"copies it by 16-byte vectors)")
+    bf16 = x.dtype == torch.bfloat16
+    plan = sepconv_plan(B, H, W, Cin, Cout, rate, bf16)
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+    # the kernel reads wpw's k-slices n-major (the tensor cores' K-major B)
+    wpw_t = wpw.t().contiguous()
     lib = _lib("fused_sepconv")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_sepconv_launch(
-        x.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), wpw.data_ptr(),
+        x.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), wpw_t.data_ptr(),
         bpw.data_ptr(), out.data_ptr(), B, H, W, Cin, Cout, rate,
-        int(pre_relu), int(act_mid), int(act_out),
-        int(x.dtype == torch.bfloat16), stream)
+        int(pre_relu), int(act_mid), int(act_out), int(bf16), plan.th,
+        plan.tw, plan.ck, plan.stages, plan.nt, plan.groups, plan.cg,
+        plan.smem, stream)
     if rc != 0:
         raise RuntimeError("fused_sepconv launch failed: "
                            + lib.fused_sepconv_error(rc).decode())

@@ -176,6 +176,64 @@ def dx_smem(Cin) -> int:
     return DX_STAGES * (2 * DX_M * DX_K + 2 * _a16(Cin) * DX_K)
 
 
+# B2 (``b2_kernel``): 16 warps a block (at most 128 registers a thread), a
+# chunk of CEB expanded channels and every splits-th group of B2_GP pixels;
+# dW2's accumulator is one channel m-tile x NT2 n-tiles a warp over
+# 16 / (CEB / 16) warp columns, and the source instantiates these NT2 per
+# CEB
+B2_WARPS, B2_GP = 16, 64
+B2_NT = {128: (2, 4, 6, 10), 64: (1, 2, 3, 5, 10)}
+# the cost model, clocks a block spends per group: a fixed part (two
+# barriers, the loop), per tensor-core flop (both products) and per byte
+# moved (gyq and dq in, ddh out)
+_B2_CLK_GROUP, _B2_CLK_FLOP, _B2_CLK_BYTE = 1200.0, 1 / 2048, 1 / 32
+
+
+def b2_smem(Cout, ceb, stages) -> int:
+    """Dynamic shared memory of one B2 block, in the layout of
+    csrc/fused_mbconv_train.cu (``lay_b2``): the chunk's w2 rows (Cout
+    padded to 16, plus 8), its four per-channel vectors, the group's ddh
+    staging (f32) and q(b) (bf16) tiles, the warps' T1/T2 sums, and
+    ``stages`` buffers of a group's gyq and dq rows."""
+    gld, dld = _a16(Cout) + 8, ceb + 8
+    stage = _a16(2 * B2_GP * gld) + _a16(2 * B2_GP * dld)
+    return (_a16(2 * ceb * gld) + _a16(16 * ceb) + _a16(4 * B2_GP * dld)
+            + _a16(2 * B2_GP * dld) + _a16(32 * ceb) + stages * stage)
+
+
+def _b2_plan(B, H, W, Ce, Cout) -> TrainPlan:
+    """B2's chunk, accumulator, ring and splits: among the chunks whose dW2
+    accumulator the source instantiates and whose shared memory fits, the
+    least estimated time (whole waves of one block an SM, times a block's
+    groups, times the cost model's clocks a group); then three stages
+    where they fit, and splits for one wave."""
+    if Ce % 8 or Cout % 8 or Cout > 320:
+        raise ValueError(f"b2: unsupported shape Ce={Ce} Cout={Cout}")
+    groups = _ceil(B * H * W, B2_GP)
+    best = None
+    for ceb, nts in B2_NT.items():
+        need = _ceil(Cout // 8, B2_WARPS // (ceb // 16))
+        fit = [n for n in nts if n >= need]
+        if not fit or b2_smem(Cout, ceb, 2) > SMEM_LIMIT:
+            continue
+        stages = 3 if b2_smem(Cout, ceb, 3) <= SMEM_LIMIT else 2
+        smem = b2_smem(Cout, ceb, stages)
+        n_chunks = _ceil(Ce, ceb)
+        splits = max(1, min(groups, SM_COUNT // n_chunks))
+        cout_k = _a16(Cout)
+        clk = (_B2_CLK_GROUP + _B2_CLK_FLOP * 4 * B2_GP * ceb * cout_k
+               + _B2_CLK_BYTE * B2_GP * (2 * cout_k + 6 * ceb))
+        est = (math.ceil(n_chunks * splits / SM_COUNT)
+               * _ceil(groups, splits) * clk)
+        if best is None or est < best[0]:
+            best = (est, ceb, stages, fit[0], smem, splits)
+    if best is None:
+        raise ValueError(f"b2: no chunk fits Ce={Ce} Cout={Cout}")
+    est, ceb, stages, nt, smem, splits = best
+    return TrainPlan("b2", 0, 0, ceb, stages, nt, smem, 0, 0, B, B2_WARPS,
+                     splits, 1.0, est)
+
+
 @functools.lru_cache(maxsize=512)
 def train_plan(phase, B, H, W, Cin, Ce, Cout, rate) -> TrainPlan:
     """Choose the tile, chunk and ring depth of an F2 or B34 launch.  Among
@@ -183,7 +241,11 @@ def train_plan(phase, B, H, W, Cin, Ce, Cout, rate) -> TrainPlan:
     time: whole waves of one block per SM, times the chunks, times the cost
     model's clocks per chunk.  Then three stages where they fit, else two.
     B34's dx and dW1^T kernels hold half of Cin a warp; dW1^T runs over
-    pixel splits for about two blocks per SM."""
+    pixel splits for about two blocks per SM.  B2's plan (chunk of Ce,
+    dW2 accumulator, ring, splits) is ``_b2_plan``'s; it ignores Cin and
+    rate."""
+    if phase == "b2":
+        return _b2_plan(B, H, W, Ce, Cout)
     if phase not in ("f2", "b34"):
         raise ValueError(f"no launch plan for phase {phase!r}")
     if Cin % 8 or Ce % 8 or Cin > 160 or rate < 1:
@@ -378,8 +440,8 @@ def b34_reference(x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, *,
 # ---------------------------------------------------------------------------
 
 def _dims(B, H, W, Cin, Ce, Cout, rate, plan=None):
-    """The launcher's dims: the shape, then the halo phases' plan
-    (``TrainPlan.fields``; zeros for the other phases)."""
+    """The launcher's dims: the shape, then the plan of F2, B2 or B34
+    (``TrainPlan.fields``; zeros for F1 and F3)."""
     fields = plan.fields if plan is not None else (0,) * 8
     return (ctypes.c_int * 15)(B, H, W, Cin, Ce, Cout, rate, *fields)
 
@@ -482,8 +544,9 @@ def b2(dq, g, y, a2, c2, mu2, rstd2, w2, gA3, k0, k1):
     t = torch.empty((2, Ce), dtype=_F32, device=dq.device)
     dw2 = torch.empty((Ce, Cout), dtype=_F32, device=dq.device)
     ddh = torch.empty((B, H, W, Ce), dtype=_F32, device=dq.device)
+    plan = train_plan("b2", B, H, W, 8, Ce, Cout, 1)
     _launch("b2", [dq, g, y, a2, c2, mu2, rstd2, w2, gA3, k0, k1, t, dw2,
-                   ddh], _dims(B, H, W, 8, Ce, Cout, 1))
+                   ddh], _dims(B, H, W, 8, Ce, Cout, 1, plan))
     b2.launches += 1
     return t[0], t[1], dw2, ddh
 

@@ -733,3 +733,344 @@ def test_train_main_path_plans_at_the_training_batch():
             assert p.halo <= (8 + 2 * rate) ** 2 / 64
             if rate == 4:
                 assert p.halo <= 2.58 + 0.005, (phase, p)
+
+
+# ---------------------------------------------------------------------------
+# fused_sepconv (kernels/fused_mbconv.py::sepconv_plan)
+
+# The stride-1 SepConv_BN launches of the 512x512 Xception net: (Cin, Cout,
+# rate, map side) -> launches per forward, at output stride 16 and 8
+# (test_sepconv_shapes_are_the_nets_own records them from the net).
+XCEPTION_SHAPES = {
+    16: {(64, 128, 1, 256): 1, (128, 128, 1, 256): 1, (128, 256, 1, 128): 1,
+         (256, 256, 1, 128): 2, (256, 728, 1, 64): 1, (728, 728, 1, 64): 1,
+         (728, 728, 1, 32): 49, (728, 1024, 1, 32): 1,
+         (1024, 1024, 1, 32): 1, (1024, 1536, 2, 32): 1,
+         (1536, 1536, 2, 32): 1, (1536, 2048, 2, 32): 1,
+         (2048, 256, 6, 32): 1, (2048, 256, 12, 32): 1,
+         (2048, 256, 18, 32): 1, (304, 256, 1, 128): 1},
+    8: {(64, 128, 1, 256): 1, (128, 128, 1, 256): 1, (128, 256, 1, 128): 1,
+        (256, 256, 1, 128): 2, (256, 728, 1, 64): 1, (728, 728, 1, 64): 2,
+        (728, 728, 2, 64): 49, (728, 1024, 2, 64): 1,
+        (1024, 1024, 2, 64): 1, (1024, 1536, 4, 64): 1,
+        (1536, 1536, 4, 64): 1, (1536, 2048, 4, 64): 1,
+        (2048, 256, 12, 64): 1, (2048, 256, 24, 64): 1,
+        (2048, 256, 36, 64): 1, (304, 256, 1, 128): 1}}
+# tests/test_torch_kernels_gpu.py's fused_sepconv shapes: (Cin, Cout, rate,
+# H, W) at B=1 or 2
+SEPCONV_GPU_SHAPES = [(728, 728, 1, 16, 16), (1536, 2048, 2, 12, 12),
+                      (2048, 256, 18, 32, 32), (304, 256, 1, 128, 128),
+                      (728, 728, 1, 37, 21), (2048, 256, 36, 37, 21),
+                      (256, 728, 1, 26, 7), (16, 24, 1, 8, 8),
+                      (1536, 1536, 40, 19, 35)]
+
+
+def test_sepconv_shapes_are_the_nets_own():
+    """The table above is what the Xception net gives the kernel: its
+    calls recorded on a 64x64 input (maps 8x smaller, same rates)."""
+    from deeplab_tpu_torch import SegNet
+    for OS, want in XCEPTION_SHAPES.items():
+        net = SegNet((64, 64), 21, backbone="xception", OS=OS).eval()
+        got = {}
+        kernel = FM.fused_sepconv
+
+        def record(x, *w, **kw):
+            key = (x.shape[3], w[2].shape[1], kw["rate"], 8 * x.shape[1])
+            assert x.shape[1] == x.shape[2]
+            got[key] = got.get(key, 0) + 1
+            return FM.fused_sepconv_reference(x, *w, **kw)
+        FM.fused_sepconv = record
+        try:
+            with torch.no_grad():
+                net.logits(torch.rand(1, 64, 64, 3) * 255, "mixed")
+        finally:
+            FM.fused_sepconv = kernel
+        assert got == want, OS
+        assert sum(want.values()) == {16: 65, 8: 66}[OS]
+
+
+def _sepconv_cases():
+    for OS, shapes in XCEPTION_SHAPES.items():
+        for cin, cout, rate, hw in shapes:
+            for B in (2, 8, 16):
+                yield B, hw, hw, cin, cout, rate
+            for H, W in ((37, 21), (26, 7)):
+                yield 2, H, W, cin, cout, rate
+    for cin, cout, rate, H, W in SEPCONV_GPU_SHAPES:
+        yield 2, H, W, cin, cout, rate
+
+
+def _sepconv_instantiations():
+    with open(FM.__file__.replace("fused_mbconv.py",
+                                  "csrc/fused_sepconv.cu")) as f:
+        src = f.read()
+    import re
+    return {tuple(int(v) for v in m) for m in
+            re.findall(r"SEP_CASE\((\d+), (\d+)\)", src)}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", sorted(set(_sepconv_cases())))
+def test_sepconv_plan_fits_and_is_instantiated(case, bf16):
+    B, H, W, cin, cout, rate = case
+    p = FM.sepconv_plan(B, H, W, cin, cout, rate, bf16)
+    esz = 2 if bf16 else 4
+    assert p.smem <= LIMIT
+    assert p.smem == FM.sepconv_smem(H, W, cin, cout, rate, p.th, p.tw, p.ck,
+                                     p.stages, p.nt, p.cg, esz)
+    assert p.th == p.tw == FM.SEPCONV_TILE and p.ck in FM.SEPCONV_CHUNKS
+    assert p.nt in FM.SEPCONV_NT and p.stages in (2, 3)
+    assert (p.ck, p.nt) in _sepconv_instantiations()
+    assert _sepconv_instantiations() == {(c, n) for c in FM.SEPCONV_CHUNKS
+                                         for n in FM.SEPCONV_NT}
+    assert p.np_ == FM.sepconv_np(p.nt)
+    # the groups split Cout into whole n-tiles, none of them empty
+    assert p.cg % 8 == 0 and p.groups * p.cg >= cout
+    assert (p.groups - 1) * p.cg < cout
+    # A holds all of Cin exactly where a block takes more than one pass
+    n_chunks = -(-cin // p.ck)
+    assert p.a_slots == (n_chunks if p.passes > 1 else 2)
+    assert p.grid == (p.tiles_y * p.tiles_x * p.groups, B)
+    assert p.grid[0] < 2 ** 31 and B <= 65535
+
+
+def _sepconv_coverage(B, H, W, cin, cout, rate, p):
+    """csrc/fused_sepconv.cu's index arithmetic, mirrored: the tiles, the
+    box of each (bands, tap table, box pixels), the depthwise threads, the
+    wpw slices' swizzled copies, and the groups, passes, warps and n-tiles
+    of the pointwise.  Returns the count of each output pixel and of each
+    (tile pixel, output channel)."""
+    M, NP = p.th * p.tw, p.np_
+    rows = FM.sepconv_box(H, W, p.th, p.tw, rate)
+    seen = {}
+    for tile in range(p.tiles_y * p.tiles_x):
+        ty0, tx0 = (tile // p.tiles_x) * p.th, (tile % p.tiles_x) * p.tw
+        by = FM._sep_bands(H, ty0, p.th, rate)
+        bx = FM._sep_bands(W, tx0, p.tw, rate)
+        ny, nx = sum(n for _, n in by), sum(n for _, n in bx)
+        assert ny * nx <= rows
+
+        def pos(bands, v):
+            off = 0
+            for lo, n in bands:
+                if lo <= v < lo + n:
+                    return off + v - lo
+                off += n
+            return -1
+
+        def at(bands, i):
+            for lo, n in bands:
+                if i < n:
+                    return lo + i
+                i -= n
+            raise AssertionError("past the bands")
+        for pix in range(M):
+            py, px = ty0 + pix // p.tw, tx0 + pix % p.tw
+            if py >= H or px >= W:
+                continue
+            seen[py, px] = seen.get((py, px), 0) + 1
+            for q in range(9):
+                yy, xx = py + (q // 3 - 1) * rate, px + (q % 3 - 1) * rate
+                if 0 <= yy < H and 0 <= xx < W:
+                    iy, ix = pos(by, yy), pos(bx, xx)
+                    assert iy >= 0 and ix >= 0
+                    row = iy * nx + ix
+                    assert row < rows
+                    assert (at(by, row // nx), at(bx, row % nx)) == (yy, xx)
+    # the depthwise: each (tile pixel, channel quad) of a chunk once
+    cq = p.ck // 4
+    threads = 32 * FM.SEPCONV_WARPS
+    pstep = threads // cq
+    dw = {}
+    for tid in range(threads):
+        for jp in range(-(-M // pstep)):
+            pix = tid // cq + jp * pstep
+            if pix >= M:
+                break
+            dw[pix, tid % cq] = dw.get((pix, tid % cq), 0) + 1
+    assert len(dw) == M * cq and set(dw.values()) == {1}
+    # the pointwise: groups, passes, then each warp's staging rounds (warp
+    # w of warpgroup w // 4: rows 16 (w % 4) .. + 16, columns of its
+    # warpgroup's N = 16 NT, NT n-tiles a round), stored below the pass
+    # width
+    acc = {}
+    for grp in range(p.groups):
+        n_lo = grp * p.cg
+        n_hi = min(n_lo + p.cg, cout)
+        for ps in range(-(-(n_hi - n_lo) // NP)):
+            n0 = n_lo + ps * NP
+            w = min(NP, n_hi - n0)
+            for warp in range(FM.SEPCONV_WARPS):
+                for m in range(2):
+                    r_lo = (warp & 3) * 16
+                    c_lo = (warp >> 2) * 16 * p.nt + m * 8 * p.nt
+                    for j in range(p.nt):
+                        if c_lo + j * 8 >= w:
+                            continue
+                        for r in range(16):
+                            for c in range(8):
+                                key = (r_lo + r, n0 + c_lo + j * 8 + c)
+                                acc[key] = acc.get(key, 0) + 1
+    assert 2 * 16 * p.nt == NP and 4 * 16 == M
+    return seen, acc
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", [
+    (8, 32, 32, 728, 728, 1), (8, 32, 32, 1536, 2048, 2),
+    (8, 32, 32, 2048, 256, 18), (8, 64, 64, 2048, 256, 36),
+    (8, 128, 128, 304, 256, 1), (8, 256, 256, 64, 128, 1),
+    (2, 37, 21, 728, 728, 2), (2, 37, 21, 2048, 256, 12),
+    (2, 26, 7, 1024, 1536, 4), (2, 19, 35, 1536, 1536, 40),
+    (2, 8, 8, 16, 24, 1)])
+def test_sepconv_tiles_cover_every_output_once(case, bf16):
+    """Every output pixel and channel once, at the net's shapes, ragged
+    maps and rates past the map; and each forced chunk and pass
+    width that fits."""
+    B, H, W, cin, cout, rate = case
+    plans = [FM.sepconv_plan(B, H, W, cin, cout, rate, bf16)]
+    tile = (FM.SEPCONV_TILE, FM.SEPCONV_TILE)
+    for ck in FM.SEPCONV_CHUNKS:
+        for nt in FM.SEPCONV_NT:
+            cg = -(-cout // 8) * 8
+            smem = FM.sepconv_smem(H, W, cin, cout, rate, *tile, ck, 2, nt,
+                                   cg, 2 if bf16 else 4)
+            if smem <= LIMIT:
+                plans.append(FM.SepconvPlan(
+                    *tile, ck, 2, nt, 1, cg, FM.sepconv_np(nt), 0, smem,
+                    -(-H // tile[0]), -(-W // tile[1]), B, 0.0, 0.0))
+    for p in plans:
+        seen, acc = _sepconv_coverage(B, H, W, cin, cout, rate, p)
+        assert len(seen) == H * W and set(seen.values()) == {1}
+        assert len(acc) == p.th * p.tw * cout and set(acc.values()) == {1}
+
+
+@pytest.mark.parametrize("side", [32, 64, 37])
+def test_sepconv_box_does_not_grow_with_the_rate(side):
+    """The staged box stays within 3TH x 3TW at every rate, however large
+    against the map; at rates past the map it is the tile itself."""
+    th = tw = FM.SEPCONV_TILE
+    for rate in range(1, 3 * side):
+        box = FM.sepconv_box(side, side, th, tw, rate)
+        assert box <= 9 * th * tw, rate
+        if rate >= side:
+            assert box == th * tw
+
+
+@pytest.mark.parametrize("tile,rate,factor", [
+    ((8, 8), 1, 1.41), ((8, 8), 2, 1.89),
+    ((8, 8), 6, 4.52), ((8, 8), 12, 5.06), ((8, 8), 18, 3.52)])
+def test_sepconv_halo_factor_stated_in_the_header(tile, rate, factor):
+    """csrc/fused_sepconv.cu states these for a 32x32 map, beside the
+    whole map's 16.00x; a brute count of each tile's box reproduces the
+    plan's."""
+    got = FM.sepconv_halo(32, 32, *tile, rate)
+    assert abs(got - factor) <= 0.005
+    total = 0
+    for ty0 in range(0, 32, tile[0]):
+        for tx0 in range(0, 32, tile[1]):
+            ys = {ty0 + py + (i - 1) * rate for py in range(tile[0])
+                  for i in range(3)}
+            xs = {tx0 + px + (j - 1) * rate for px in range(tile[1])
+                  for j in range(3)}
+            ys = {y for y in ys if 0 <= y < 32}
+            xs = {x for x in xs if 0 <= x < 32}
+            total += len(ys) * len(xs)
+    assert total / 32 ** 2 == got
+    with open(FM.__file__.replace("fused_mbconv.py",
+                                  "csrc/fused_sepconv.cu")) as f:
+        header = f.read().split("#include")[0]
+    assert f"{factor:.2f}x" in header and "16.00x" in header
+
+
+# ---------------------------------------------------------------------------
+# B2 (kernels/fused_mbconv_train.py::train_plan("b2", ...))
+
+def _b2_instantiations():
+    with open(FMT.__file__.replace("fused_mbconv_train.py",
+                                   "csrc/fused_mbconv_train.cu")) as f:
+        src = f.read()
+    import re
+    block = src[src.index("#define B2_CASES"):]
+    block = block[:block.index("\n\n")]
+    return {(int(a), int(b)) for a, b in
+            re.findall(r"X\((\d+), (\d+)\)", block)}
+
+
+def _b2_cases():
+    for B in (2, 16):
+        for cin, ce, cout, rate, hw in MAIN:
+            yield B, hw, hw, ce, cout
+    for cin, ce, cout, rate, _ in MAIN:
+        for H, W in ((37, 21), (26, 7), (19, 35)):
+            yield 2, H, W, ce, cout
+    for rate, cin, ce, H, W in TRAIN_GPU_SHAPES:
+        for cout in (8, 16, 24, 64):
+            yield 2, H, W, ce, cout
+
+
+@pytest.mark.parametrize("case", sorted(set(_b2_cases())))
+def test_b2_plan_fits_and_is_instantiated(case):
+    B, H, W, ce, cout = case
+    p = FMT.train_plan("b2", B, H, W, 8, ce, cout, 1)
+    assert p.phase == "b2" and p.warps == FMT.B2_WARPS
+    assert p.smem <= LIMIT
+    assert p.smem == FMT.b2_smem(cout, p.ck, p.stages)
+    assert p.ck in FMT.B2_NT and p.nt in FMT.B2_NT[p.ck]
+    assert (p.ck, p.nt) in _b2_instantiations()
+    assert set(_b2_instantiations()) == {(c, n) for c, ns in
+                                         FMT.B2_NT.items() for n in ns}
+    assert p.stages in (2, 3)
+    # dW2's warps hold every n-tile of Cout
+    assert p.nt * (FMT.B2_WARPS // (p.ck // 16)) * 8 >= cout
+    groups = -(-B * H * W // FMT.B2_GP)
+    assert 1 <= p.splits <= min(groups, 65535)
+
+
+@pytest.mark.parametrize("case", [
+    (16, 128, 128, 144, 24), (16, 64, 64, 960, 320), (16, 64, 64, 576, 160),
+    (2, 37, 21, 384, 96), (2, 26, 7, 192, 32), (2, 19, 35, 960, 160),
+    (2, 16, 13, 200, 64), (2, 8, 8, 96, 16)])
+def test_b2_covers_every_output_once(case):
+    """b2_kernel's index arithmetic, mirrored: the chunks and splits take
+    each (64-pixel group, channel chunk) once; within a group the ddh
+    warps hold each (pixel, channel) once, the dW2 warps each (channel,
+    output channel) once, and the T1/T2 sums each channel once per pixel
+    m-tile."""
+    B, H, W, ce, cout = case
+    p = FMT.train_plan("b2", B, H, W, 8, ce, cout, 1)
+    P, ceb, nt2 = B * H * W, p.ck, p.nt
+    groups = -(-P // FMT.B2_GP)
+    n_chunks = -(-ce // ceb)
+    pairs = {}
+    for c in range(n_chunks):
+        for split in range(p.splits):
+            n_mine = (groups - split + p.splits - 1) // p.splits
+            for i in range(n_mine):
+                key = (split + i * p.splits, c)
+                pairs[key] = pairs.get(key, 0) + 1
+    assert len(pairs) == groups * n_chunks and set(pairs.values()) == {1}
+    ntd, wm2_n = ceb // 32, ceb // 16
+    ddh, dw2, tsum = {}, {}, {}
+    for warp in range(FMT.B2_WARPS):
+        wmd, wnd = warp & 3, warp >> 2
+        for j in range(ntd):
+            for r in range(16):
+                for cc in range(8):
+                    key = (wmd * 16 + r, (wnd * ntd + j) * 8 + cc)
+                    ddh[key] = ddh.get(key, 0) + 1
+            for cc in range(8):
+                key = (wmd, (wnd * ntd + j) * 8 + cc)
+                tsum[key] = tsum.get(key, 0) + 1
+        wm2, wn2 = warp % wm2_n, warp // wm2_n
+        for j in range(nt2):
+            nt = wn2 * nt2 + j
+            if nt >= cout // 8:
+                continue
+            for r in range(16):
+                for cc in range(8):
+                    key = (wm2 * 16 + r, nt * 8 + cc)
+                    dw2[key] = dw2.get(key, 0) + 1
+    assert len(ddh) == FMT.B2_GP * ceb and set(ddh.values()) == {1}
+    assert len(tsum) == 4 * ceb and set(tsum.values()) == {1}
+    assert len(dw2) == ceb * cout and set(dw2.values()) == {1}

@@ -12,7 +12,12 @@ Tolerance: both sides take the same bf16 matmul operands and accumulate in
 f32; a summation-order ulp can flip one bf16-rounded depthwise output
 (2^-8 relative) and bf16 outputs round once more: 2e-2 at outputs of order 1.
 ``fused_sepconv`` is held, as in chip_smoke.py, to 2e-3 ("mixed") and 1e-2
-(bf16) of its largest output at the Xception net's ragged widths.
+(bf16) of its largest output: at every launch shape of the Xception net
+at output stride 16 and 8, at ragged maps and rates at and past the map's
+size, and with each tile, chunk and pass width of ``sepconv_plan``
+forced.  B2 is held to its plain version (``max_err_vs_plain``) at every
+block shape of the net on its own map and two ragged ones, and its sums
+repeat bit for bit at two more shapes.
 
 ``fused_dw_bn_relu6`` is held to its plain version within 1e-5 (f32) and 2
 bf16 ulps (bf16) of its largest output, at ragged maps and channel counts,
@@ -202,6 +207,99 @@ def test_sepconv_kernel_matches_reference(cuda, x_dtype, pre_relu, Cin, Cout,
     scale = ref.float().abs().max().item()
     tol = 2e-3 if x_dtype == torch.float32 else 1e-2
     assert scale > 0 and err <= tol * scale, (err, scale)
+
+
+# the stride-1 SepConv_BN launch shapes of the 512x512 Xception net at
+# output stride 16 and 8: (Cin, Cout, rate, map side, pre_relu)
+XCEPTION_SEPCONV = sorted({
+    (64, 128, 1, 256, True), (128, 128, 1, 256, True),
+    (128, 256, 1, 128, True), (256, 256, 1, 128, True),
+    (256, 728, 1, 64, True), (728, 728, 1, 64, True),
+    (728, 728, 1, 32, True), (728, 1024, 1, 32, True),
+    (1024, 1024, 1, 32, True), (1024, 1536, 2, 32, False),
+    (1536, 1536, 2, 32, False), (1536, 2048, 2, 32, False),
+    (2048, 256, 6, 32, False), (2048, 256, 12, 32, False),
+    (2048, 256, 18, 32, False), (304, 256, 1, 128, False),
+    (256, 256, 1, 128, False), (728, 728, 2, 64, True),
+    (728, 1024, 2, 64, True), (1024, 1024, 2, 64, True),
+    (1024, 1536, 4, 64, False), (1536, 1536, 4, 64, False),
+    (1536, 2048, 4, 64, False), (2048, 256, 12, 64, False),
+    (2048, 256, 24, 64, False), (2048, 256, 36, 64, False)})
+
+
+def _sepconv_case(cuda, x_dtype, Cin, Cout, rate, H, W, pre_relu, B=1,
+                  seed=7):
+    r = np.random.RandomState(seed)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (r.randn(*s) * sc).astype(np.float32)).to(cuda)
+    wdw, bdw = t(9, Cin, sc=0.3), t(Cin, sc=0.1)
+    wpw, bpw = t(Cin, Cout, sc=Cin ** -0.5).bfloat16(), t(Cout, sc=0.1)
+    x = t(B, H, W, Cin).to(x_dtype)
+    kw = dict(rate=rate, pre_relu=pre_relu, act_mid=not pre_relu,
+              act_out=not pre_relu, mxu_bf16=x_dtype == torch.float32)
+    before = FM.fused_sepconv.launches
+    got = FM.fused_sepconv(x, wdw, bdw, wpw, bpw, **kw)
+    ref = FM.fused_sepconv_reference(x, wdw, bdw, wpw, bpw, **kw)
+    torch.cuda.synchronize()
+    assert FM.fused_sepconv.launches == before + 1
+    assert got.dtype == x_dtype and got.shape == (B, H, W, Cout)
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = 2e-3 if x_dtype == torch.float32 else 1e-2
+    assert scale > 0 and err <= tol * scale, (err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", XCEPTION_SEPCONV)
+def test_sepconv_at_every_xception_shape(cuda, x_dtype, shape):
+    """Each launch shape of the Xception net at OS 16 and 8, B=2, under
+    "mixed" (f32) and bf16: its plan as the net gets it."""
+    Cin, Cout, rate, side, pre = shape
+    _sepconv_case(cuda, x_dtype, Cin, Cout, rate, side, side, pre, B=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cin,Cout,rate,H,W", [
+    (728, 728, 1, 37, 21),      # ragged tiles both ways
+    (2048, 256, 36, 37, 21),    # rate past the map: the box is the tile
+    (2048, 256, 24, 64, 64),    # rate between the map's half and its size
+    (1536, 1536, 40, 19, 35),   # past the map, three passes of A
+    (256, 728, 2, 26, 7),       # a map narrower than the tile
+    (16, 24, 1, 8, 8),          # one partial chunk, one partial n-tile pair
+])
+def test_sepconv_at_ragged_maps_and_large_rates(cuda, x_dtype, Cin, Cout,
+                                                rate, H, W):
+    _sepconv_case(cuda, x_dtype, Cin, Cout, rate, H, W, False, B=2)
+    _sepconv_case(cuda, x_dtype, Cin, Cout, rate, H, W, True, B=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nt", [4, 8])
+@pytest.mark.parametrize("ck", [64, 32, 16])
+@pytest.mark.parametrize("Cin,Cout,rate,H,W", [
+    (728, 728, 1, 21, 19), (1024, 1536, 2, 19, 35), (2048, 256, 18, 32, 32),
+    (304, 256, 1, 37, 21), (1536, 2048, 2, 26, 7)])
+def test_sepconv_at_each_plan(cuda, monkeypatch, ck, nt, Cin, Cout, rate, H,
+                              W):
+    """Each chunk and pass width the plan may choose, forced (the plan
+    picks Cout groups and ring), where it fits shared memory."""
+    tile = (8, 8)
+    monkeypatch.setattr(FM, "SEPCONV_CHUNKS", (ck,))
+    monkeypatch.setattr(FM, "SEPCONV_NT", (nt,))
+    FM.sepconv_plan.cache_clear()
+    try:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            try:
+                p = FM.sepconv_plan(1, H, W, Cin, Cout, rate,
+                                    x_dtype == torch.bfloat16)
+            except ValueError:
+                continue
+            assert (p.th, p.tw, p.ck, p.nt) == tile + (ck, nt)
+            _sepconv_case(cuda, x_dtype, Cin, Cout, rate, H, W, False)
+    finally:
+        FM.sepconv_plan.cache_clear()
 
 
 @pytest.mark.gpu
@@ -597,7 +695,9 @@ def test_halo_phases_at_each_tile(cuda, monkeypatch, ck, tile, block, H, W):
 
 @pytest.mark.gpu
 def test_train_phase_sums_repeat_bit_for_bit(cuda):
-    """Per-block partials and a fixed-order second pass: no atomics."""
+    """Per-block partials and a fixed-order second pass: no atomics.  B2's
+    T1, T2, dW2 (and ddh) also at the widest block, whose chunk of Ce and
+    splits differ."""
     from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     calls = _train_block_calls(cuda, 2, True, 32, 192, 32, 24, 24)
     for name in ("f1", "f2", "b2", "b34"):
@@ -606,6 +706,34 @@ def test_train_phase_sums_repeat_bit_for_bit(cuda):
         b = getattr(FMT, name)(*args, **kw)
         for u, v in zip(a, b):
             assert torch.equal(u, v), name
+    for block in ((160, 960, 320, 4, False), (96, 576, 160, 2, False)):
+        calls = _train_block_calls(cuda, block[3], block[4], *block[:3],
+                                   37, 21)
+        args, kw, _ = calls["b2"][0]
+        a, b = FMT.b2(*args, **kw), FMT.b2(*args, **kw)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(None, None), (37, 21), (26, 7)])
+@pytest.mark.parametrize("block", TRAIN_BLOCKS)
+def test_b2_at_every_block_shape(cuda, block, H, W):
+    """B2 at each block shape of the net, B=2, on its own map and two
+    ragged ones (pixel groups cut short, Ce chunks cut short): T1, T2, dW2
+    and ddh held to the plain version (2 bf16 ulps of bf16 outputs, 1e-3
+    of f32 ones, FLIP_* for masks)."""
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    Cin, Ce, Cout, rate, skip, side = block
+    H, W = (side, side) if H is None else (H, W)
+    calls = _train_block_calls(cuda, rate, skip, Cin, Ce, Cout, H, W)
+    args, kw, want = calls["b2"][0]
+    before = FMT.b2.launches
+    got = FMT.b2(*args, **kw)
+    torch.cuda.synchronize()
+    assert FMT.b2.launches == before + 1
+    err, rel, ok = FMT.max_err_vs_plain(got, want)
+    assert ok, (err, rel)
 
 
 @pytest.mark.gpu
