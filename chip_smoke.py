@@ -117,16 +117,21 @@ checkout (a parent commit) times that checkout's kernels, for a comparison
 in one call.  ``--train-phases`` does the same for the training block's
 five phases: each held to its plain version and timed (CUDA events, and
 device time in a CUDA graph) beside its bound at every block shape of the
-net at B=16, per step, with a ``torch.profiler`` split of B34 by kernel.
-``--train-plan-sweep`` times every tile and chunk that the halo phases'
-launch plan (``train_plan``) may choose at those shapes.  B2 and B34 are
+net at B=16 (F1 and F3 also beside their plain bf16 composition), per
+step, with a ``torch.profiler`` split of B2 and B34 by kernel.
+``--train-plan-sweep [f1 f2 f3 b34]`` times every tile and chunk that the
+halo phases' launch plan (``train_plan``) may choose at those shapes, and
+every warpgroup count of F1's and width, column groups and ring of F3's
+(only the named phases, where some are named).  B2 and B34 are
 also split by kernel there.  ``--sepconv-shapes`` holds ``fused_sepconv``
 to its plain version and times it at each launch shape of the Xception net
 at B=8, output stride 16 and 8, beside its bound and the cuDNN composition,
 with the build's registers and spills (public API only, so a copy run from
 a parent checkout times the parent's kernel); ``--sepconv-plan-sweep``
 times every chunk and pass width that ``sepconv_plan`` may choose at those
-shapes.
+shapes.  ``--train-step`` times only the bf16 train step at B=16 (img/s,
+peak memory, device busy share), public API only, for parent and change in
+turns.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -138,6 +143,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -751,6 +757,30 @@ def train_bound_ms(name, args, out):
     return 1e3 * t, ("bytes" if t == t_b else "operations")
 
 
+def train_composition(name, args):
+    """The plain bf16 composition of training phase F1 or F3 on the card,
+    as a model built from library calls would run it: F1 ``torch.matmul``
+    of x and w1 in bf16 (cuBLAS rounds the f32 sums once: q), then the sum
+    and the sum of squares in f32; F3 the BN2 affine with its two roundings
+    and relu6, then ``torch.matmul`` with w2 in bf16.  Returns a callable;
+    no single call computes a phase (``library_ms`` stays null)."""
+    if name == "f1":
+        x, w1 = args
+        x2 = x.reshape(-1, x.shape[-1])
+
+        def run():
+            e = (x2 @ w1).float()
+            return e.sum(0), (e * e).sum(0)
+        return run
+    dq, a2, c2, w2 = args
+    d2 = dq.reshape(-1, dq.shape[-1])
+
+    def run():
+        v = ((d2.float() * a2).bfloat16().float() + c2).bfloat16()
+        return torch.clamp(v, 0.0, 6.0) @ w2
+    return run
+
+
 def device_table(fn, what, calls=3, top=12):
     """Where ``fn``'s device time goes: ``torch.profiler`` over ``calls``
     calls, the busy share of the wall time and the top kernels per call."""
@@ -855,6 +885,8 @@ def train_block_calls(dev, B, H, W, cin, ce, cout, rate, skip, seed):
     w = [t(cin, ce, sc=0.3), 1 + t(ce, sc=0.1), t(ce, sc=0.1),
          t(9, ce, sc=0.3), 1 + t(ce, sc=0.1), t(ce, sc=0.1),
          t(ce, cout, sc=0.2), 1 + t(cout, sc=0.1), t(cout, sc=0.1)]
+    # w2 laid out as the net holds it: the transpose of the project kernel
+    w[6] = w[6].t().contiguous().t()
     w = [v.requires_grad_() for v in w]
     with FMT.plain_versions() as calls:
         out, _ = FMT.block_train(x, *w, rate=rate, skip=skip)
@@ -866,8 +898,10 @@ def train_phase_times(card) -> dict:
     """``--train-phases``: each training phase per launch at every block
     shape of the net at B=16, seeded inputs from the plain versions, held to
     its plain version, timed with CUDA events and as device time in a CUDA
-    graph beside its bound; per step (each shape times its block count);
-    and a ``torch.profiler`` split of B34 by kernel name.  Only the
+    graph beside its bound (F1 and F3 also beside their plain bf16
+    composition, ``train_composition``); per step (each shape times its
+    block count); and a ``torch.profiler`` split of B2 and B34 by kernel
+    name.  Only the
     wrappers' public API is used, so a copy of this file run from the root
     of a parent checkout times that checkout's kernels.  The counts of
     launches move; callers restore them."""
@@ -875,8 +909,8 @@ def train_phase_times(card) -> dict:
     from deeplab_tpu_torch.models import mobilenetv2 as M
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
-    step = {n: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
-            for n in FMT.PHASES}
+    step = {n: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+                "composition_ms": 0.0} for n in FMT.PHASES}
     failed = []
     for ids, cin, ce, cout, rate, skip, st in fused_shapes(M):
         H = W = SIZE // st
@@ -898,12 +932,16 @@ def train_phase_times(card) -> dict:
                 del got
                 ms = cuda_ms(lambda: kernel(*args, **kw), 10)
                 dev_ms = graph_ms(lambda: kernel(*args, **kw), iters=5)
+                comp = (cuda_ms(train_composition(name, args), 10)
+                        if name in ("f1", "f3") else 0.0)
             bms, _ = train_bound_ms(name, args, want)
             for k, v in (("ms", ms), ("device_ms", dev_ms),
-                         ("bound_ms", bms)):
+                         ("bound_ms", bms), ("composition_ms", comp)):
                 step[name][k] += len(ids) * v
             row.append(f"{name} {ms:.4f} (device {dev_ms:.4f}, bound "
-                       f"{bms:.4f}{'' if ok else ', FAILS its plain version'}"
+                       f"{bms:.4f}"
+                       + (f", composition {comp:.4f}" if comp else "")
+                       + f"{'' if ok else ', FAILS its plain version'}"
                        f", rel {rel:.2e})")
         by_kernel = []
         for name in ("b2", "b34"):
@@ -927,20 +965,24 @@ def train_phase_times(card) -> dict:
         del calls
     for name in FMT.PHASES:
         s = step[name]
+        comp = (f", composition {s['composition_ms']:.4f} ms"
+                if name in ("f1", "f3") else "")
         print(f"  train phase {name} per step ({TRAIN_PER_STEP} launches, "
               f"B={TRAIN_B}): {s['ms']:.4f} ms (device {s['device_ms']:.4f}),"
-              f" bound {s['bound_ms']:.4f} ms [{card}]", flush=True)
+              f" bound {s['bound_ms']:.4f} ms{comp} [{card}]", flush=True)
     if failed:
         raise AssertionError("phases that disagree with their plain "
                              "versions: " + "; ".join(failed))
     return step
 
 
-def train_plan_sweep(card) -> int:
+def train_plan_sweep(card, phases=("f2", "b34", "f1", "f3")) -> int:
     """``--train-plan-sweep``: every (tile, chunk) that ``train_plan`` may
-    choose for F2 and B34, forced, held to the plain version and timed
-    (device time in a CUDA graph) at each block shape of the net at B=16,
-    beside the plan's choice and its cost model's estimate."""
+    choose for F2 and B34, every (warpgroups, ring) for F1 and (Cout
+    split, chunk, ring) for F3, forced, held to the plain version and
+    timed (device time in a CUDA graph) at each block shape of the net at
+    B=16, beside the plan's choice and its cost model's estimate; only the
+    named ``phases`` where the command line names some."""
     from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     from deeplab_tpu_torch.models import mobilenetv2 as M
     dev = torch.device("cuda")
@@ -950,7 +992,7 @@ def train_plan_sweep(card) -> int:
         H = W = SIZE // st
         calls = train_block_calls(dev, TRAIN_B, H, W, cin, ce, cout, rate,
                                   skip, SEED + 600 + ids[0])
-        for name in ("f2", "b34"):
+        for name in [n for n in ("f2", "b34") if n in phases]:
             args, kw, want = calls[name][0]
             kernel = getattr(FMT, name)
             chosen = FMT.train_plan(name, TRAIN_B, H, W, cin, ce, cout, rate)
@@ -979,9 +1021,84 @@ def train_plan_sweep(card) -> int:
                           flush=True)
             FMT.TRAIN_TILES, FMT.TRAIN_CHUNKS = tiles, chunks
             FMT.train_plan.cache_clear()
+        for name, knobs in (("f1", ("F1_WGS",)),
+                            ("f3", ("F3_CASES", "F3_STAGES"))):
+            if name not in phases:
+                continue
+            args, kw, want = calls[name][0]
+            kernel = getattr(FMT, name)
+            chosen = FMT.train_plan(name, TRAIN_B, H, W, cin, ce, cout, rate)
+            saved = {k: getattr(FMT, k) for k in knobs}
+            for combo in itertools.product(*saved.values()):
+                for k, v in zip(knobs, combo):
+                    setattr(FMT, k, (v,))
+                FMT.train_plan.cache_clear()
+                try:
+                    p = FMT.train_plan(name, TRAIN_B, H, W, cin, ce, cout,
+                                       rate)
+                except ValueError:
+                    continue
+                with torch.no_grad():
+                    ok = FMT.max_err_vs_plain(kernel(*args, **kw), want)[2]
+                    ms = graph_ms(lambda: kernel(*args, **kw), iters=5)
+                if not ok:
+                    bad.append((name, ids, combo))
+                mark = ("  <- plan" if p.fields == chosen.fields else "")
+                print(f"  {name} blocks {ids} {cin}->{ce}->{cout} "
+                      f"{TRAIN_B}x{H}x{W}: {dict(zip(knobs, combo))} splits "
+                      f"{p.splits} stages {p.stages} smem {p.smem}: "
+                      f"{ms:.4f} ms{'' if ok else ' FAILS its plain version'}"
+                      f"{mark} [{card}]", flush=True)
+            for k, v in saved.items():
+                setattr(FMT, k, v)
+            FMT.train_plan.cache_clear()
         del calls
     print(card)
     return 1 if bad else 0
+
+
+def train_step_times(card, runs: int = 10) -> int:
+    """``--train-step``: the bf16 train step of the full-width 512x512 net
+    at B=16 with the block kernels, seeded weights and one seeded batch,
+    timed with CUDA events (``runs`` steps after two of warm-up), its peak
+    device memory, and its device busy share under ``torch.profiler`` over
+    three steps.  Only the public API is used, so a copy of this file run
+    from the root of a parent checkout times that checkout, for parent and
+    change in turns in one call."""
+    from deeplab_tpu_torch.kernels import build
+    from deeplab_tpu_torch.train import Trainer
+    from torch.profiler import ProfilerActivity, profile
+    build.build(["fused_mbconv_train", "fused_mbconv", "fused_dw"])
+    dev = torch.device("cuda")
+    net = seeded_net((SIZE, SIZE), SEED + 5, dev)
+    net.fuse_blocks = True
+    imgs, masks = scene_batch(TRAIN_B, SEED + 500, dev)
+    X, Y = imgs, masks.reshape(TRAIN_B, -1, 1).to(torch.int32)
+    SW = torch.ones((TRAIN_B, SIZE * SIZE), device=dev)
+    t = Trainer(net, compute_dtype=torch.bfloat16, verbose=0)
+    t.setup(net)
+    t.train_step(X, Y, SW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: t.train_step(X, Y, SW), runs, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as pr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            t.train_step(X, Y, SW)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 3
+    busy = sum(e.self_device_time_total for e in pr.key_averages()
+               if e.self_device_time_total > 0
+               and str(e.device_type).endswith("CUDA")) / 3e3
+    print(f"  train step bf16, block kernels B={TRAIN_B}: {ms:.3f} ms/step, "
+          f"{1e3 * TRAIN_B / ms:.1f} img/s, peak device memory {peak:.2f} "
+          f"GiB; under torch.profiler device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall (idle share {1 - busy / wall:.3f}) [{card}]",
+          flush=True)
+    return 0
 
 
 def crf_scene_batches(dev):
@@ -1083,7 +1200,10 @@ def main() -> int:
     if "--train-plan-sweep" in sys.argv[1:]:
         from deeplab_tpu_torch.kernels import build
         build.build(["fused_mbconv_train"])
-        return train_plan_sweep(card_line())
+        named = [a for a in sys.argv[1:] if a in ("f1", "f2", "f3", "b34")]
+        return train_plan_sweep(card_line(), *([named] if named else []))
+    if "--train-step" in sys.argv[1:]:
+        return train_step_times(card_line())
     if "--train-phases" in sys.argv[1:]:
         from deeplab_tpu_torch.kernels import build
         card = card_line()
@@ -2411,25 +2531,33 @@ def main() -> int:
         for name in FMT.PHASES:
             kernel = getattr(FMT, name)
             ref = getattr(FMT, name + "_reference")
-            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "composition_ms": 0.0}
             by = {"bytes": 0.0, "operations": 0.0}
             for args, kw, want in calls[name]:
                 with torch.no_grad():
                     ms = cuda_ms(lambda: kernel(*args, **kw), 10)
                     plain = cuda_ms(lambda: ref(*args, **kw), 2, warmup=1)
+                    comp = (cuda_ms(train_composition(name, args), 10)
+                            if name in ("f1", "f3") else 0.0)
                 bms, bb = train_bound_ms(name, args, want)
                 tot["ms"] += ms
                 tot["plain_ms"] += plain
                 tot["bound_ms"] += bms
+                tot["composition_ms"] += comp
                 by[bb] += bms
                 print(f"  {name:4s} {label(args)}: kernel {ms:.4f} ms, plain "
                       f"{plain:.4f} ms, bound {bms:.4f} ms ({bb}), "
-                      f"{bms / ms:.3f} of bound [{card}]")
+                      f"{bms / ms:.3f} of bound"
+                      + (f", composition {comp:.4f} ms" if comp else "")
+                      + f" [{card}]")
             train_report[name].update(tot)
             train_report[name]["bound_by"] = max(by, key=by.get)
             print(f"  {name} per step (14 launches, B={TRAIN_B}): kernel "
                   f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
-                  f"{tot['bound_ms']:.4f} ms [{card}]")
+                  f"{tot['bound_ms']:.4f} ms"
+                  + (f", composition {tot['composition_ms']:.4f} ms"
+                     if name in ("f1", "f3") else "") + f" [{card}]")
         del train["calls"]
 
         tnet = train["net"]
@@ -2814,7 +2942,7 @@ def main() -> int:
     # training phases: launches from the training run, times per step at B=16
     for n in FMT.PHASES:
         rep = train_report[n]
-        line.append({
+        entry = {
             "name": f"block_train_{n}", "route": "cuda",
             "source": "deeplab_tpu_torch/kernels/csrc/fused_mbconv_train.cu",
             "replaces": "deeplab_tpu/kernels/fused_mbconv_train.py:"
@@ -2822,7 +2950,10 @@ def main() -> int:
             "launches": train["launches"]["train_" + n],
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": None})
+            "bound_by": rep["bound_by"], "library_ms": None}
+        if n in ("f1", "f3"):
+            entry["composition_ms"] = rep["composition_ms"]
+        line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

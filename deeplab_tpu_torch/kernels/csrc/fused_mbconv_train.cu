@@ -73,7 +73,30 @@
 //     the taps cost the halo kernel its registers) and dW1^T = dvl^T x (128
 //     channels a block over pixel splits), each warp two m-tiles and half
 //     of Cin;
-//   - pixel-local phases (F1, F3) take groups of 64 consecutive pixels;
+//   - F1 is bound by operations (2 P Cin Ce on the tensor cores against P Cin
+//     bytes of x).  Its plan (train_plan "f1") gives a block of one, two or
+//     four warpgroups a chunk of 64, 128 or 256 expanded channels and
+//     every splits-th 64-pixel tile, the splits sized to one wave.  The
+//     chunk's w1 slice is transposed once into K-major rows (64-byte
+//     swizzle) and stays in shared memory: w1 is read once a block, not
+//     once per 64 pixels.  x tiles come through a cp.async ring of 4; the
+//     product runs on wgmma
+//     (m64n64k16, both operands from shared memory); the sums of q(acc) and
+//     q(acc)^2 come from the accumulator registers (a thread's rows, the
+//     lanes by fixed shuffles, the warps in warp order), with no f32 tile;
+//   - F3 is bound by bytes: dq (P x Ce, bf16) is its largest stream.  Its
+//     plan (train_plan "f3") gives a block 128 pixels and, on two
+//     warpgroups, up to 160 columns of Cout, or on four up to 320, Ce in
+//     chunks of 64 through a ring.  dq's rows and those of w2^T come in by
+//     16-byte cp.async, K-major with wgmma's 128-byte swizzle (w2 reaches
+//     the kernel as the transpose of a contiguous (Cout, Ce) tensor, as the
+//     block keeps it; the wrapper copies another layout once); the product
+//     runs on wgmma (m64nNk16, N up to 160),
+//     issued before, and waited for after, the thread that copied a dq
+//     chunk of the next chunk applies relu6(q(q(dq*a2) + c2)) to it in
+//     place: one barrier a chunk.  A block reads w2 from L2 once per 128
+//     pixels (the first port: once per 64; mma.sync from ldmatrix ran the
+//     product at about 145 TFLOP/s, PERF.md);
 //   - B2 is bound by bytes: its largest stream is ddh, P x Ce f32 written
 //     (151 MB at the 128x128 block, B=16), then dq read and gyq = q(gy)
 //     (P x Cout bf16, written once by gy_kernel) read once per chunk of
@@ -99,8 +122,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "mma_bf16.cuh"
 
 namespace {
@@ -110,21 +131,25 @@ using mbconv::cp16;
 using mbconv::cp8;
 using mbconv::cp_commit;
 using mbconv::cp_wait;
-using mbconv::for_each_acc;
+using mbconv::gmma_commit;
+using mbconv::gmma_desc;
+using mbconv::gmma_fence;
+using mbconv::gmma_m64;
+using mbconv::gmma_m64n64;
+using mbconv::gmma_wait;
 using mbconv::ldm_x4;
 using mbconv::ldm_x4_t;
 using mbconv::mma16816;
-using mbconv::mma_tile;
+using mbconv::pin;
 using mbconv::qbf;
 using mbconv::relu6;
+using mbconv::swz;
 using mbconv::w1_swz;
 using mbconv::xs_chunk;
 
-constexpr int CK = 32;                       // F1, F3: expanded channels per chunk
-constexpr int GP = 64;                       // pixel-local phases: pixels/group
+constexpr int GP = 64;                       // pixels a group: F1's tiles, B2's and
+                                             // dW1^T's walks
 constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
-constexpr int F_LD = CK + 4;                 // f32 (pixel, channel) row stride
-constexpr int H_LD = CK + 8;                 // bf16 (pixel, channel) row stride
 constexpr size_t SMEM_MAX = 232448;
 constexpr int RED_Y = 8;                     // row groups of the reduction
 // F2 and B34 (train_plan): 16 warps a block; dW1^T: 8 warps, 128 channels of
@@ -134,6 +159,9 @@ constexpr int WG_THREADS = 256, WG_M = 128, WG_GP = 64, WG_STAGES = 3;
 // dx = dvl @ w1^T (B34's second kernel): 8 warps, 128 pixels a block, Ce in
 // chunks of 64 through a ring of 3
 constexpr int DX_THREADS = 256, DX_M = 128, DX_K = 64, DX_STAGES = 3;
+// F1: warpgroups of 64 expanded channels, k-pieces of 32 (64-byte rows), a
+// ring of 4 x tiles
+constexpr int F1_KP = 32, F1_STAGES = 4;
 
 enum Phase { F1 = 0, F2 = 1, F3 = 2, B2 = 3, B34 = 4 };
 
@@ -151,126 +179,390 @@ struct Args {
   int B, H, W, Cin, Ce, Cout, rate;
   long long P;
   int n_groups, n_chunks, splits, tiles_x, tiles_y, n_tiles;
-  int cin_p, xs_ld, cout_k, cout_ld;
-  // the halo phases' plan and the geometry it implies
+  int cin_p, kp, cout_k;
+  // the plan and the geometry it implies
   int th, tw, twl, ck, stages, nt, smem, warps;
   int rows, xt_ld, xt_swz;
 };
 
-struct Bump {
-  size_t o = 0;
-  __host__ __device__ size_t take(size_t bytes) {
-    const size_t r = o;
-    o += (bytes + 15) & ~size_t(15);
-    return r;
-  }
-};
-
 __host__ __device__ inline int a16(int n) { return (n + 15) & ~15; }
-
-// shared-memory layouts (byte offsets) of the pixel-local kernels
-struct LF1 { size_t xs, w1s, es, total; };
-struct LF3 { size_t bs, w2s, total; };
-__host__ __device__ inline LF1 lay_f1(const Args& a) {
-  Bump b; LF1 l;
-  l.xs = b.take(2 * size_t(GP) * a.xs_ld);
-  l.w1s = b.take(2 * size_t(CK) * a.xs_ld);
-  l.es = b.take(4 * size_t(GP) * F_LD);
-  l.total = b.o;
-  return l;
-}
-__host__ __device__ inline LF3 lay_f3(const Args& a) {
-  Bump b; LF3 l;
-  l.bs = b.take(2 * size_t(GP) * H_LD);
-  l.w2s = b.take(2 * size_t(a.Cout) * H_LD);
-  l.total = b.o;
-  return l;
-}
 __device__ __forceinline__ bf16 bzero() { return __float2bfloat16(0.f); }
 
-// this chunk's expand weights, n-major: w1s[n][k] = w1[k][c0 + n]
-__device__ void stage_w1(const Args& a, bf16* w1s, int c0) {
-  for (int i = threadIdx.x; i < CK * a.cin_p; i += NTHREADS) {
-    const int n = i % CK, k = i / CK;
-    bf16 v = bzero();
-    if (c0 + n < a.Ce && k < a.Cin) v = a.w1[size_t(k) * a.Ce + c0 + n];
-    w1s[n * a.xs_ld + k] = v;
-  }
+__device__ __forceinline__ float2 bf2f(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+__device__ __forceinline__ uint32_t f2bf(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// this thread's cp.async groups of a ring of S: all but the newest S - 2
+// landed
+__device__ __forceinline__ void wait_ring(int S) {
+  if (S >= 4) cp_wait<2>(); else if (S == 3) cp_wait<1>(); else cp_wait<0>();
 }
 
 // ---------------------------------------------------------------- F1 ----
-__global__ void __launch_bounds__(NTHREADS) f1_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The plan (train_plan "f1"): a block of WGS (1, 2 or 4) warpgroups per
+// (chunk of ck = 64 WGS expanded channels, pixel split).  Its shared memory (lay_f1;
+// f1_smem in kernels/fused_mbconv_train.py), every part a whole number of
+// KB: the chunk's w1 slice, transposed once into K-major rows w1t[n][k]
+// (pieces of 32 k, 64-byte rows swizzled for wgmma), zero past Cin and Ce;
+// a ring of F1_STAGES 64-pixel x tiles in the same layout; the warps' sums.
+struct LF1 { int w1t, ring, stage_bytes, red, total; };
+__host__ __device__ inline LF1 lay_f1(const Args& a) {
+  LF1 l;
+  l.w1t = 0;
+  l.ring = 2 * a.ck * a.kp;
+  l.stage_bytes = 2 * GP * a.kp;
+  l.red = l.ring + F1_STAGES * l.stage_bytes;
+  l.total = l.red + 4 * 2 * 64 * (a.ck / 16);  // [warps][2][64] f32
+  return l;
+}
+
+// Grid (Ce chunks, pixel splits).  The split walks its 64-pixel tiles
+// (every splits-th: the chunks' blocks of a split read each x tile from L2
+// at about the same time) through the ring, one barrier a tile.  Each
+// warpgroup multiplies the tile by its 64 channels with wgmma m64n64k16,
+// both operands from shared memory, into one of two accumulators; while
+// it runs, the previous tile's q(acc) and q(acc)^2 go into per-column sums
+// in registers (a thread's columns 8j + 2t, + 1 over its rows g, g + 8;
+// zero rows past P and zero channels past Cin add nothing); at the end
+// across the 8 rows of a warp by fixed shuffles and across the 4 warps of
+// a warpgroup in warp order: one partial per (split, channel).
+template <int WGS>
+__global__ void __launch_bounds__(128 * WGS) f1_kernel(const Args a) {
+  // the wgmma operands' swizzle wants 1024-byte alignment (the other
+  // kernels' arrays ask for 16)
+  extern __shared__ __align__(1024) unsigned char smem1k[];
+  unsigned char* smem = smem1k;
+  constexpr int NB = 64 * WGS, THREADS = 128 * WGS;
   const LF1 L = lay_f1(a);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L.w1s);
-  float* es = reinterpret_cast<float*>(smem + L.es);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const long long p0 = (long long)blockIdx.x * GP;
-  for (int i = tid; i < GP * a.cin_p; i += NTHREADS) {
-    const int p = i / a.cin_p, k = i % a.cin_p;
-    bf16 v = bzero();
-    if (p0 + p < a.P && k < a.Cin) v = a.x[(p0 + p) * a.Cin + k];
-    xs[p * a.xs_ld + k] = v;
-  }
-  const int mw = warp & 3, nt0 = (warp >> 2) * 2;
-  for (int c0 = 0; c0 < a.Ce; c0 += CK) {
-    stage_w1(a, w1s, c0);
-    __syncthreads();
-    float acc[2][4] = {};
-    mma_tile<2>(acc, xs, a.xs_ld, mw * 16, w1s, a.xs_ld, a.cin_p, nt0, 1, CK / 8);
-    for_each_acc<2>(acc, mw * 16, nt0, 1, CK / 8, [&](int p, int n, float v) {
-      es[p * F_LD + n] = p0 + p < a.P ? qbf(v) : 0.f;
-    });
-    __syncthreads();
-    if (tid < 64) {
-      const int c = tid & 31;
-      const bool sq = tid >= 32;
-      float s = 0.f;
-      for (int p = 0; p < GP; ++p) {
-        const float v = es[p * F_LD + c];
-        s += sq ? v * v : v;
-      }
-      if (c0 + c < a.Ce)
-        a.part[(long long)blockIdx.x * 2 * a.Ce + (sq ? a.Ce : 0) + c0 + c] = s;
+  bf16* w1t = reinterpret_cast<bf16*>(smem + L.w1t);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * NB, split = blockIdx.y;
+  constexpr int S = F1_STAGES;
+  const int Ce = a.Ce, Cin = a.Cin, KP = a.kp, vq = KP / 8;
+  const int n_mine = (a.n_groups - split + a.splits - 1) / a.splits;
+
+  // tile i's x rows: 16-byte chunk c of row r's piece p (input channels
+  // 32p + 8c ..) at chunk c ^ swz<32>(r); four threads a row's 64 bytes, a
+  // warp 8 rows of one piece (512 contiguous bytes of shared memory)
+  auto issue = [&](int i) {
+    if (i >= n_mine) return;
+    const long long p0 = (long long)(split + (long long)i * a.splits) * GP;
+    bf16* xs = reinterpret_cast<bf16*>(smem + L.ring + (i % S) * L.stage_bytes);
+    for (int e = tid; e < GP * vq; e += THREADS) {
+      const int c = e & 3, r = (e >> 2) & (GP - 1), q = 4 * (e >> 8) + c;
+      const bool in = p0 + r < a.P && 8 * q < Cin;
+      cp16(xs + (q >> 2) * (GP * F1_KP) + r * F1_KP + 8 * (c ^ swz<F1_KP>(r)),
+           in ? (const void*)(a.x + (p0 + r) * Cin + 8 * q) : (const void*)a.x,
+           in ? 16 : 0);
     }
-    __syncthreads();
+  };
+  for (int i = 0; i < S - 2; ++i) {
+    issue(i);
+    cp_commit();
+  }
+  // the chunk's w1 slice, once: rows k, k + 1 of 8 channels a thread, into
+  // w1t[n][k] as pairs (k, k + 1) of row n
+  for (int e = tid; e < (KP / 2) * (NB / 8); e += THREADS) {
+    const int kh = e % (KP / 2), q = e / (KP / 2), k = 2 * kh, col = c0 + 8 * q;
+    uint4 u0 = make_uint4(0, 0, 0, 0), u1 = u0;
+    if (col < Ce && k < Cin) {  // Cin is even: row k + 1 lies in w1 too
+      u0 = *reinterpret_cast<const uint4*>(a.w1 + size_t(k) * Ce + col);
+      u1 = *reinterpret_cast<const uint4*>(a.w1 + size_t(k + 1) * Ce + col);
+    }
+    const bf16* r0 = reinterpret_cast<const bf16*>(&u0);
+    const bf16* r1 = reinterpret_cast<const bf16*>(&u1);
+    bf16* piece = w1t + (k >> 5) * (NB * F1_KP);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 8 * q + j;
+      __nv_bfloat162 v;
+      v.x = r0[j];
+      v.y = r1[j];
+      *reinterpret_cast<__nv_bfloat162*>(
+          piece + n * F1_KP + 8 * (((k & 31) >> 3) ^ swz<F1_KP>(n)) + (k & 7)) = v;
+    }
+  }
+
+  float s[16], ss[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = ss[i] = 0.f;
+  const bf16* wb = w1t + wg * 64 * F1_KP;  // this warpgroup's 64 rows of each piece
+  // q(acc) and q(acc)^2 into the sums: d[4j + 2h + e] is row 16 (warp % 4)
+  // + g + 8h, column 8j + 2t + e
+  auto sums = [&](const float (&d)[32]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = bf2f(f2bf(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
+        s[2 * j] += v.x;
+        s[2 * j + 1] += v.y;
+        ss[2 * j] += v.x * v.x;
+        ss[2 * j + 1] += v.y * v.y;
+      }
+  };
+  float d0[32], d1[32];
+  // tile i: its product into `dc` by wgmma, issued; then tile i - 1's sums
+  // from `dp` once its product is done (wgmma.wait_group 1) beside it
+  auto step = [&](float (&dc)[32], float (&dp)[32], int i) {
+    cp_wait<S - 3>();  // tile i landed
+    // the landed copies and w1t's stores, seen by wgmma's reads of shared
+    // memory
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // ... for every thread; tile i - 2's products done
+    issue(i + S - 2);  // into the stage tile i - 2 left
+    cp_commit();
+    const bf16* xs = reinterpret_cast<const bf16*>(smem + L.ring + (i % S) * L.stage_bytes);
+#pragma unroll
+    for (int q = 0; q < 32; ++q) dc[q] = 0.f;
+    pin(dc);
+    gmma_fence();
+    for (int kk = 0; kk < KP; kk += 16) {
+      const int pc = kk >> 5, off = kk & 31;
+      gmma_m64n64(dc, gmma_desc(xs + pc * (GP * F1_KP) + off, F1_KP),
+                  gmma_desc(wb + pc * (NB * F1_KP) + off, F1_KP));
+    }
+    gmma_commit();
+    if (i > 0) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      pin(dp);
+      sums(dp);
+    }
+  };
+  for (int i = 0; i < n_mine; i += 2) {
+    step(d0, d1, i);
+    if (i + 1 < n_mine) step(d1, d0, i + 1);
+  }
+  gmma_wait();
+  if (n_mine > 0) {
+    if (n_mine & 1) {
+      pin(d0);
+      sums(d0);
+    } else {
+      pin(d1);
+      sums(d1);
+    }
+  }
+  cp_wait<0>();
+  // over the warp's 8 row groups g by fixed shuffles; lanes 0-3 keep them
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+      ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], o);
+    }
+  }
+  if (lane < 4)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = 8 * (i >> 1) + 2 * t + (i & 1);
+      red[(warp * 2 + 0) * 64 + col] = s[i];
+      red[(warp * 2 + 1) * 64 + col] = ss[i];
+    }
+  __syncthreads();
+  // over the warpgroup's 4 warps in warp order
+  for (int e = tid; e < 2 * NB; e += THREADS) {
+    const int w = e / NB, c = e % NB, g4 = c >> 6;
+    float v = 0.f;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) v += red[((g4 * 4 + m) * 2 + w) * 64 + (c & 63)];
+    if (c0 + c < Ce) a.part[(long long)split * 2 * Ce + w * Ce + c0 + c] = v;
   }
 }
 
 // ---------------------------------------------------------------- F3 ----
-// NT: project n-tiles per warp (4 pixel m-tiles x 2 interleaved n groups)
-template <int NT>
-__global__ void __launch_bounds__(NTHREADS) f3_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The plan (train_plan "f3"): a block of 2 x CW warpgroups per (F3_PM = 128
+// pixels, split of Cout into NBLK = CW N columns): warpgroup w takes the 64
+// pixels w % 2 and the N columns w / 2; so at CW = 1 two warpgroups share
+// the columns, and at CW = 2 four warpgroups take both halves of each.  Ce
+// runs in chunks of 64.  Its shared memory (lay_f3; f3_smem in
+// kernels/fused_mbconv_train.py): a2 and c2 for every chunk (zero past Ce),
+// f32 and bf16, then `stages` ring buffers of one chunk: dq's rows (F3_PM x
+// 64) and w2^T's rows (NBLK x 64), both K-major with wgmma's 128-byte
+// swizzle.
+constexpr int F3_PM = 128, F3_CK = 64;
+struct LF3 { int vec, ring, s_b, stage_bytes, total; };
+__host__ __device__ inline int a1k(int n) { return (n + 1023) & ~1023; }
+__host__ __device__ inline LF3 lay_f3(const Args& a) {
+  LF3 l;
+  const int nblk = 8 * a.nt * a.tw;
+  l.vec = 0;
+  l.ring = a1k((4 + 2) * 2 * a.n_chunks * F3_CK);  // f32, then bf16
+  l.s_b = 2 * F3_PM * F3_CK;
+  l.stage_bytes = l.s_b + 2 * nblk * F3_CK;
+  l.total = l.ring + a.stages * l.stage_bytes;
+  return l;
+}
+
+// 1-D grid of (pixel tile, Cout split), the splits of a tile adjacent so
+// that they read its dq rows from L2.  Per chunk, one barrier: barrier
+// [chunk c + S - 1's copies issued into the stage chunk c - 1 left; each
+// warpgroup's product of chunk c by wgmma m64nNk16, issued; beside it,
+// this thread's copies of chunk c + 1 landed and relu6(q(q(dq*a2) + c2))
+// applied to them in place, once per element; the product waited for].
+// y = q(acc), rounded once.
+// (Two-warpgroup blocks of the narrower widths keep to 128 registers: two
+// blocks an SM; four warpgroups, to 128: one.)
+template <int N, int CW>
+__global__ void __launch_bounds__(CW * 256, CW == 1 && N <= 96 ? 2 : 1)
+    f3_kernel(const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem1k[];
+  unsigned char* smem = smem1k;
+  constexpr int PM = F3_PM, CK = F3_CK, NBLK = CW * N, Q = CK / 8;
+  constexpr int THREADS = CW * 256;
+  constexpr int PER = PM * Q / THREADS;  // dq chunks a thread copies
   const LF3 L = lay_f3(a);
-  bf16* bs = reinterpret_cast<bf16*>(smem + L.bs);
-  bf16* w2s = reinterpret_cast<bf16*>(smem + L.w2s);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const long long p0 = (long long)blockIdx.x * GP;
-  const int mw = warp & 3, nt0 = warp >> 2, n_tiles = a.Cout / 8;
-  float acc[NT][4] = {};
-  for (int c0 = 0; c0 < a.Ce; c0 += CK) {
-    for (int i = tid; i < a.Cout * CK; i += NTHREADS) {
-      const int n = i % a.Cout, k = i / a.Cout;
-      w2s[n * H_LD + k] = c0 + k < a.Ce ? a.w2[size_t(c0 + k) * a.Cout + n] : bzero();
-    }
-    for (int i = tid; i < GP * CK; i += NTHREADS) {
-      const int p = i / CK, c = i % CK, ch = c0 + c;
-      float v = 0.f;
-      if (p0 + p < a.P && ch < a.Ce) {
-        const float d = __bfloat162float(a.dq[(p0 + p) * a.Ce + ch]);
-        v = relu6(qbf(qbf(d * a.a2[ch]) + a.c2[ch]));
-      }
-      bs[p * H_LD + c] = __float2bfloat16(v);
-    }
-    __syncthreads();
-    mma_tile<NT>(acc, bs, H_LD, mw * 16, w2s, H_LD, CK, nt0, 2, n_tiles);
-    __syncthreads();
+  const int nch = a.n_chunks, VC = nch * CK;
+  float* vec = reinterpret_cast<float*>(smem + L.vec);
+  bf16* vecb = reinterpret_cast<bf16*>(vec + 2 * VC);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  const int split = blockIdx.x % a.splits;
+  const long long p0 = (long long)(blockIdx.x / a.splits) * PM;
+  const int n0 = split * NBLK, Ce = a.Ce, Cout = a.Cout, S = a.stages;
+  bool exact = true;  // a2, c2 hold bf16 values (block_train's affine)
+  for (int i = tid; i < 2 * VC; i += THREADS) {
+    const int c = i < VC ? i : i - VC;
+    const float v = c < Ce ? (i < VC ? a.a2 : a.c2)[c] : 0.f;
+    vec[i] = v;
+    vecb[i] = __float2bfloat16(v);
+    exact = exact && qbf(v) == v;
   }
-  for_each_acc<NT>(acc, mw * 16, nt0, 2, n_tiles, [&](int p, int n, float v) {
-    if (p0 + p < a.P) a.y_out[(p0 + p) * a.Cout + n] = __float2bfloat16(v);
-  });
+  // then b = relu6(q(q(dq*a2) + c2)) in bf16x2 arithmetic: the product of
+  // two bf16 values and the sum of two are exact in f32, so one bf16
+  // rounding each is what the f32 chain rounds
+  exact = __syncthreads_and(exact);
+  auto stage = [&](int c) { return smem + L.ring + (c % S) * L.stage_bytes; };
+  // this thread's dq chunks, once: chunk q of row r, its source at chunk 0
+  // (null past P) and its place in a stage
+  const bf16* dsrc[PER];
+  int doff[PER], dq8[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = tid + k * THREADS, r = e / Q, q = e % Q;
+    dsrc[k] = p0 + r < a.P ? a.dq + (p0 + r) * Ce + 8 * q : nullptr;
+    doff[k] = r * CK + 8 * (q ^ swz<CK>(r));
+    dq8[k] = 8 * q;
+  }
+  // chunk c's dq rows and w2^T rows (w2t: Cout x Ce), zero past P, Ce and
+  // Cout; 16-byte chunk q of row r at q ^ swz<64>(r)
+  auto issue = [&](int c) {
+    if (c >= nch) return;
+    unsigned char* st = stage(c);
+    bf16* ds = reinterpret_cast<bf16*>(st);
+    bf16* ws = reinterpret_cast<bf16*>(st + L.s_b);
+    const int k0 = c * CK;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const bool in = dsrc[k] != nullptr && k0 + dq8[k] < Ce;
+      cp16(ds + doff[k], in ? (const void*)(dsrc[k] + k0) : (const void*)a.dq,
+           in ? 16 : 0);
+    }
+    for (int e = tid; e < NBLK * Q; e += THREADS) {
+      const int n = e / Q, q = e % Q;
+      const bool in = n0 + n < Cout && k0 + 8 * q < Ce;
+      cp16(ws + n * CK + 8 * (q ^ swz<CK>(n)),
+           in ? (const void*)(a.w2 + size_t(n0 + n) * Ce + k0 + 8 * q) : (const void*)a.w2,
+           in ? 16 : 0);
+    }
+  };
+  // b = relu6(q(q(dq*a2) + c2)) on this thread's own dq chunks of chunk c
+  // (zero past Ce, where a2 and c2 are zero)
+  auto prologue = [&](int c) {
+    bf16* ds = reinterpret_cast<bf16*>(stage(c));
+    const int k0 = c * CK;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      uint4* p = reinterpret_cast<uint4*>(ds + doff[k]);
+      uint4 u = *p;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+      if (exact) {
+        const uint4 a8 = *reinterpret_cast<const uint4*>(vecb + k0 + dq8[k]);
+        const uint4 c8 = *reinterpret_cast<const uint4*>(vecb + VC + k0 + dq8[k]);
+        const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a8);
+        const __nv_bfloat162* pc = reinterpret_cast<const __nv_bfloat162*>(&c8);
+        const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+        const __nv_bfloat162 six = __float2bfloat162_rn(6.f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          __nv_bfloat162 d = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+          d = __hmax2(__hmin2(__hadd2(__hmul2(d, pa[i]), pc[i]), six), zero);
+          w[i] = *reinterpret_cast<const uint32_t*>(&d);
+        }
+      } else {
+        const float* pa = vec + k0 + dq8[k];
+        const float* pc = pa + VC;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 d = bf2f(w[i]);
+          w[i] = f2bf(relu6(qbf(qbf(d.x * pa[2 * i]) + pc[2 * i])),
+                      relu6(qbf(qbf(d.y * pa[2 * i + 1]) + pc[2 * i + 1])));
+        }
+      }
+      *p = u;
+    }
+  };
+
+  for (int c = 0; c < S - 1; ++c) {
+    issue(c);
+    cp_commit();
+  }
+  __syncthreads();  // the vectors
+  // this warpgroup's rows of A and of B (w2^T) in each stage
+  const int arow = 64 * (wg % 2), bcol = N * (wg / 2);
+  const bool live = n0 + bcol < Cout;  // its columns reach into Cout
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  wait_ring(S);  // this thread's copies of chunk 0 landed
+  prologue(0);
+  for (int c = 0; c < nch; ++c) {
+    // the prologue's stores and the landed copies, seen by wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // chunk c ready; chunk c - 1's products done, its stage free
+    issue(c + S - 1);
+    cp_commit();
+    if (live) {
+      const bf16* As = reinterpret_cast<const bf16*>(stage(c)) + arow * CK;
+      const bf16* Bs = reinterpret_cast<const bf16*>(stage(c) + L.s_b) + bcol * CK;
+      pin(d);
+      gmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CK; kk += 16)
+        gmma_m64<N>(d, gmma_desc(As + kk, CK), gmma_desc(Bs + kk, CK));
+      gmma_commit();
+    }
+    // chunk c + 1's prologue beside chunk c's products (no one reads its
+    // stage before the next barrier)
+    if (c + 1 < nch) {
+      wait_ring(S);
+      prologue(c + 1);
+    }
+    if (live) {
+      gmma_wait();
+      pin(d);
+    }
+  }
+  cp_wait<0>();
+  // d[4j + 2h + e]: row 16 (warp % 4) + g + 8h, column 8j + 2t + e
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = n0 + bcol + 8 * j + 2 * t;
+    if (col >= Cout) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = p0 + arow + 16 * (warp & 3) + g + 8 * h;
+      if (row < a.P)
+        *reinterpret_cast<uint32_t*>(a.y_out + row * Cout + col) =
+            f2bf(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- B2 ----
@@ -810,10 +1102,6 @@ __device__ __forceinline__ void taps_of(const Halo& h, int p, int (&off)[9]) {
     off[i] = (i & 1) ? int(unsigned(w[i >> 1]) >> 16) : (w[i >> 1] & 0xffff);
 }
 
-__device__ __forceinline__ float2 bf2f(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
-}
-
 // warp sum over the lanes that share a channel pair (lane % CP), in a fixed
 // butterfly order
 template <int CP>
@@ -1333,17 +1621,6 @@ __global__ void reduce_rows(const float* part, long long rows, long long cols,
 
 // ------------------------------------------------------------ host side ----
 
-template <int... Ns> struct NTList {};
-
-template <typename F>
-cudaError_t pick(int, F, NTList<>) { return cudaErrorInvalidValue; }
-
-template <typename F, int N, int... Ns>
-cudaError_t pick(int need, F launch, NTList<N, Ns...>) {
-  if (need <= N) return launch(std::integral_constant<int, N>{});
-  return pick(need, launch, NTList<Ns...>{});
-}
-
 template <typename K>
 cudaError_t run(K kern, dim3 grid, size_t smem, const Args& a, cudaStream_t s,
                 int threads = NTHREADS) {
@@ -1362,8 +1639,8 @@ cudaError_t reduce(const float* part, long long rows, long long cols, float* out
   return cudaGetLastError();
 }
 
-// dims = (B, H, W, Cin, Ce, Cout, rate, then the plan of F2, B2 or B34: th,
-// tw, ck, stages, nt, smem, warps, splits; zeros for F1 and F3)
+// dims = (B, H, W, Cin, Ce, Cout, rate, then the phase's plan: th, tw, ck,
+// stages, nt, smem, warps, splits)
 constexpr int N_DIMS = 15;
 
 // geometry from dims; false if the kernel does not take the shape
@@ -1380,9 +1657,8 @@ bool geometry(int phase, const int* d, Args& a) {
   a.P = (long long)a.B * a.H * a.W;
   a.n_groups = int((a.P + GP - 1) / GP);
   a.cin_p = (a.Cin + 15) / 16 * 16;
-  a.xs_ld = a.cin_p + 8;
+  a.kp = (a.Cin + 31) / 32 * 32;
   a.cout_k = (a.Cout + 15) / 16 * 16;
-  a.cout_ld = a.cout_k + 8;
   if (phase == F2 || phase == B34) {
     if (a.Ce % 8) return false;  // whole 16-byte vectors of every Ce-wide row
     a.th = d[7]; a.tw = d[8]; a.ck = d[9]; a.stages = d[10]; a.nt = d[11];
@@ -1399,8 +1675,9 @@ bool geometry(int phase, const int* d, Args& a) {
     a.xt_ld = a.xt_swz ? a.cin_p : a.cin_p + 8;
     if (phase == B34) a.splits = d[14];
   }
-  if (phase == B2) {
-    if (a.Ce % 8) return false;  // whole 16-byte vectors of dq's rows
+  if (phase == B2 || phase == F1 || phase == F3) {
+    if (a.Ce % 8) return false;  // whole 16-byte vectors of Ce-wide rows
+    a.th = d[7]; a.tw = d[8];
     a.ck = d[9]; a.stages = d[10]; a.nt = d[11]; a.smem = d[12];
     a.warps = d[13]; a.splits = d[14];
     if (a.ck <= 0) return false;
@@ -1422,6 +1699,35 @@ bool b2_plan_ok(const Args& a) {
   return inst && a.stages >= 2 && a.stages <= 3 && a.warps == B2_WARPS &&
          a.nt * wn2 * 8 >= a.Cout && a.splits >= 1 && a.splits <= 65535 &&
          a.splits <= a.n_groups && a.smem == lay_b2(a).total &&
+         size_t(a.smem) <= SMEM_MAX;
+}
+
+// F1's plan (train_plan "f1"): 64 channels a warpgroup, one, two or four
+// warpgroups, the ring of F1_STAGES tiles, splits within the tiles
+bool f1_plan_ok(const Args& a) {
+  return (a.ck == 64 || a.ck == 128 || a.ck == 256) && a.warps == a.ck / 16 && a.nt == 0 &&
+         a.stages == F1_STAGES && a.splits >= 1 && a.splits <= 65535 &&
+         a.splits <= a.n_groups && a.n_chunks <= 65535 &&
+         a.smem == lay_f1(a).total && size_t(a.smem) <= SMEM_MAX;
+}
+
+// F3's instantiations (NT, CW): n-tiles of 8 a warpgroup (N = 8 NT),
+// column groups; F3_CASES in kernels/fused_mbconv_train.py
+#define F3_CASES(X) X(4, 1) X(8, 1) X(12, 1) X(20, 1) X(8, 2) X(12, 2) X(20, 2)
+
+// F3's plan: an instantiated (NT, CW) (CW in the plan's tw), 128 pixels a
+// block (its th), chunks of 64, 4 warps a warpgroup, a ring of 2 to 4, the
+// splits of Cout the block's columns imply
+bool f3_plan_ok(const Args& a) {
+  bool inst = false;
+#define F3_INST(N, C) inst = inst || (a.nt == N && a.tw == C);
+  F3_CASES(F3_INST)
+#undef F3_INST
+  const int nblk = 8 * a.nt * a.tw;
+  const long long blocks = (a.P + F3_PM - 1) / F3_PM * a.splits;
+  return inst && a.th == F3_PM && a.ck == F3_CK && a.warps == 8 * a.tw && a.stages >= 2 &&
+         a.stages <= 4 && a.splits == (a.Cout + nblk - 1) / nblk &&
+         blocks <= 0x7fffffffLL && a.smem == lay_f3(a).total &&
          size_t(a.smem) <= SMEM_MAX;
 }
 
@@ -1475,7 +1781,7 @@ Scratch scratch_plan(int phase, const Args& a) {
   size_t dvl = 0, part = 0, part2 = 0;  // bytes
   const size_t Ce = a.Ce;
   switch (phase) {
-    case F1: part = 4 * size_t(a.n_groups) * 2 * Ce; break;
+    case F1: part = 4 * size_t(a.splits) * 2 * Ce; break;
     case F2: part = 4 * size_t(a.n_tiles) * 2 * Ce; break;
     case B2:
       dvl = 2 * size_t(a.P) * a.Cout;  // gyq
@@ -1513,7 +1819,7 @@ long long mbt_scratch_bytes(int phase, const int* dims) {
 // phase needs one):
 //   F1:  x, w1, out(2, Ce), scratch
 //   F2:  x, w1, a1, c1, wdw, out(2, Ce), dq, scratch
-//   F3:  dq, a2, c2, w2, y
+//   F3:  dq, a2, c2, w2^T (Cout x Ce), y
 //   B2:  dq, g, y, a2, c2, mu2, rstd2, w2, gA3, k0, k1, t(2, Ce), dw2, ddh, scratch
 //   B34: x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, u(11, Ce), dxp,
 //        dw1t, scratch
@@ -1527,9 +1833,10 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
     return ERR_ARGS;
   if ((phase == F2 || phase == B34) && !plan_ok(phase, a)) return ERR_PLAN;
   if (phase == B2 && !b2_plan_ok(a)) return ERR_PLAN;
-  if (phase == F2 || phase == B2 || phase == B34)  // 16-byte copies
-    for (int i = 0; i < n_ptrs; ++i)
-      if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return ERR_ARGS;
+  if (phase == F1 && !f1_plan_ok(a)) return ERR_PLAN;
+  if (phase == F3 && !f3_plan_ok(a)) return ERR_PLAN;
+  for (int i = 0; i < n_ptrs; ++i)  // 16-byte copies
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return ERR_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto P = [&](int i) { return ptrs[i]; };
   const Scratch sp = scratch_plan(phase, a);
@@ -1546,8 +1853,11 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
   switch (phase) {
     case F1: {
       a.x = (const bf16*)P(0); a.w1 = (const bf16*)P(1);
-      e = run(f1_kernel, dim3(a.n_groups), lay_f1(a).total, a, s);
-      if (e == cudaSuccess) e = reduce(a.part, a.n_groups, 2 * Ce, (float*)P(2), s);
+      const dim3 grid(a.n_chunks, a.splits);
+      e = a.ck == 64    ? run(f1_kernel<1>, grid, a.smem, a, s, 128)
+          : a.ck == 128 ? run(f1_kernel<2>, grid, a.smem, a, s, 256)
+                        : run(f1_kernel<4>, grid, a.smem, a, s, 512);
+      if (e == cudaSuccess) e = reduce(a.part, a.splits, 2 * Ce, (float*)P(2), s);
       break;
     }
     case F2: {
@@ -1561,9 +1871,12 @@ int mbt_launch(int phase, void** ptrs, int n_ptrs, const int* dims, void* stream
     case F3: {
       a.dq = (const bf16*)P(0); a.a2 = (const float*)P(1); a.c2 = (const float*)P(2);
       a.w2 = (const bf16*)P(3); a.y_out = (bf16*)P(4);
-      e = pick((a.Cout / 8 + 1) / 2, [&](auto n) {
-        return run(f3_kernel<decltype(n)::value>, dim3(a.n_groups), lay_f3(a).total, a, s);
-      }, NTList<2, 4, 6, 10, 20>{});
+      const dim3 grid(unsigned((a.P + F3_PM - 1) / F3_PM * a.splits));
+      e = (cudaError_t)ERR_PLAN;
+#define F3_RUN(N, C) \
+  if (a.nt == N && a.tw == C) e = run(f3_kernel<8 * N, C>, grid, a.smem, a, s, C * 256);
+      F3_CASES(F3_RUN)
+#undef F3_RUN
       break;
     }
     case B2: {

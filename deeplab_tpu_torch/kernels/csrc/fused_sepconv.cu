@@ -80,6 +80,14 @@ using bf16 = __nv_bfloat16;
 using mbconv::cp16;
 using mbconv::cp_commit;
 using mbconv::cp_wait;
+using mbconv::gmma_commit;
+using mbconv::gmma_desc;
+using mbconv::gmma_fence;
+using mbconv::gmma_m64n128;
+using mbconv::gmma_m64n64;
+using mbconv::gmma_wait;
+using mbconv::pin;
+using mbconv::swz;
 
 constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
 constexpr int TILE = 8;     // output tiles of 8 x 8 pixels: wgmma's 64 rows
@@ -195,75 +203,6 @@ __host__ inline int smem_layout(Args& a, int ck, int nt, int esz) {
   o = align1024(o);
   a.o_wr = o;  o += a.stages * a.wstage;
   return o;
-}
-
-// Hopper's warpgroup products (wgmma): four warps multiply a 64-row A tile
-// by an N-column B tile, both read by the tensor cores from shared memory
-// through descriptors, asynchronously; the f32 sums stay in registers
-// (thread t of warp w: rows 16w + t/4 and + 8, columns 8j + 2(t%4) and + 1
-// for d[4j .. 4j+3]).  A and B are K-major with the 128-, 64- or 32-byte
-// swizzle (CK = 64, 32, 16) the chunks already have.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, int ck) {
-  const uint32_t a = mbconv::smem_u32(p);
-  const uint64_t sbo = 8 * ck * 2;            // bytes between 8-row groups
-  const uint64_t swz = ck == 64 ? 1 : ck == 32 ? 2 : 3;  // 128-, 64-, 32-byte
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((sbo >> 4) << 32) | (swz << 62);
-}
-// The swizzle of a row of CK bf16 (A chunks and wpw slots): 16-byte chunk
-// c of row r lies at c ^ swz<CK>(r), wgmma's 128-, 64- and 32-byte
-// patterns, under which ldmatrix-style 8-row reads hit 8 bank groups.
-template <int CK>
-__device__ __forceinline__ int swz(int r) {
-  return CK == 64 ? r & 7 : CK == 32 ? (r >> 1) & 3 : (r >> 2) & 1;
-}
-__device__ __forceinline__ void gmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void gmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void gmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator registers across these points
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void gmma_m64n128(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void gmma_m64n64(float (&d)[32], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {

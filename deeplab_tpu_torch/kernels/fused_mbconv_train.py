@@ -136,7 +136,10 @@ class TrainPlan:
     tile, image), expanded channels in chunks of ``ck`` through a ring of
     ``stages`` buffers, ``smem`` bytes of dynamic shared memory, the grid
     ``(tiles_y * tiles_x, B)``; B34 also its dx and dW1^T kernels' ``nt``
-    n-tiles a warp, dW1^T over ``splits`` pixel splits."""
+    n-tiles a warp, dW1^T over ``splits`` pixel splits.  B2, F1 and F3
+    use the fields their planners document (F3: ``th`` pixels a block,
+    ``tw`` column groups, ``nt`` n-tiles a warpgroup, ``splits`` of
+    Cout); their ``est_clk`` is 0, since no cost model chooses them."""
     phase: str
     th: int
     tw: int
@@ -234,6 +237,109 @@ def _b2_plan(B, H, W, Ce, Cout) -> TrainPlan:
                      splits, 1.0, est)
 
 
+# F1 (``f1_kernel``): a block of one, two or four warpgroups (64 expanded
+# channels each) per (chunk of Ce, pixel split), its w1 slice resident,
+# 64-pixel x tiles through a ring of F1_STAGES (two tiles' products may be
+# in flight); the product on wgmma m64n64k16.  The plan takes four
+# warpgroups where Cin (padded to 32) is 128 or more, two where it is 64
+# or more, else one (the sweep of ``chip_smoke.py --train-plan-sweep``:
+# more warpgroups read each x tile for more channels, one fills the card
+# at the narrow blocks), and splits for one wave (the blocks an SM holds,
+# times the SMs).  The ring of 4 fits at every Cin the kernel takes (at
+# most 168 KB at Cin 160, four warpgroups).
+F1_GP, F1_KP = 64, 32
+F1_WGS = (1, 2, 4)
+F1_STAGES = 4
+
+
+def f1_smem(Cin, wgs) -> int:
+    """Dynamic shared memory of one F1 block, in the layout of
+    csrc/fused_mbconv_train.cu (``lay_f1``): the chunk's w1^T (64 wgs rows
+    of Cin padded to 32), F1_STAGES x tiles (64 rows), the warps' sums."""
+    kp = _ceil(Cin, F1_KP) * F1_KP
+    nb = 64 * wgs
+    return 2 * nb * kp + F1_STAGES * 2 * F1_GP * kp + 32 * nb
+
+
+def _blocks_per_sm(smem, threads, regs=128) -> int:
+    """Blocks an SM holds by shared memory (1 KB reserved a block) and by
+    registers (``regs`` a thread)."""
+    by_smem = (SMEM_LIMIT + 1024) // (smem + 1024)
+    return max(1, min(by_smem, 65536 // (threads * regs)))
+
+
+def _f1_plan(B, H, W, Cin, Ce) -> TrainPlan:
+    """F1's warpgroups a block and splits (see F1_WGS)."""
+    if Cin % 8 or Ce % 8 or Cin > 160:
+        raise ValueError(f"f1: unsupported shape Cin={Cin} Ce={Ce}")
+    kp = _ceil(Cin, F1_KP) * F1_KP
+    tiles = _ceil(B * H * W, F1_GP)
+    want = 4 if kp >= 128 else 2 if kp >= 64 else 1
+    wgs = max([w for w in F1_WGS if w <= want] or [min(F1_WGS)])
+    smem = f1_smem(Cin, wgs)
+    n_chunks = _ceil(Ce, 64 * wgs)
+    per_sm = _blocks_per_sm(smem, 128 * wgs)
+    splits = max(1, min(tiles, 65535, per_sm * SM_COUNT // n_chunks))
+    return TrainPlan("f1", 0, 0, 64 * wgs, F1_STAGES, 0, smem, 0, 0, B,
+                     4 * wgs, splits, 1.0, 0.0)
+
+
+# F3 (``f3_kernel``): a block of 2 x CW warpgroups per (F3_PM = 128 pixels,
+# split of Cout into CW groups of N = 8 NT columns), Ce in chunks of F3_CK
+# through a ring of F3_STAGES, the product on wgmma m64nNk16.  F3_CASES
+# are the (NT, CW) the source instantiates: 32 to 160 columns in one
+# group, 128 to 320 in two (four warpgroups: w2 read once per 128 pixels
+# at Cout 320).  The plan takes the fewest splits of Cout, then the fewest
+# columns past Cout, then one column group, then the least N: every case
+# is the choice at some Cout.  Then the deepest ring of at most 3 that
+# leaves room for two blocks an SM, or, where the registers hold one block
+# an SM, the deepest ring that fits (the sweep of ``chip_smoke.py
+# --train-plan-sweep``).
+F3_PM, F3_CK = 128, 64
+F3_CASES = ((4, 1), (8, 1), (12, 1), (20, 1), (8, 2), (12, 2), (20, 2))
+F3_STAGES = (4, 3, 2)
+
+
+def _f3_cols(nt, cw) -> int:
+    """Output channels of one F3 block."""
+    return 8 * nt * cw
+
+
+def f3_smem(Ce, nt, cw, stages) -> int:
+    """Dynamic shared memory of one F3 block, in the layout of
+    csrc/fused_mbconv_train.cu (``lay_f3``): a2 and c2 over whole chunks,
+    f32 and bf16 (to a whole KB), then ``stages`` buffers of a chunk's dq
+    rows (F3_PM x 64) and w2^T rows (the block's columns x 64)."""
+    vec = _ceil(12 * _ceil(Ce, F3_CK) * F3_CK, 1024) * 1024
+    return vec + stages * 2 * F3_CK * (F3_PM + _f3_cols(nt, cw))
+
+
+def _f3_plan(B, H, W, Ce, Cout) -> TrainPlan:
+    """F3's columns a block, Cout split and ring (see F3_CASES)."""
+    if Ce % 8 or Cout % 8 or Cout > 320:
+        raise ValueError(f"f3: unsupported shape Ce={Ce} Cout={Cout}")
+
+    def key(case):
+        nt, cw = case
+        splits = _ceil(Cout, _f3_cols(nt, cw))
+        return (splits, splits * _f3_cols(nt, cw) - Cout, cw, nt)
+    nt, cw = min(F3_CASES, key=key)
+    splits = _ceil(Cout, _f3_cols(nt, cw))
+    threads = 256 * cw
+    fit = [st for st in F3_STAGES if f3_smem(Ce, nt, cw, st) <= SMEM_LIMIT]
+    if not fit:
+        raise ValueError(f"f3: no ring fits Ce={Ce} Cout={Cout}")
+    # the source's launch bounds: blocks of one column group of N <= 96
+    # keep to 128 registers (two blocks an SM), the rest one block
+    two_by_regs = cw == 1 and 8 * nt <= 96
+    two = [st for st in fit if st <= 3 and two_by_regs and _blocks_per_sm(
+        f3_smem(Ce, nt, cw, st), threads) >= 2]
+    stages = max(two or fit)
+    return TrainPlan("f3", F3_PM, cw, F3_CK, stages, nt,
+                     f3_smem(Ce, nt, cw, stages), 0, 0, B, threads // 32,
+                     splits, 1.0, 0.0)
+
+
 @functools.lru_cache(maxsize=512)
 def train_plan(phase, B, H, W, Cin, Ce, Cout, rate) -> TrainPlan:
     """Choose the tile, chunk and ring depth of an F2 or B34 launch.  Among
@@ -242,10 +348,15 @@ def train_plan(phase, B, H, W, Cin, Ce, Cout, rate) -> TrainPlan:
     model's clocks per chunk.  Then three stages where they fit, else two.
     B34's dx and dW1^T kernels hold half of Cin a warp; dW1^T runs over
     pixel splits for about two blocks per SM.  B2's plan (chunk of Ce,
-    dW2 accumulator, ring, splits) is ``_b2_plan``'s; it ignores Cin and
-    rate."""
+    dW2 accumulator, ring, splits) is ``_b2_plan``'s, F1's (warpgroups,
+    splits) ``_f1_plan``'s and F3's (columns, Cout split, ring)
+    ``_f3_plan``'s; B2 and F3 ignore Cin and rate, F1 Cout and rate."""
     if phase == "b2":
         return _b2_plan(B, H, W, Ce, Cout)
+    if phase == "f1":
+        return _f1_plan(B, H, W, Cin, Ce)
+    if phase == "f3":
+        return _f3_plan(B, H, W, Ce, Cout)
     if phase not in ("f2", "b34"):
         raise ValueError(f"no launch plan for phase {phase!r}")
     if Cin % 8 or Ce % 8 or Cin > 160 or rate < 1:
@@ -382,7 +493,8 @@ def f3_reference(dq, a2, c2, w2):
     q = _q(dt)
     B, H, W, Ce = dq.shape
     b = _relu6(q(q(dq.float() * a2) + c2)).reshape(-1, Ce)
-    return _mm(b, w2, dt).to(dt).reshape(B, H, W, -1)
+    # a contiguous w2: the product's order does not follow w2's layout
+    return _mm(b, w2.contiguous(), dt).to(dt).reshape(B, H, W, -1)
 
 
 def b2_reference(dq, g, y, a2, c2, mu2, rstd2, w2, gA3, k0, k1):
@@ -439,11 +551,10 @@ def b34_reference(x, dq, ddh, w1, a1, c1, wdw, a2, m0, m1, mu1, rstd1, *,
 # kernel wrappers: a CUDA tensor launches the phase's kernel or raises
 # ---------------------------------------------------------------------------
 
-def _dims(B, H, W, Cin, Ce, Cout, rate, plan=None):
-    """The launcher's dims: the shape, then the plan of F2, B2 or B34
-    (``TrainPlan.fields``; zeros for F1 and F3)."""
-    fields = plan.fields if plan is not None else (0,) * 8
-    return (ctypes.c_int * 15)(B, H, W, Cin, Ce, Cout, rate, *fields)
+def _dims(B, H, W, Cin, Ce, Cout, rate, plan):
+    """The launcher's dims: the shape, then the phase's plan
+    (``TrainPlan.fields``)."""
+    return (ctypes.c_int * 15)(B, H, W, Cin, Ce, Cout, rate, *plan.fields)
 
 
 def _launch(name: str, tensors, dims):
@@ -495,7 +606,8 @@ def f1(x, w1):
     Ce = w1.shape[1]
     _check("f1", x, [("w1", w1, (Cin, Ce), _BF16)])
     out = torch.empty((2, Ce), dtype=_F32, device=x.device)
-    _launch("f1", [x, w1, out], _dims(B, H, W, Cin, Ce, 8, 1))
+    plan = train_plan("f1", B, H, W, Cin, Ce, 8, 1)
+    _launch("f1", [x, w1, out], _dims(B, H, W, Cin, Ce, 8, 1, plan))
     f1.launches += 1
     return out[0], out[1]
 
@@ -524,7 +636,14 @@ def f3(dq, a2, c2, w2):
     _check("f3", dq, [("a2", a2, (Ce,), _F32), ("c2", c2, (Ce,), _F32),
                       ("w2", w2, (Ce, Cout), _BF16)])
     y = torch.empty((B, H, W, Cout), dtype=dq.dtype, device=dq.device)
-    _launch("f3", [dq, a2, c2, w2, y], _dims(B, H, W, 8, Ce, Cout, 1))
+    plan = train_plan("f3", B, H, W, 8, Ce, Cout, 1)
+    # the kernel reads w2^T (Cout x Ce), K-major for wgmma.  The block's w2
+    # is the transpose of the project kernel, so that is w2's own memory;
+    # any other layout costs one copy, which rounds nothing.
+    w2t = w2.t()
+    if not w2t.is_contiguous():
+        w2t = w2t.contiguous()
+    _launch("f3", [dq, a2, c2, w2t, y], _dims(B, H, W, 8, Ce, Cout, 1, plan))
     f3.launches += 1
     return y
 
@@ -651,7 +770,9 @@ def _fwd_impl(plain, rate, skip, x, w1, g1, b1, wdw, g2, b2_, w2, g3, b3):
     B, H, W, _ = x.shape
     dt = x.dtype
     n = float(B * H * W)
-    w1d, w2d = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    # w2 keeps its layout (the project kernel's transpose: F3 reads it as
+    # w2^T without a copy)
+    w1d, w2d = w1.to(dt).contiguous(), w2.to(dt)
     wdwf = wdw.float().contiguous()
 
     s1, ss1 = _phase("f1", plain)(x, w1d)

@@ -1074,3 +1074,186 @@ def test_b2_covers_every_output_once(case):
     assert len(ddh) == FMT.B2_GP * ceb and set(ddh.values()) == {1}
     assert len(tsum) == 4 * ceb and set(tsum.values()) == {1}
     assert len(dw2) == ceb * cout and set(dw2.values()) == {1}
+
+
+# ---------------------------------------------------------------------------
+# F1 and F3 (kernels/fused_mbconv_train.py::train_plan("f1" / "f3"))
+
+def _cu_source():
+    with open(FMT.__file__.replace("fused_mbconv_train.py",
+                                   "csrc/fused_mbconv_train.cu")) as f:
+        return f.read()
+
+
+def _f3_instantiations():
+    import re
+    src = _cu_source()
+    block = src[src.index("#define F3_CASES"):]
+    block = block[:block.index("\n\n")]
+    return {(int(a), int(b)) for a, b in
+            re.findall(r"X\((\d+), (\d+)\)", block)}
+
+
+def _f13_cases():
+    """The 9 block shapes at the training batch on their own maps, and at
+    two ragged pixel counts (2 x 37 x 21, 2 x 26 x 7): (B, H, W, Cin, Ce,
+    Cout)."""
+    for cin, ce, cout, rate, hw in MAIN:
+        yield 16, hw, hw, cin, ce, cout
+        for H, W in ((37, 21), (26, 7)):
+            yield 2, H, W, cin, ce, cout
+
+
+F13_CASES = list(_f13_cases())
+
+
+def test_f13_cases_are_the_nine_block_shapes():
+    assert len({c[3:] for c in F13_CASES}) == 9 and len(F13_CASES) == 27
+
+
+@pytest.mark.parametrize("case", F13_CASES)
+def test_f1_plan_fits_and_is_instantiated(case):
+    B, H, W, cin, ce, cout = case
+    p = FMT.train_plan("f1", B, H, W, cin, ce, cout, 1)
+    assert p.phase == "f1" and p.smem <= LIMIT
+    wgs = p.ck // 64
+    assert wgs in FMT.F1_WGS and p.ck == 64 * wgs and p.warps == 4 * wgs
+    assert f"f1_kernel<{wgs}>" in _cu_source()
+    assert p.smem == FMT.f1_smem(cin, wgs)
+    assert p.stages == FMT.F1_STAGES and p.nt == 0
+    assert "F1_STAGES = %d;" % FMT.F1_STAGES in _cu_source()
+    tiles = -(-B * H * W // FMT.F1_GP)
+    assert 1 <= p.splits <= min(tiles, 65535)
+    # one wave: the blocks an SM holds, times the SMs
+    per_sm = FMT._blocks_per_sm(p.smem, 128 * wgs)
+    assert -(-ce // p.ck) * p.splits <= max(per_sm * FM.SM_COUNT,
+                                            -(-ce // p.ck))
+
+
+@pytest.mark.parametrize("case", F13_CASES)
+def test_f3_plan_fits_and_is_instantiated(case):
+    B, H, W, cin, ce, cout = case
+    p = FMT.train_plan("f3", B, H, W, cin, ce, cout, 1)
+    assert p.phase == "f3" and p.smem <= LIMIT and p.ck == FMT.F3_CK
+    assert (p.nt, p.tw) in _f3_instantiations() and p.th == FMT.F3_PM
+    assert _f3_instantiations() == set(FMT.F3_CASES)
+    assert "F3_PM = %d," % FMT.F3_PM in _cu_source()
+    assert 8 * p.nt in (32, 64, 96, 128, 160)   # gmma_m64<N>'s widths
+    assert p.smem == FMT.f3_smem(ce, p.nt, p.tw, p.stages)
+    assert p.stages in FMT.F3_STAGES
+    assert p.warps == 8 * p.tw
+    assert p.splits == -(-cout // FMT._f3_cols(p.nt, p.tw))
+    # the fewest splits the instantiated widths allow
+    assert p.splits == min(-(-cout // FMT._f3_cols(n, c))
+                           for n, c in _f3_instantiations())
+
+
+@pytest.mark.parametrize("case", FMT.F3_CASES)
+def test_every_f3_case_is_chosen_at_some_cout(case):
+    """No instantiation of f3_kernel is a knob that no shape selects."""
+    plans = [FMT.train_plan("f3", 2, 8, 8, 8, 192, cout, 1)
+             for cout in range(8, 321, 8)]
+    assert case in {(p.nt, p.tw) for p in plans}
+
+
+@pytest.mark.parametrize("wgs", FMT.F1_WGS)
+def test_every_f1_warpgroup_count_is_chosen_at_some_cin(wgs):
+    """No instantiation of f1_kernel is a knob that no shape selects."""
+    assert [cin for cin in range(8, 161, 8) if FMT.train_plan(
+        "f1", 2, 8, 8, cin, 192, 8, 1).ck == 64 * wgs]
+
+
+def _f1_coverage(P, ce, wgs, splits):
+    """f1_kernel's index arithmetic, mirrored: the (pixel, channel) values
+    each block's warps sum, and the (split, stat, channel) partials it
+    writes.  Returns the count of each pixel tile over the splits, of
+    each (row, column) of a tile over a warpgroup's threads, and of each
+    partial."""
+    nb = 64 * wgs
+    tiles = -(-P // FMT.F1_GP)
+    n_chunks = -(-ce // nb)
+    tile_count = np.zeros(tiles, int)
+    for split in range(splits):
+        n_mine = (tiles - split + splits - 1) // splits
+        for i in range(n_mine):
+            tile_count[split + i * splits] += 1
+    # one warpgroup: warp w (of 4), lane (g, t), d[4j + 2h + e]
+    rc = np.zeros((64, 64), int)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for j in range(8):
+                for h in range(2):
+                    for e in range(2):
+                        rc[16 * w + g + 8 * h, 8 * j + 2 * t + e] += 1
+    part = np.zeros((splits, 2, ce), int)
+    for chunk in range(n_chunks):
+        c0 = chunk * nb
+        for split in range(splits):
+            for e in range(2 * nb):
+                w, c = e // nb, e % nb
+                if c0 + c < ce:
+                    part[split, w, c0 + c] += 1
+    return tile_count, rc, part
+
+
+@pytest.mark.parametrize("case", [c for c in F13_CASES if c[0] == 16]
+                         + [(2, 37, 21, 160, 960, 320), (2, 26, 7, 24, 144,
+                                                         24)])
+def test_f1_covers_every_pixel_channel_and_partial_once(case):
+    B, H, W, cin, ce, cout = case
+    p = FMT.train_plan("f1", B, H, W, cin, ce, cout, 1)
+    tiles, rc, part = _f1_coverage(B * H * W, ce, p.ck // 64, p.splits)
+    assert set(tiles) == {1}
+    assert set(rc.ravel()) == {1}
+    assert set(part.ravel()) == {1}
+    # the x tile's 16-byte chunks: row r = e % 64, chunk q = e / 64 cover
+    # each (row, chunk) of the kp-wide tile once, and each row's chunk
+    # lands in its piece at a distinct swizzled slot
+    kp = -(-cin // FMT.F1_KP) * FMT.F1_KP
+    slots = {((q >> 2), r, (q & 3) ^ ((r >> 1) & 3))
+             for e in range(64 * kp // 8) for r, q in [(e & 63, e >> 6)]}
+    assert len(slots) == 64 * kp // 8
+
+
+@pytest.mark.parametrize("case", [c for c in F13_CASES if c[0] == 16]
+                         + [(2, 37, 21, 96, 576, 160), (2, 26, 7, 160, 960,
+                                                        320)])
+def test_f3_covers_every_output_once(case):
+    """f3_kernel's index arithmetic, mirrored: the 1-D grid's (tile, split)
+    pairs once each; within a block the warps' stored (row, column) once
+    each and every stored column's n-tile pair computed; over the splits
+    every column of Cout once."""
+    B, H, W, cin, ce, cout = case
+    p = FMT.train_plan("f3", B, H, W, cin, ce, cout, 1)
+    P, n, pm, cw, splits = B * H * W, 8 * p.nt, p.th, p.tw, p.splits
+    nblk = FMT._f3_cols(p.nt, cw)
+    blocks = -(-P // pm) * splits
+    pairs = np.zeros((blocks // splits, splits), int)
+    for b in range(blocks):
+        pairs[b // splits, b % splits] += 1
+    assert set(pairs.ravel()) == {1}
+    cols = np.zeros(cout, int)
+    for split in range(splits):
+        n0 = split * nblk
+        seen = np.zeros((pm, nblk), int)
+        for warp in range(p.warps):
+            wg = warp >> 2
+            arow, bcol = 64 * (wg % 2), n * (wg // 2)
+            if n0 + bcol >= cout:          # the warpgroup skips its product
+                continue
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for j in range(n // 8):
+                    col = bcol + 8 * j + 2 * t
+                    if n0 + col >= cout:
+                        continue
+                    for h in range(2):
+                        row = arow + 16 * (warp & 3) + g + 8 * h
+                        seen[row, col] += 1
+                        seen[row, col + 1] += 1
+        real = min(nblk, cout - n0)
+        assert set(seen[:, :real].ravel()) == {1}
+        assert not seen[:, real:].any()
+        cols[n0:n0 + real] += 1
+    assert set(cols) == {1}

@@ -17,7 +17,10 @@ at output stride 16 and 8, at ragged maps and rates at and past the map's
 size, and with each tile, chunk and pass width of ``sepconv_plan``
 forced.  B2 is held to its plain version (``max_err_vs_plain``) at every
 block shape of the net on its own map and two ragged ones, and its sums
-repeat bit for bit at two more shapes.
+repeat bit for bit at two more shapes.  F1 and F3 likewise, and at every
+choice of their launch plans forced; on a 26x7 map each element of F2's
+and B34's outputs over tolerance must trace to one eq at a bf16 rounding
+boundary (C3: the tensor cores' sums are not a plain f32 order).
 
 ``fused_dw_bn_relu6`` is held to its plain version within 1e-5 (f32) and 2
 bf16 ulps (bf16) of its largest output, at ragged maps and channel counts,
@@ -61,6 +64,7 @@ from deeplab_tpu_torch import crf as CRF
 from deeplab_tpu_torch.kernels import crf_fused as CK
 from deeplab_tpu_torch.kernels import fused_dw as FDW
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
+from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 
 
 @pytest.fixture
@@ -577,7 +581,6 @@ def test_crf_geometries_match_reference(cuda, cfg, H, W, L, blur):
 def _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W, B=2, seed=5):
     """Run one training block forward and backward with the plain versions
     on ``dev``; returns the recorded {phase: [(args, kw, out)]}."""
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     r = np.random.RandomState(seed)
     t = lambda *s, sc=1.0: torch.from_numpy(
         (r.randn(*s) * sc).astype(np.float32)).to(dev)
@@ -601,7 +604,6 @@ def _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W, B=2, seed=5):
 ])
 def test_train_phase_kernels_match_reference(cuda, rate, skip, Cin, Ce, Cout,
                                              H, W):
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     calls = _train_block_calls(cuda, rate, skip, Cin, Ce, Cout, H, W)
     for name in FMT.PHASES:
         kernel = getattr(FMT, name)
@@ -624,8 +626,108 @@ TRAIN_BLOCKS = [(24, 144, 24, 1, True, 128), (32, 192, 32, 1, True, 64),
                 (160, 960, 320, 4, False, 64)]
 
 
-def _halo_phases_match(dev, rate, skip, Cin, Ce, Cout, H, W):
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+def _boundary_ulps(e64):
+    """Distance of each float64 value from its nearest bf16 rounding
+    boundary (a value halfway between two neighbouring bf16 values), in f32
+    ulps of that boundary."""
+    base = e64.float().abs().view(torch.int32) & ~0xFFFF
+    best = None
+    for step in (-0x10000, 0, 0x10000):
+        mb = (base + step) | 0x8000
+        m = mb.view(torch.float32).double()
+        ulp = (mb + 1).view(torch.float32).double() - m
+        d = (e64.abs() - m).abs() / ulp
+        best = d if best is None else torch.minimum(best, d)
+    return best
+
+
+def _flipped(FMT, name, args, kw, cand):
+    """The plain version of phase ``name`` with the one eq value at ``cand``
+    (b, y, x, c) rounded to its other bf16 neighbour, the one towards its
+    float64 expand."""
+    orig = FMT._expand
+
+    def expand(x, w1, a1, c1):
+        _, eq, _ = orig(x, w1, a1, c1)
+        e = (x[cand[:3]].double() @ w1.double()[:, cand[3]]).item()
+        q = eq[cand].item()
+        bits = torch.tensor([q]).bfloat16().view(torch.int16).item()
+        step = 1 if (e > q) == (q >= 0) else -1
+        eq = eq.clone()
+        eq[cand] = torch.tensor([bits + step], dtype=torch.int16).view(
+            torch.bfloat16).item()
+        v1 = FMT._q(x.dtype)(FMT._q(x.dtype)(eq * a1) + c1)
+        return FMT._relu6(v1), eq, v1
+    FMT._expand = expand
+    try:
+        with torch.no_grad():
+            return getattr(FMT, name + "_reference")(*args, **kw)
+    finally:
+        FMT._expand = orig
+
+
+def _unexplained(name, args, kw, got, want):
+    """The elements of a halo phase's outputs over tolerance (as in
+    ``max_err_vs_plain``) that no single eq value at a bf16 rounding
+    boundary explains.  No plain f32 order reproduces the tensor cores'
+    sums (PERF.md, C3), so the kernel's eq and the plain version's may
+    round the same expand to neighbouring bf16 values where it lies near
+    a boundary.  How near is not known from a model: the eqs the card
+    showed lie 3.75 and 2.24 f32 ulps from one (Cin 160, ten k-steps), so
+    the window is one f32 ulp a 16-deep k-step, ceil(Cin / 16) ulps, an
+    assumption the test states rather than a bound.  An element is
+    explained when rounding one eq within the window and in its reach
+    (the sums and weight gradients of its channel, dq's taps, dx's pixel)
+    the other way in the plain version brings it within tolerance."""
+    x, w1 = args[0], (args[1] if name == "f2" else args[3])
+    B, H, W, Cin = x.shape
+    Ce, r = w1.shape[1], kw["rate"]
+    e64 = (x.double().reshape(-1, Cin) @ w1.double()).reshape(B, H, W, Ce)
+    dist = _boundary_ulps(e64)
+    near = -(-Cin // 16)
+    bad = []
+    for o, (g, w) in enumerate(zip(got, want)):
+        diff = (g.float() - w.float()).abs()
+        scale = max(w.float().abs().max().item(), 1e-30)
+        tol = (FMT.PLAIN_BF16_REL if w.dtype == torch.bfloat16
+               else FMT.PLAIN_F32_REL)
+        if diff.max().item() > FMT.FLIP_REL * scale:
+            bad.append((name, o, "over FLIP_REL"))
+        for idx in torch.nonzero(diff > tol * scale).tolist():
+            if w.dim() == 4 and w.shape[-1] == Cin and name == "b34":
+                cands = [tuple(idx[:3]) + (c,) for c in range(Ce)]  # dx
+            elif w.dim() == 4:                                   # dq's taps
+                b, y, xx, c = idx
+                cands = [(b, y + dy * r, xx + dx * r, c)
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                         if 0 <= y + dy * r < H and 0 <= xx + dx * r < W]
+            else:                                  # sums, dWdw, dW1^T
+                c = idx[0] if w.shape == (Ce, Cin) else idx[-1]
+                cands = [(b, y, xx, c) for b in range(B) for y in range(H)
+                         for xx in range(W)]
+            cands = sorted((dist[cd].item(), cd) for cd in cands)
+            k, p = g.float()[tuple(idx)].item(), w.float()[tuple(idx)].item()
+            for d, cd in [c for c in cands[:4] if c[0] <= near]:
+                f = _flipped(FMT, name, args, kw, cd)[o].float()[
+                    tuple(idx)].item()
+                if abs(f - k) <= tol * scale:
+                    # the trace, shown with pytest -s
+                    print(f"C3: {name} output {o} at {idx}: kernel {k:.6g}"
+                          f", plain {p:.6g} (rel {abs(k - p) / scale:.2e}, "
+                          f"tol {tol}); eq at {list(cd)} lies {d:.2f} f32 "
+                          f"ulps from a bf16 boundary, and rounded the "
+                          f"other way brings the plain version to {f:.6g}")
+                    break
+            else:
+                bad.append((name, o, idx))
+    return bad
+
+
+def _halo_phases_match(dev, rate, skip, Cin, Ce, Cout, H, W,
+                       explain=False):
+    """F2 and B34 against their plain versions; with ``explain``, elements
+    over tolerance pass where an eq at a bf16 rounding boundary explains
+    each of them (``_unexplained``)."""
     calls = _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W)
     for name in ("f2", "b34"):
         args, kw, want = calls[name][0]
@@ -635,22 +737,168 @@ def _halo_phases_match(dev, rate, skip, Cin, Ce, Cout, H, W):
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         err, rel, ok = FMT.max_err_vs_plain(got, want)
-        assert ok, (name, err, rel)
+        if explain and not ok:
+            assert not _unexplained(name, args, kw, got, want), (name, err,
+                                                                 rel)
+        else:
+            assert ok, (name, err, rel)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W", [(None, None), (37, 21), (19, 35)])
+@pytest.mark.parametrize("H,W", [(None, None), (37, 21), (19, 35), (26, 7)])
 @pytest.mark.parametrize("block", TRAIN_BLOCKS)
 def test_halo_phases_at_every_block_shape(cuda, block, H, W):
     """F2 and B34 at each block shape of the net, B=2: on its own map, and
-    on two ragged maps that no tile divides.  (On a 26x7 map, 364 pixels,
-    the widest blocks' U2 differs from the plain version's at two channels
-    by one bf16 rounding of eq, whose f32 sums the tensor cores and the
-    plain product add in different orders; FLIP_* allows one such element
-    of a (Ce,) sum.)"""
+    on three ragged maps that no tile divides.  On the 26x7 map (364
+    pixels) the 960-wide block's U2 differs from the plain version's at
+    two channels by one bf16 rounding of eq: the tensor cores add an mma's
+    16 products in their own way, which no plain f32 order reproduces
+    (PERF.md, C3).  There every element over tolerance must trace to one
+    eq near a bf16 rounding boundary whose other rounding, in the plain
+    version, reproduces the kernel's element (``_unexplained``), and none
+    may pass FLIP_REL; FLIP_* stay as they are."""
     Cin, Ce, Cout, rate, skip, side = block
     H, W = (side, side) if H is None else (H, W)
-    _halo_phases_match(cuda, rate, skip, Cin, Ce, Cout, H, W)
+    _halo_phases_match(cuda, rate, skip, Cin, Ce, Cout, H, W,
+                       explain=(H, W) == (26, 7))
+
+
+@pytest.mark.gpu
+def test_f3_sums_follow_no_plain_order(cuda):
+    """C3, measured (the counts show with pytest -s): F3's y_raw = q(b @
+    w2) at the widest block (960 -> 320) on a 16 x 64 x 64 batch against
+    plain orders of the same f32 sum of products: one f32 product (the
+    plain version), f32 partial sums of each 16-deep k-step added in k
+    order, the float64 sum rounded once, and float64 k-steps added to an
+    f32 accumulator rounded toward zero or to nearest after each step.
+    None reproduces the tensor cores' sums bit for bit; k-steps cut toward
+    zero come closest."""
+    calls = _train_block_calls(cuda, 4, False, 160, 960, 320, 64, 64, B=16)
+    dq, a2, c2, w2 = calls["f3"][0][0]
+    del calls
+    with torch.no_grad():
+        y = FMT.f3(dq, a2, c2, w2).reshape(-1, 320)
+        Ce, q = dq.shape[-1], FMT._q(torch.bfloat16)
+        b = FMT._relu6(q(q(dq.reshape(-1, Ce).float() * a2) + c2)).float()
+        w = w2.float()
+        orders = {"one f32 product": b @ w}
+        acc = torch.zeros_like(orders["one f32 product"])
+        for k0 in range(0, Ce, 16):
+            acc = acc + b[:, k0:k0 + 16] @ w[k0:k0 + 16]
+        orders["f32 k-steps in k order"] = acc
+        b64, w64 = b.double(), w.double()
+        orders["float64, rounded once"] = (b64 @ w64).float()
+        for mode in ("toward zero", "to nearest"):
+            acc = torch.zeros_like(orders["one f32 product"])
+            for k0 in range(0, Ce, 16):
+                exact = acc.double() + b64[:, k0:k0 + 16] @ w64[k0:k0 + 16]
+                r = exact.float()
+                if mode == "toward zero":
+                    over = r.double().abs() > exact.abs()
+                    r = torch.where(over, torch.nextafter(
+                        r, torch.zeros_like(r)), r)
+                acc = r
+            orders[f"float64 k-steps, f32 {mode}"] = acc
+        counts = {what: int((v.bfloat16() != y).sum().item())
+                  for what, v in orders.items()}
+    for what, n in counts.items():
+        print(f"C3: F3 y_raw 960->320 on 16x64x64, bf16 elements differing "
+              f"from {what}: {n} of {y.numel()}")
+    assert min(counts.values()) > 0
+    assert counts["float64 k-steps, f32 toward zero"] == min(counts.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(None, None), (37, 21), (26, 7)])
+@pytest.mark.parametrize("block", TRAIN_BLOCKS)
+def test_f1_f3_at_every_block_shape(cuda, block, H, W):
+    """F1 and F3 at each block shape of the net, B=2, on its own map and on
+    two ragged ones (pixel counts that are not multiples of F1's 64-pixel
+    tile or F3's 128-pixel block), with the plans train_plan chooses; F3
+    also with w2 as the net holds it (the transpose of a contiguous
+    (Cout, Ce) tensor, which the kernel reads without a copy), equal bit
+    for bit."""
+    Cin, Ce, Cout, rate, skip, side = block
+    H, W = (side, side) if H is None else (H, W)
+    calls = _train_block_calls(cuda, rate, skip, Cin, Ce, Cout, H, W)
+    for name in ("f1", "f3"):
+        args, kw, want = calls[name][0]
+        kernel = getattr(FMT, name)
+        before = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err, rel, ok = FMT.max_err_vs_plain(got, want)
+        assert ok, (name, err, rel)
+        if name == "f3":
+            w2t = args[3].t().contiguous().t()
+            assert torch.equal(kernel(*args[:3], w2t), got)
+
+
+@pytest.mark.gpu
+def test_f3_with_an_affine_that_is_not_bf16(cuda):
+    """The block rounds BN2's scale and shift to bf16, and F3 then runs its
+    prologue in bf16x2 arithmetic; other a2, c2 take its f32 arithmetic,
+    which must still match the plain version."""
+    calls = _train_block_calls(cuda, 1, False, 32, 200, 168, 19, 13)
+    (dq, a2, c2, w2), _, _ = calls["f3"][0]
+    a2, c2 = a2 * (1 + 2.0 ** -12), c2 + 2.0 ** -14
+    assert not torch.equal(a2.bfloat16().float(), a2)
+    want = FMT.f3_reference(dq, a2, c2, w2)
+    err, rel, ok = FMT.max_err_vs_plain(FMT.f3(dq, a2, c2, w2), want)
+    assert ok, (err, rel)
+
+
+def _forced(FMT, monkeypatch, **choices):
+    for k, v in choices.items():
+        monkeypatch.setattr(FMT, k, v)
+    FMT.train_plan.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", [2, 3, 4])
+@pytest.mark.parametrize("case", FMT.F3_CASES)
+def test_f3_at_each_plan(cuda, monkeypatch, case, stages):
+    """Each warpgroup width and column groups (``F3_CASES``) and ring F3's
+    plan can choose, forced, at Ce 200 (the last chunk of 64 ragged), Cout
+    168 (the last split of Cout ragged, or a warpgroup's columns past Cout)
+    and 494 pixels (the last block ragged).  A ring that does not fit is
+    refused."""
+    nt, cw = case
+    _forced(FMT, monkeypatch, F3_CASES=(case,), F3_STAGES=(stages,))
+    try:
+        if FMT.f3_smem(200, nt, cw, stages) > FM.SMEM_LIMIT:
+            with pytest.raises(ValueError):
+                FMT.train_plan("f3", 2, 19, 13, 8, 200, 168, 1)
+            return
+        p = FMT.train_plan("f3", 2, 19, 13, 8, 200, 168, 1)
+        assert (p.nt, p.th, p.tw, p.stages) == (nt, FMT.F3_PM, cw, stages)
+        assert p.splits == -(-168 // FMT._f3_cols(nt, cw))
+        calls = _train_block_calls(cuda, 1, False, 32, 200, 168, 19, 13)
+        args, kw, want = calls["f3"][0]
+        err, rel, ok = FMT.max_err_vs_plain(FMT.f3(*args, **kw), want)
+        assert ok, (err, rel)
+    finally:
+        FMT.train_plan.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wgs", FMT.F1_WGS)
+@pytest.mark.parametrize("Cin,Ce", [(40, 200), (160, 960)])
+def test_f1_at_each_plan(cuda, monkeypatch, wgs, Cin, Ce):
+    """Each warpgroup count F1's plan can choose, forced: at Cin 40 (padded
+    to 64 with zeros) and Ce 200 (the last channel chunk ragged), and at
+    the widest block, both on 494 pixels (the last tile ragged)."""
+    _forced(FMT, monkeypatch, F1_WGS=(wgs,))
+    try:
+        p = FMT.train_plan("f1", 2, 19, 13, Cin, Ce, 8, 1)
+        assert p.ck == 64 * wgs
+        calls = _train_block_calls(cuda, 1, False, Cin, Ce, 24, 19, 13)
+        args, kw, want = calls["f1"][0]
+        err, rel, ok = FMT.max_err_vs_plain(FMT.f1(*args, **kw), want)
+        assert ok, (err, rel)
+    finally:
+        FMT.train_plan.cache_clear()
 
 
 @pytest.mark.gpu
@@ -668,7 +916,6 @@ def test_halo_phases_at_each_tile(cuda, monkeypatch, ck, tile, block, H, W):
     ragged maps: the halo box clipped at every edge, the ring, the dx
     accumulator layout.  A tile the plan cannot take (shared memory, or no
     instantiated accumulator) is refused there with ValueError."""
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     Cin, Ce, Cout, rate, skip = block
     monkeypatch.setattr(FMT, "TRAIN_TILES", (tile,))
     monkeypatch.setattr(FMT, "TRAIN_CHUNKS", (ck,))
@@ -696,23 +943,26 @@ def test_halo_phases_at_each_tile(cuda, monkeypatch, ck, tile, block, H, W):
 @pytest.mark.gpu
 def test_train_phase_sums_repeat_bit_for_bit(cuda):
     """Per-block partials and a fixed-order second pass: no atomics.  B2's
-    T1, T2, dW2 (and ddh) also at the widest block, whose chunk of Ce and
-    splits differ."""
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    T1, T2, dW2 (and ddh), F1's sums and F3's y_raw also at the widest
+    block and at 576->160, whose chunks, splits and Cout splits differ."""
     calls = _train_block_calls(cuda, 2, True, 32, 192, 32, 24, 24)
-    for name in ("f1", "f2", "b2", "b34"):
+    for name in FMT.PHASES:
         args, kw, _ = calls[name][0]
         a = getattr(FMT, name)(*args, **kw)
         b = getattr(FMT, name)(*args, **kw)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
         for u, v in zip(a, b):
             assert torch.equal(u, v), name
     for block in ((160, 960, 320, 4, False), (96, 576, 160, 2, False)):
         calls = _train_block_calls(cuda, block[3], block[4], *block[:3],
                                    37, 21)
-        args, kw, _ = calls["b2"][0]
-        a, b = FMT.b2(*args, **kw), FMT.b2(*args, **kw)
-        for u, v in zip(a, b):
-            assert torch.equal(u, v), block
+        for name in ("f1", "f3", "b2"):
+            args, kw, _ = calls[name][0]
+            a = getattr(FMT, name)(*args, **kw)
+            b = getattr(FMT, name)(*args, **kw)
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            for u, v in zip(a, b):
+                assert torch.equal(u, v), (name, block)
 
 
 @pytest.mark.gpu
@@ -723,7 +973,6 @@ def test_b2_at_every_block_shape(cuda, block, H, W):
     ragged ones (pixel groups cut short, Ce chunks cut short): T1, T2, dW2
     and ddh held to the plain version (2 bf16 ulps of bf16 outputs, 1e-3
     of f32 ones, FLIP_* for masks)."""
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     Cin, Ce, Cout, rate, skip, side = block
     H, W = (side, side) if H is None else (H, W)
     calls = _train_block_calls(cuda, rate, skip, Cin, Ce, Cout, H, W)
@@ -738,7 +987,6 @@ def test_b2_at_every_block_shape(cuda, block, H, W):
 
 @pytest.mark.gpu
 def test_train_wrappers_raise_instead_of_falling_back(cuda):
-    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
     x = torch.zeros(2, 8, 8, 16, device=cuda)              # f32: no kernel
     w1 = torch.zeros(16, 96, device=cuda, dtype=torch.bfloat16)
     before = FMT.f1.launches
