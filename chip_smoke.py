@@ -89,24 +89,29 @@ Phases, each of which fails the run (exit code 1, no result line):
    through the layer composition, ``do_crf`` ms per image on each engine and
    the evaluation loop's ms per image;
 9. the rest of the CRF: the spatial blur's y and x kernels against their
-   plain versions at the VOC cell heights 75, 50 and 72 (r = 8), radii 20
-   and 32 on 64x128 cells, a ragged L and both forms of gn, and on every
-   blur call of the runs below; ``mean_field_batched`` at
+   plain versions, bit for bit, launched directly at the VOC cell heights
+   75, 50 and 72 (r = 8), radii 20 and 32 on 64x128 cells, a ragged L and
+   both forms of gn, and the row kernel at the VOC heights bit for bit
+   against the chained plain passes; every blur call of the runs below
+   against its plain version; ``mean_field_batched`` at
    ``PRODUCTION_CONFIG`` on seeded (8, 375, 500) and (8, 500, 375) scenes
-   (per run splat 6, slice_attrs 1, y 5, x 5, row blur 0, mf_step 5) and
-   ``do_crf`` at ``CrfConfig()`` on 375x500 and 500x375 scenes with 2, 5
-   and 21 labels, each against the same run with the plain versions;
+   (per run splat 6, slice_attrs 1, row blur 5, y 0, x 0, mf_step 5: the
+   VOC cells take the row kernel) and ``do_crf`` at ``CrfConfig()`` on
+   375x500 and 500x375 scenes with 2, 5 and 21 labels, each against the
+   same run with the plain versions;
    ``Predictor(net, crf=PRODUCTION_CONFIG at resolution_scale 2, "mixed")``
    serving 3 requests of 8 (per request 1 + 14 model launches and the CRF
    6 / 1 / 5 with no blur kernel: its 32x40 cells take the image-layout
    blur), ``do_crf`` on the XLA engine at ``resolution_scale`` 2 and the
    oracle golden of tests/test_crf_pallas.py's resolution_scale test (floor
    0.90); the notebook's ``CrfConfig(sxy_bilateral=16)`` and
-   ``CrfConfig(sxy_gaussian=8)`` through ``do_crf`` at 512x512; then, with
-   CUDA events, each pass per launch at the (8, 375, 500) shapes beside its
-   bound, its plain version, one depthwise ``F.conv2d`` and the row kernel
-   launched on the same input, ``mean_field_batched`` per (8, 375, 500)
-   batch, and production end to end at ``resolution_scale`` 2, B=16.
+   ``CrfConfig(sxy_gaussian=8)`` through ``do_crf`` at 512x512 (the latter,
+   r = 20, runs the y and x passes: 5 each); then, with CUDA events, the
+   row kernel on a (8, 375, 500) batch's blur input and each pass launched
+   directly on the same input, each beside its bound, its plain version and
+   one depthwise ``F.conv2d``, the passes also at r = 20 on (8, 512, 512)
+   in 64x128 cells, ``mean_field_batched`` per (8, 375, 500) batch, and
+   production end to end at ``resolution_scale`` 2, B=16.
 
 ``python3 chip_smoke.py --plan-sweep`` times instead every tile and chunk
 that ``fused_mbconv``'s launch plan may choose at each main-path block shape
@@ -131,7 +136,13 @@ a parent checkout times the parent's kernel); ``--sepconv-plan-sweep``
 times every chunk and pass width that ``sepconv_plan`` may choose at those
 shapes.  ``--train-step`` times only the bf16 train step at B=16 (img/s,
 peak memory, device busy share), public API only, for parent and change in
-turns.
+turns.  ``--crf-fallbacks`` times ``slice_planes`` (per launch and per
+512x512 XLA-engine image at ``FAITHFUL_CONFIG``), the y and x passes (at
+the (8, 375, 500) shapes, r = 8, and on (8, 512, 512) at r = 20), the row
+kernel on the VOC input and ``mean_field_batched`` per (8, 375, 500)
+batch, public API only, so a copy run from a parent checkout times the
+parent's kernels; it prints a digest of ``slice_planes``' outputs on its
+seeded inputs, to compare two checkouts bit for bit.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
@@ -265,20 +276,22 @@ DO_CRF_LABELS, GOLDEN_DEFAULT_FLOOR = (2, 5, 21), 0.97
 EVAL_BATCHES = 4
 EVAL_MEAN_TOL = 0.01
 # the rest of the CRF: VOC image sizes (their cell heights 75 and 50 take
-# the blur's y and x passes), per run of the plane engine
+# the row kernel), per run of the plane engine
 VOC_SIZES = ((375, 500), (500, 375))
 VOC_PER_RUN = {"splat_planes": 6, "slice_attrs_planes": 1,
-               "gaussian_blur_y_planes": 5, "gaussian_blur_x_planes": 5,
-               "mf_step_planes": 5}
+               "gaussian_blur_planes": 5, "mf_step_planes": 5}
 # resolution_scale 2 at 512x512: 32x40 cells, the image-layout blur
 RS2_PER_REQUEST = {"splat_planes": 6, "slice_attrs_planes": 1,
                    "mf_step_planes": 5}
 # the oracle floor of tests/test_crf_pallas.py::test_resolution_scale_quality
 RS2_GOLDEN_FLOOR = 0.90
 # the y and x kernels against their plain versions: (B, ny, nx, cs_y, cs_x,
-# L, sigma, gn per image); sigma 8 and 12.5 give radii 20 and 32
+# L, sigma, gn per image); sigma 8 and 12.5 give radii 20 and 32; where the
+# row kernel takes the shape (r = 8, gn (Z, 1, P)) it is held to the
+# chained plain passes too
 BLUR_PASS_SHAPES = ((SERVE_B, 5, 4, 75, 128, 21, 3.0, False),
                     (SERVE_B, 10, 3, 50, 128, 21, 3.0, True),
+                    (SERVE_B, 10, 3, 50, 128, 21, 3.0, False),
                     (SERVE_B, 5, 4, 72, 128, 21, 3.0, False),
                     (SERVE_B, 8, 4, 64, 128, 21, 8.0, False),
                     (SERVE_B, 8, 4, 64, 128, 21, 12.5, True),
@@ -1101,6 +1114,132 @@ def train_step_times(card, runs: int = 10) -> int:
     return 0
 
 
+def blur_times(CK, a, gn, kw, card, rows=True) -> dict:
+    """The y and x passes launched directly on one blur input (the x pass on
+    the y pass's output) and, where ``rows``, the spatial blur through
+    gaussian_blur_planes' dispatch, each per launch with CUDA events beside
+    its bound, its plain version and one depthwise ``F.conv2d`` of the same
+    taps over the image the cells tile (bf16, groups = L)."""
+    import torch.nn.functional as F
+    dev = a.device
+    B, L, K = kw["B"], a.shape[1], len(kw["taps"])
+    r = K // 2
+    img = torch.rand((B, L, kw["ny"] * kw["cs_y"], kw["nx"] * kw["cs_x"]),
+                     device=dev).to(torch.bfloat16)
+    tb = torch.tensor(kw["taps"], device=dev).to(torch.bfloat16)
+    ty, tx = tb.view(1, 1, K, 1), tb.view(1, 1, 1, K)
+    ker = {"gaussian_blur_y_planes": (ty.expand(L, 1, K, 1), (r, 0)),
+           "gaussian_blur_x_planes": (tx.expand(L, 1, 1, K), (0, r)),
+           "rows": ((ty * tx).expand(L, 1, K, K), (r, r))}
+    out = {}
+    with torch.inference_mode():
+        y = CK.gaussian_blur_y_planes(a, gn, **kw)
+        x = CK.gaussian_blur_x_planes(y, **kw)
+        cases = {"gaussian_blur_y_planes": (
+            lambda: CK.gaussian_blur_y_planes(a, gn, **kw),
+            lambda: CK.gaussian_blur_y_planes_reference(a, gn, **kw),
+            (a, gn), y),
+                 "gaussian_blur_x_planes": (
+            lambda: CK.gaussian_blur_x_planes(y, **kw),
+            lambda: CK.gaussian_blur_x_planes_reference(y, **kw),
+            (y,), x)}
+        if rows:
+            cases["rows"] = (
+                lambda: CK.gaussian_blur_planes(a, gn, **kw),
+                lambda: CK.gaussian_blur_planes_reference(a, gn, **kw),
+                (a, gn), CK.gaussian_blur_planes(a, gn, **kw))
+        for name, (kern, plain, args, res) in cases.items():
+            ms = cuda_ms(kern, 20)
+            dms = graph_ms(kern, 20)
+            pms = cuda_ms(plain, 3, warmup=1)
+            wgt, pad = ker[name]
+            wgt = wgt.contiguous()
+            lms = cuda_ms(lambda: F.conv2d(img, wgt, padding=pad, groups=L),
+                          10)
+            bname = "gaussian_blur_planes" if name == "rows" else name
+            bms, bb = crf_bound_ms(CK, bname, args, kw, res)
+            out[name] = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                             bound_ms=bms, bound_by=bb, library_ms=lms)
+            print(f"  {name} per launch, inputs "
+                  f"{[tuple(v.shape) for v in args]} (cells {kw['cs_y']}x"
+                  f"{kw['cs_x']}, r = {r}): kernel {ms:.4f} ms (device "
+                  f"{dms:.4f}), plain "
+                  f"{pms:.4f} ms, bound {bms:.4f} ms ({bb}), {bms / ms:.3f} "
+                  f"of bound; F.conv2d groups={L} "
+                  f"{K if name != 'rows' else f'{K}x{K}'}-tap bf16 {lms:.4f} "
+                  f"ms [{card}]")
+    return out
+
+
+def wide_blur_input(dev):
+    """A seeded (8, 512, 512) blur input in 64x128 cells at 21 labels and
+    the taps of sxy_gaussian 8 (r = 20), gn (Z, 1, P): (a, gn, kw)."""
+    from deeplab_tpu_torch.crf import dense_crf as DC
+    gen = torch.Generator(dev).manual_seed(SEED + 90)
+    kw = dict(taps=tuple(float(t) for t in DC._gauss_taps(8.0)), B=SERVE_B,
+              ny=8, nx=4, cs_y=64, cs_x=128)
+    a = torch.rand((SERVE_B * 32, CLASSES, 64 * 128), generator=gen,
+                   device=dev).to(torch.bfloat16)
+    gn = 0.5 + torch.rand((32, 1, 64 * 128), generator=gen, device=dev)
+    return a, gn, kw
+
+
+def crf_fallback_times(card) -> None:
+    """``--crf-fallbacks``: slice_planes per launch and per 512x512 image of
+    the XLA engine at FAITHFUL_CONFIG, with a digest of its outputs; the
+    passes and the spatial blur's dispatch on a (8, 375, 500) batch's blur
+    input (r = 8) and the passes at r = 20 on (8, 512, 512); the CRF per
+    (8, 375, 500) batch.  Public API only."""
+    import dataclasses as dc
+    import hashlib
+    import numpy as np
+    from deeplab_tpu_torch import crf as CRF
+    from deeplab_tpu_torch.crf import dense_crf as DC
+    from deeplab_tpu_torch.kernels import crf_fused as CK
+    dev = torch.device("cuda")
+    im, mask = make_scene(SIZE, SIZE, CLASSES, SEED + 30)
+    im = torch.from_numpy(im).to(dev)
+    U = DC.unary_from_labels(torch.from_numpy(mask).reshape(-1).to(dev),
+                             CLASSES, 0.7, zero_unsure=False)
+    cfg = dc.replace(CRF.FAITHFUL_CONFIG, backend="xla")
+    with torch.inference_mode(), CK.plain_versions(CK.XLA_KERNELS) as calls:
+        CRF.mean_field(im, U, cfg, CLASSES)
+    per_image = per_image_device = 0.0
+    digest = hashlib.sha256()
+    for idx, n in ((0, 1), (1, 5)):
+        args, kw, want = calls["slice_planes"][idx]
+        with torch.inference_mode():
+            got = CK.slice_planes(*args, **kw)
+            ms = cuda_ms(lambda: CK.slice_planes(*args, **kw), 50)
+            dms = graph_ms(lambda: CK.slice_planes(*args, **kw), 20)
+        err = (got - want).abs().max().item()
+        digest.update(got.cpu().numpy().tobytes())
+        bms, bb = crf_bound_ms(CK, "slice_planes", args, kw, got)
+        per_image += n * ms
+        per_image_device += n * dms
+        print(f"  slice_planes L={kw['L']} (x{n} per image) inputs "
+              f"{[tuple(t.shape) for t in tensors(args)]}: {ms:.4f} ms a "
+              f"launch (device {dms:.4f}), bound {bms:.4f} ms ({bb}); "
+              f"max_abs vs plain {err:.3e} [{card}]")
+    print(f"  slice_planes per 512x512 XLA-engine image at FAITHFUL_CONFIG: "
+          f"{per_image:.4f} ms (device {per_image_device:.4f}); outputs' "
+          f"sha256 {digest.hexdigest()[:16]} [{card}]")
+    pairs = [make_scene(375, 500, CLASSES, SEED + 800 + k)
+             for k in range(SERVE_B)]
+    imgs = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    masks = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    with torch.inference_mode(), CK.plain_versions() as calls:
+        CRF.mean_field_batched(imgs, masks, CRF.PRODUCTION_CONFIG, CLASSES)
+    (a, gn), kw, _ = calls["gaussian_blur_planes"][0]
+    blur_times(CK, a, gn, kw, card)
+    blur_times(CK, *wide_blur_input(dev), card, rows=False)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: CRF.mean_field_batched(
+            imgs, masks, CRF.PRODUCTION_CONFIG, CLASSES), 10, warmup=2)
+    print(f"  mean_field_batched PRODUCTION_CONFIG ({SERVE_B}, 375, 500): "
+          f"{ms:.3f} ms/batch [{card}]")
+
+
 def crf_scene_batches(dev):
     """(name, images, masks) at PRODUCTION_CONFIG's serving batch: the
     structured 512x512 scenes, one flat color (every pixel of a cell on one
@@ -1177,6 +1316,13 @@ def main() -> int:
         return 2
     if "--plan-sweep" in sys.argv[1:]:
         return plan_sweep()
+    if "--crf-fallbacks" in sys.argv[1:]:
+        from deeplab_tpu_torch.kernels import build
+        card = card_line()
+        build.build(["crf_fused"])
+        crf_fallback_times(card)
+        print(card)
+        return 0
     if "--crf-scenes" in sys.argv[1:]:
         from deeplab_tpu_torch.kernels import build
         card = card_line()
@@ -1816,23 +1962,26 @@ def main() -> int:
               f"clamp, under mixed) {comp:.4f} ms [{card}]")
 
         calls = notebook.pop("xla_calls")
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         by = {"bytes": 0.0, "operations": 0.0}
         for idx, n in ((0, 1), (1, 5)):
             args, kw, out = calls["slice_planes"][idx]
             with torch.inference_mode():
                 ms = cuda_ms(lambda: CK.slice_planes(*args, **kw), 20)
+                dms = graph_ms(lambda: CK.slice_planes(*args, **kw), 20)
                 plain = cuda_ms(lambda: CK.slice_planes_reference(
                     *args, **kw), 3, warmup=1)
             bms, bb = crf_bound_ms(CK, "slice_planes", args, kw, out)
             tot["ms"] += n * ms
+            tot["device_ms"] += n * dms
             tot["plain_ms"] += n * plain
             tot["bound_ms"] += n * bms
             by[bb] += n * bms
             print(f"  slice_planes L={kw['L']} (x{n} per image) inputs "
                   f"{[tuple(t.shape) for t in tensors(args)]}: kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-                  f"({bb}), {bms / ms:.3f} of bound [{card}]")
+                  f"{ms:.4f} ms (device {dms:.4f}), plain {plain:.4f} ms, "
+                  f"bound {bms:.4f} ms ({bb}), {bms / ms:.3f} of bound "
+                  f"[{card}]")
         crf_report["slice_planes"].update(tot)
         crf_report["slice_planes"]["bound_by"] = max(by, key=by.get)
         crf_report["slice_planes"]["library_ms"] = None
@@ -1853,7 +2002,8 @@ def main() -> int:
               f"{unary['ms']:.4f} ms, plain {unary['plain_ms']:.4f} ms, "
               f"bound {unary['bound_ms']:.4f} ms [{card}]")
         print(f"  slice_planes per 512x512 image (XLA engine, "
-              f"FAITHFUL_CONFIG): kernel {tot['ms']:.4f} ms, plain "
+              f"FAITHFUL_CONFIG): kernel {tot['ms']:.4f} ms (device "
+              f"{tot['device_ms']:.4f}), plain "
               f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
               f"[{card}]")
 
@@ -1885,8 +2035,9 @@ def main() -> int:
     # 9. the rest of the CRF ---------------------------------------------
     def blur_pass_check(a, gn, kw, where):
         """The y and x kernels against their plain versions on one blur
-        input; the x kernel takes the y pass's plain output, so both sides
-        of each comparison take the same input."""
+        input, bit for bit (both sum the taps in tap order with exact
+        products); the x kernel takes the y pass's plain output, so both
+        sides of each comparison take the same input."""
         y_ref = CK.gaussian_blur_y_planes_reference(a, gn, **kw)
         x_ref = CK.gaussian_blur_x_planes_reference(y_ref, **kw)
         with torch.inference_mode():
@@ -1899,11 +2050,34 @@ def main() -> int:
             rep = crf_report[name]
             rep["max_abs_err"] = max(rep["max_abs_err"], err)
             errs.append(err)
-            if not ok:
+            if not ok or not torch.equal(g, w):
                 raise AssertionError(f"{name} disagrees at {where}: {err} "
                                      f"(max |plain| "
                                      f"{w.float().abs().max().item()})")
         return errs
+
+    def row_kernel_check(a, gn, kw, where):
+        """The row kernel (through gaussian_blur_planes' dispatch) against
+        the chained plain y and x passes, bit for bit; returns its max abs
+        error against the fused plain version."""
+        with torch.inference_mode():
+            got = CK.gaussian_blur_planes(a, gn, **kw)
+        chain = CK.gaussian_blur_x_planes_reference(
+            CK.gaussian_blur_y_planes_reference(a, gn, **kw), **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, chain):
+            raise AssertionError(
+                f"the row kernel differs from the chained passes at {where}:"
+                f" {(got.float() - chain.float()).abs().max().item()}")
+        err, ok = CK.max_err_vs_plain(
+            "gaussian_blur_planes", got,
+            CK.gaussian_blur_planes_reference(a, gn, **kw))
+        if not ok:
+            raise AssertionError(f"gaussian_blur_planes disagrees at {where}"
+                                 f": {err}")
+        rep = crf_report["gaussian_blur_planes"]
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        return err
 
     def check_calls(calls, where, names=CK.KERNELS):
         """Each kernel against its plain version on every call of a run
@@ -1915,7 +2089,8 @@ def main() -> int:
         for name in names:
             for args, kw, want in calls[name]:
                 if name == "gaussian_blur_planes" and not CK.row_kernel_fits(
-                        kw["taps"], kw["cs_y"]):
+                        kw["taps"], kw["cs_x"],
+                        args[1].shape[0] != kw["ny"] * kw["nx"]):
                     blur_pass_check(*args, kw, where)
                     seen["y and x passes"] = seen.get("y and x passes",
                                                       0) + 1
@@ -1944,18 +2119,25 @@ def main() -> int:
             gn = 0.5 + torch.rand((B * Z if per_image else Z, 1, P),
                                   generator=gen, device=dev)
             kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+            where = (B, ny, nx, cs_y, L, sigma)
             before = counts()
-            ey, ex = blur_pass_check(a, gn, kw, (B, ny, nx, cs_y, L, sigma))
+            ey, ex = blur_pass_check(a, gn, kw, where)
             moved = {k: v - before[k] for k, v in counts().items() if
                      v != before[k]}
             assert moved == {n: 1 for n in CK.BLUR_PASSES}, moved
+            row = ""
+            if CK.row_kernel_fits(taps, cs_x, per_image):
+                er = row_kernel_check(a, gn, kw, where)
+                row = (f"; the row kernel equal to the chained plain passes "
+                       f"bit for bit, max_abs {er:.3e} against the fused "
+                       f"plain version")
             set_counts(before)
             form = "per image" if per_image else "shared"
             print(f"  {B * Z} cells of {cs_y}x{cs_x}, L={L}, r="
-                  f"{len(taps) // 2}, gn {form}: y max_abs {ey:.3e}, x "
-                  f"max_abs {ex:.3e} (rel tol {CK.PLAIN_BF16_REL:.4g}) ok")
-    run.phase("spatial blur y and x kernels vs plain versions",
-              check_blur_passes)
+                  f"{len(taps) // 2}, gn {form}: y and x equal to their plain "
+                  f"versions bit for bit (max_abs {ey:.3e}, {ex:.3e}){row} ok")
+    run.phase("spatial blur: y and x kernels vs plain versions, the row "
+              "kernel at the VOC heights", check_blur_passes)
 
     def voc_scenes(H, W, L, seed, B):
         pairs = [make_scene(H, W, L, seed + k) for k in range(B)]
@@ -1986,7 +2168,6 @@ def main() -> int:
             assert out.shape == (SERVE_B, H, W) and out.dtype == torch.int32
             assert out.min() >= 0 and out.max() < CLASSES
             runs.append((H, W, imgs, masks, out))
-        geo["voc_launches"] = counts()
         saved = counts()
         for H, W, imgs, masks, out in runs:
             with torch.inference_mode(), CK.plain_versions() as calls:
@@ -2137,6 +2318,8 @@ def main() -> int:
             want.update(splat_planes=6, slice_attrs_planes=1,
                         mf_step_planes=5, gaussian_blur_y_planes=passes,
                         gaussian_blur_x_planes=passes)
+            if passes:
+                geo["wide_launches"] = got
             plan = DC.cell_plan(1, SIZE, SIZE, cfg, dev)
             print(f"  {name} at 512x512, 5 labels: cells {plan.cs_y}x"
                   f"{plan.cs_x}, Z = {plan.Z}, spatial radius "
@@ -2787,59 +2970,27 @@ def main() -> int:
         set_counts(saved)
     run.phase("CRF times", crf_times)
     def geometry_times():
-        """The y and x kernels per launch at the (8, 375, 500) shapes beside
-        their bounds, plain versions, one depthwise F.conv2d each, and the
-        row kernel launched on the same input; the CRF per (8, 375, 500)
+        """The row kernel on the recorded (8, 375, 500) blur input and the y
+        and x kernels launched directly on the same input, each beside its
+        bound, plain version and one depthwise F.conv2d; the passes at r =
+        20 on (8, 512, 512) in 64x128 cells; the CRF per (8, 375, 500)
         batch; production end to end at resolution_scale 2."""
-        import torch.nn.functional as F
         if "voc_blur" not in geo:
             raise RuntimeError("no (8, 375, 500) blur call recorded")
         (a, gn), kw, _ = geo["voc_blur"]
         saved = counts()
-        with torch.inference_mode():
-            y = CK.gaussian_blur_y_planes(a, gn, **kw)
-            x = CK.gaussian_blur_x_planes(y, **kw)
-            t = {"gaussian_blur_y_planes": (
-                lambda: CK.gaussian_blur_y_planes(a, gn, **kw),
-                lambda: CK.gaussian_blur_y_planes_reference(a, gn, **kw),
-                (a, gn), y),
-                 "gaussian_blur_x_planes": (
-                lambda: CK.gaussian_blur_x_planes(y, **kw),
-                lambda: CK.gaussian_blur_x_planes_reference(y, **kw),
-                (y,), x)}
-            row = cuda_ms(lambda: CK.blur_rows(a, gn, **kw), 10)
-            B, L = kw["B"], a.shape[1]
-            K = len(kw["taps"])
-            r = K // 2
-            img = torch.rand((B, L, kw["ny"] * kw["cs_y"],
-                              kw["nx"] * kw["cs_x"]), device=dev).to(
-                torch.bfloat16)
-            tb = torch.tensor(kw["taps"], device=dev).to(torch.bfloat16)
-            lib = {"gaussian_blur_y_planes": (
-                tb.view(1, 1, K, 1).expand(L, 1, K, 1).contiguous(), (r, 0)),
-                   "gaussian_blur_x_planes": (
-                tb.view(1, 1, 1, K).expand(L, 1, 1, K).contiguous(), (0, r))}
-            for name, (kern, plain, args, out) in t.items():
-                ms = cuda_ms(kern, 20)
-                pms = cuda_ms(plain, 3, warmup=1)
-                wgt, pad = lib[name]
-                lms = cuda_ms(lambda: F.conv2d(img, wgt, padding=pad,
-                                               groups=L), 10)
-                bms, bb = crf_bound_ms(CK, name, args, kw, out)
-                crf_report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
-                                        bound_by=bb, library_ms=lms,
-                                        row_kernel_ms=row)
-                print(f"  {name} per launch, inputs "
-                      f"{[tuple(v.shape) for v in args]} (cells "
-                      f"{kw['cs_y']}x{kw['cs_x']}, r = {r}): kernel "
-                      f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                      f"({bb}), {bms / ms:.3f} of bound; F.conv2d groups="
-                      f"{L} {K}-tap bf16 {lms:.4f} ms [{card}]")
-        ys, xs = (crf_report[n]["ms"] for n in CK.BLUR_PASSES)
+        voc = blur_times(CK, a, gn, kw, card)
+        ys, xs = (voc[n]["ms"] for n in CK.BLUR_PASSES)
         print(f"  the blur at (8, 375, 500): y + x {ys + xs:.4f} ms per "
-              f"iteration against the row kernel on the same input "
-              f"{row:.4f} ms (strips of one row at cs_y = {kw['cs_y']}) "
-              f"[{card}]")
+              f"iteration against the row kernel, which the dispatch now "
+              f"runs there, {voc['rows']['ms']:.4f} ms [{card}]")
+        crf_report["gaussian_blur_planes"]["voc_ms"] = voc["rows"]["ms"]
+        # the passes' own radius (the path sends them r > 16) is their
+        # headline; r = 8 on the VOC input is a direct launch no path makes
+        wide = blur_times(CK, *wide_blur_input(dev), card, rows=False)
+        for name in CK.BLUR_PASSES:
+            crf_report[name].update(wide[name])
+            crf_report[name]["voc_r8"] = voc[name]
         imgs, masks = geo["voc_batch"]
         cfg = CRF.PRODUCTION_CONFIG
         with torch.inference_mode():
@@ -2880,8 +3031,11 @@ def main() -> int:
         print(f"FAILED phases: {run.failed}")
         return 1
     # launches: from the main path's run (fused_sepconv: the Xception
-    # path's; slice_planes: the XLA engine's do_crf runs); times: per
-    # request at B=8 (slice_planes: per XLA-engine do_crf image)
+    # path's; slice_planes: the XLA engine's do_crf runs; the y and x
+    # passes: do_crf at CrfConfig(sxy_gaussian=8)); times: per request at
+    # B=8 (slice_planes: per XLA-engine do_crf image; the passes: per
+    # launch at r = 20 on (8, 512, 512), and at r = 8 on the (8, 375, 500)
+    # shapes, launched directly, under "voc_r8")
     launches = crf_report["launches"]
     line = [{
         "name": "fused_mbconv", "route": "cuda",
@@ -2918,14 +3072,16 @@ def main() -> int:
             "source": "deeplab_tpu_torch/kernels/csrc/crf_fused.cu",
             "replaces": f"deeplab_tpu/kernels/crf_fused.py:{CRF_REPLACES[n]}",
             "launches": (notebook["launches"][n] if n == "slice_planes"
-                         else geo["voc_launches"][n] if n in CK.BLUR_PASSES
+                         else geo["wide_launches"][n] if n in CK.BLUR_PASSES
                          else launches[n]),
             "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]}
         if n in CK.BLUR_PASSES:
-            entry["row_kernel_ms"] = rep["row_kernel_ms"]
+            entry["voc_r8"] = rep["voc_r8"]
+        if n == "gaussian_blur_planes":
+            entry["voc_ms"] = rep["voc_ms"]
         if "device_ms" in rep:
             entry["device_ms"] = rep["device_ms"]
         if "scenes" in rep:

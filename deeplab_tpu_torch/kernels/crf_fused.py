@@ -376,12 +376,13 @@ _SIGS = {
     "crf_slice_attrs_launch": [_VOID] * 10 + [_INT] * 12 + [_FLT] * 3
                               + [_VOID],
     "crf_blur_launch": [_VOID] * 4 + [_INT] * 11 + [_VOID],
-    "crf_blur_y_launch": [_VOID, _VOID, _INT, _VOID, _VOID] + [_INT] * 7
+    "crf_blur_y_launch": [_VOID, _VOID, _INT, _VOID, _VOID] + [_INT] * 11
                          + [_VOID],
-    "crf_blur_x_launch": [_VOID] * 3 + [_INT] * 7 + [_VOID],
+    "crf_blur_x_launch": [_VOID] * 3 + [_INT] * 11 + [_VOID],
     "crf_mf_step_launch": [_VOID] * 9 + [_INT] * 12 + [_FLT] * 5
                           + [_VOID],
-    "crf_slice_launch": [_VOID] * 5 + [_INT] * 5 + [_FLT, _VOID],
+    "crf_slice_launch": [_VOID] * 4 + [_INT] * 5 + [_FLT] + [_INT] * 6
+                        + [_VOID],
 }
 
 
@@ -600,13 +601,15 @@ def blur_plan(B: int, ny: int, nx: int, cs_y: int, cs_x: int, L: int,
     return BlurPlan(ty, strips, lg, groups, wp, threads, smem, B * ny * nx)
 
 
-def row_kernel_fits(taps, cs_y: int) -> bool:
+def row_kernel_fits(taps, cs_x: int, per_cell_gn: bool = False) -> bool:
     """Whether :func:`gaussian_blur_planes` runs the fused row kernel: a
-    radius within its 16-row halo strip and cells whose height is a multiple
-    of 16, the geometric condition of the TPU's row kernel.  Its 2 MiB
-    VMEM clause on a row of cells is dropped: the CUDA row kernel stages
-    one cell (or a strip of it) per block, whatever the row's size."""
-    return len(taps) // 2 <= 16 and cs_y % 16 == 0
+    radius within its 16-row halo, cells whose width is a multiple of 4, and
+    gn in its (Z, 1, P) form (``per_cell_gn`` False).  Any cell height: the
+    kernel stages its halo rows by image row, and :func:`blur_plan` fits the
+    heights that ``CellPlan`` gives (40 to 80 rows at 128 px) whole.  The
+    TPU's clauses on the height (a multiple of 16, for its 16-row sublane
+    halo strips) and on a row of cells' size (2 MiB of VMEM) are dropped."""
+    return len(taps) // 2 <= 16 and cs_x % 4 == 0 and not per_cell_gn
 
 
 # Launch geometry of the splat (csrc/crf_fused.cu ``splat_kernel``),
@@ -771,6 +774,192 @@ def two_kernel_step_plan(nc: int, L: int) -> StepPlan:
                     step_blur_smem(nc))
 
 
+# Launch geometry of slice_planes (csrc/crf_fused.cu ``slice_fused_kernel``),
+# decided here and checked there.
+SLICE_THREADS = 512
+SLICE_LG_MAX = 8      # labels of a group: one 16-byte load a grid point
+SLICE_SLOTS = 132     # SMs: blocks past one an SM share one and finish late
+SLICE_LB = 2          # labels a blur round, at most (the kernel's pair
+                      # stores; measured fastest, PERF.md)
+SLICE_RR = 3          # (r, g) pass: output rows an item
+SLICE_PAD = MAX_COLOR_TAPS // 2   # zero rows and columns around S's planes
+
+
+def slice_lgp(lg: int) -> int:
+    """Labels a grid point of the blurred group holds (label-innermost):
+    lg rounded up to 1, 2, 4 or 8, one 2-, 4-, 8- or 16-byte load."""
+    return next(n for n in (1, 2, 4, 8) if n >= lg)
+
+
+def slice_xp(nc: int, L: int) -> int:
+    """Pitch (f32) of a staged label's planes: C plus what keeps it
+    congruent to L*C modulo 4, so that every plane sits at its device
+    address's offset within 16 bytes."""
+    C = nc * nc
+    return C + (L - 1) * C % 4
+
+
+def slice_xl(nc: int, xp: int) -> int:
+    """Floats of a staged label: nc planes of xp, a whole number of 16-byte
+    words with room for the planes' offset."""
+    return -(-(nc * xp) // 4) * 4 + 4
+
+
+def slice_smem(nc: int, L: int, lg: int, lb: int = 1,
+               pad: bool = True) -> int:
+    """Bytes of a slice_planes block (``slice_layout`` in the source): the
+    blurred group O [nc^3][slice_lgp(lg)] bf16; a round's lb labels' bf16
+    planes S, with ``pad`` SLICE_PAD zero rows and columns around each,
+    [lb][nc][round_up(nc, SLICE_RR) + 2 SLICE_PAD][ncp + 2 SLICE_PAD], else
+    [lb][nc][nc][nc]; the (r, g) pass's f32 Tb [lb][nc][nc][ncp], and in its
+    place the f32 staging X of lb labels of slice_xl floats."""
+    ncp = step_ncp(nc)
+    o = _align16(2 * slice_lgp(lg) * nc ** 3)
+    if pad:
+        prow = -(-nc // SLICE_RR) * SLICE_RR + 2 * SLICE_PAD
+        s = _align16(2 * lb * nc * prow * (ncp + 2 * SLICE_PAD))
+    else:
+        s = _align16(2 * lb * nc ** 3)
+    tb = 4 * lb * nc * nc * ncp
+    x = 4 * lb * slice_xl(nc, slice_xp(nc, L))
+    return o + s + max(tb, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlicePlan:
+    """One slice_planes launch: a block of SLICE_THREADS per (cell, group of
+    ``lg`` labels, pixel split), blurring ``lb`` labels a round; ``lgp``
+    labels a grid point; S padded or not (``pad``); block (z, g, s) takes
+    the pixel chunks s, s + splits, ... of SLICE_THREADS; ``smem`` bytes;
+    grid ``(Z, groups, splits)``."""
+    lg: int
+    groups: int
+    lb: int
+    lgp: int
+    pad: bool
+    splits: int
+    smem: int
+    Z: int
+
+    @property
+    def grid(self):
+        return (self.Z, self.groups, self.splits)
+
+
+def _slice_round(nc: int, L: int, lg: int):
+    """(lb, pad) at lg labels a group: padded planes where they fit
+    (measured 10-25% faster than unpadded), SLICE_LB labels a round where
+    they fit, else fewer; or None."""
+    for pad in (True, False):
+        for lb in range(min(lg, SLICE_LB), 0, -1):
+            if slice_smem(nc, L, lg, lb, pad) <= BLUR_SMEM_LIMIT:
+                return lb, pad
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def slice_plan(Z: int, P: int, L: int, nc: int) -> SlicePlan:
+    """Label groups as large as fit (each group works out its pixels'
+    corners again) but at least as many as give two blocks an SM where the
+    labels allow (a group blurs only its own labels, so more groups cost no
+    blur; 294 blocks of 4 labels measured 38% faster than 147 of 7 at 21
+    labels, nc 21), labels spread evenly; the round of :func:`_slice_round`.
+    Where the blocks fall short of one an SM (one label, as in the norm
+    pass), each (cell, group) takes as many blocks as keep them within one
+    an SM, each blurring the group again: up to one a chunk of
+    SLICE_THREADS pixels."""
+    lg_max = 0
+    while (lg_max < min(L, SLICE_LG_MAX)
+           and _slice_round(nc, L, lg_max + 1) is not None):
+        lg_max += 1
+    if lg_max == 0:
+        raise ValueError(f"no slice_planes tile fits nc={nc}")
+    want = min(L, -(-2 * SLICE_SLOTS // Z))
+    groups = -(-L // next(g for g in range(lg_max, 0, -1)
+                          if -(-L // g) >= want))
+    lg = -(-L // groups)
+    groups = -(-L // lg)
+    lb, pad = _slice_round(nc, L, lg)
+    splits = max(1, min(SLICE_SLOTS // (Z * groups), -(-P // SLICE_THREADS)))
+    return SlicePlan(lg, groups, lb, slice_lgp(lg), pad, splits,
+                     slice_smem(nc, L, lg, lb, pad), Z)
+
+
+# Launch geometry of the spatial blur's y and x passes (csrc/crf_fused.cu
+# ``blur_y_kernel``, ``blur_x_kernel``), decided here and checked there.
+PASS_RY = 8             # y-pass output rows a thread (a column pair)
+PASS_MAX_THREADS = 512
+PASS_SLOTS = 4 * 132    # blocks a launch aims at: four an SM
+
+
+def pass_halo(ntaps: int) -> int:
+    """Halo columns of the x pass's tile: the radius rounded up to 8, so
+    that its 16-byte words lie each in one cell."""
+    return -(-(ntaps // 2) // 8) * 8
+
+
+def pass_smem(ty: int, cs_x: int, ntaps: int, y_pass: bool) -> int:
+    """Bytes of a pass block (``pass_layout`` in the source): the taps (f32,
+    padded to 4); the y pass's row table (2 ints a row) and f32 gn and bf16
+    A tiles of round_up(ty, PASS_RY) + 2r rows of round_up(cs_x, 8); the x
+    pass's bf16 tile of ty rows of round_up(cs_x, 8) + 2 * pass_halo."""
+    r, cx = ntaps // 2, -(-cs_x // 8) * 8
+    table = _align16(4 * (-(-ntaps // 4) * 4))
+    if y_pass:
+        rows = -(-ty // PASS_RY) * PASS_RY + 2 * r
+        return table + _align16(8 * rows) + rows * cx * (4 + 2)
+    return table + ty * (cx + 2 * pass_halo(ntaps)) * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class PassPlan:
+    """One launch of a pass: a block of ``threads`` per (cell, strip of
+    ``ty`` rows, group of ``lg`` labels), ``smem`` bytes; grid
+    ``(B*Z, strips, groups)``."""
+    ty: int
+    strips: int
+    lg: int
+    groups: int
+    threads: int
+    smem: int
+    BZ: int
+
+    @property
+    def grid(self):
+        return (self.BZ, self.strips, self.groups)
+
+
+@functools.lru_cache(maxsize=256)
+def pass_plan(B: int, ny: int, nx: int, cs_y: int, cs_x: int, L: int,
+              ntaps: int, y_pass: bool) -> PassPlan:
+    """Whole cells a block where the tile fits (the y pass's 2r halo rows
+    read once per cell), else the fewest even strips that do; the labels
+    in as few groups as give PASS_SLOTS blocks (the y pass stages gn once a
+    group), spread evenly; per label one thread a y-pass item (a column
+    pair by PASS_RY rows) or x-pass item (8 outputs of a row), in as few
+    rounds of at most PASS_MAX_THREADS as hold them."""
+    strips = 1
+    while True:
+        ty = -(-cs_y // strips)
+        smem = pass_smem(ty, cs_x, ntaps, y_pass)
+        if smem <= BLUR_SMEM_LIMIT:
+            break
+        if ty == 1:
+            raise ValueError(f"no blur-pass tile fits cells {cs_y}x{cs_x} "
+                             f"with {ntaps} taps")
+        strips += 1
+    strips = -(-cs_y // ty)
+    cells = B * ny * nx * strips
+    groups = min(L, max(1, -(-PASS_SLOTS // cells)))
+    lg = -(-L // groups)
+    groups = -(-L // lg)
+    items = (-(-cs_x // 2) * -(-ty // PASS_RY) if y_pass
+             else ty * -(-cs_x // 8))
+    rounds = -(-items // PASS_MAX_THREADS)
+    threads = -(-items // (32 * rounds)) * 32
+    return PassPlan(ty, strips, lg, groups, threads, smem, B * ny * nx)
+
+
 def _blur_geometry(a, gn, taps, B, ny, nx, cs_y, cs_x, max_taps):
     """Check a spatial blur's arguments; returns gn's batch flag (1 for one
     plane per cell, 0 for one per image position)."""
@@ -796,14 +985,14 @@ def gaussian_blur_planes(a, gn, *, taps, B: int, ny: int, nx: int,
                          cs_y: int, cs_x: int):
     """Same arguments as :func:`gaussian_blur_planes_reference`; the kernels
     take bf16 ``a`` and a radius within one cell.  Where
-    :func:`row_kernel_fits` and gn is in its (Z, 1, P) form the fused row
-    kernel runs (:func:`blur_rows`); elsewhere, and for gn (B*Z, 1, P),
-    :func:`gaussian_blur_y_planes` then :func:`gaussian_blur_x_planes`,
-    which compute the same function."""
+    :func:`row_kernel_fits` (a radius up to 16, gn (Z, 1, P)) the fused row
+    kernel runs (:func:`blur_rows`); elsewhere (radii 17-128, gn
+    (B*Z, 1, P)) :func:`gaussian_blur_y_planes` then
+    :func:`gaussian_blur_x_planes`, which compute the same function."""
     kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
     if not _on_cuda(a, "gaussian_blur_planes"):
         return gaussian_blur_planes_reference(a, gn, **kw)
-    if not row_kernel_fits(taps, cs_y) or gn.shape[0] != ny * nx:
+    if not row_kernel_fits(taps, cs_x, gn.shape[0] != ny * nx):
         return gaussian_blur_x_planes(gaussian_blur_y_planes(a, gn, **kw),
                                       **kw)
     return blur_rows(a, gn, **kw)
@@ -848,10 +1037,11 @@ def gaussian_blur_y_planes(a, gn, *, taps, B: int, ny: int, nx: int,
     tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
     out = torch.empty_like(a)
     lib = _lib()
+    plan = pass_plan(B, ny, nx, cs_y, cs_x, a.shape[1], len(tb), True)
     rc = lib.crf_blur_y_launch(
         a.data_ptr(), gn.data_ptr(), per_image, out.data_ptr(),
-        tb.ctypes.data, len(tb), B, ny, nx, cs_y, cs_x, a.shape[1],
-        _stream(a))
+        tb.ctypes.data, len(tb), B, ny, nx, cs_y, cs_x, a.shape[1], plan.ty,
+        plan.lg, plan.threads, plan.smem, _stream(a))
     _ok(lib, rc, "gaussian_blur_y_planes")
     gaussian_blur_y_planes.launches += 1
     return out
@@ -868,9 +1058,11 @@ def gaussian_blur_x_planes(f, *, taps, B: int, ny: int, nx: int, cs_y: int,
     tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
     out = torch.empty_like(f)
     lib = _lib()
+    plan = pass_plan(B, ny, nx, cs_y, cs_x, f.shape[1], len(tb), False)
     rc = lib.crf_blur_x_launch(
         f.data_ptr(), out.data_ptr(), tb.ctypes.data, len(tb), B, ny, nx,
-        cs_y, cs_x, f.shape[1], _stream(f))
+        cs_y, cs_x, f.shape[1], plan.ty, plan.lg, plan.threads, plan.smem,
+        _stream(f))
     _ok(lib, rc, "gaussian_blur_x_planes")
     gaussian_blur_x_planes.launches += 1
     return out
@@ -939,7 +1131,8 @@ def mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary=None, *, nc: int,
 
 
 def slice_planes(rgb, grid, *, nc: int, L: int, inv_step: float, ctaps):
-    """Same arguments as :func:`slice_planes_reference`."""
+    """Same arguments as :func:`slice_planes_reference`; one kernel in
+    :func:`slice_plan`'s geometry."""
     kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps)
     if not _on_cuda(rgb, "slice_planes"):
         return slice_planes_reference(rgb, grid, **kw)
@@ -951,11 +1144,12 @@ def slice_planes(rgb, grid, *, nc: int, L: int, inv_step: float, ctaps):
     _check("grid", grid, (Z, D, C), (_F32,), dev)
     pack = _color_taps_host(tuple(ctaps))
     out = torch.empty((Z, L, P), dtype=_F32, device=dev)
-    scratch = torch.empty((Z, D, C), dtype=_BF16, device=dev)
+    plan = slice_plan(Z, P, L, nc)
     lib = _lib()
     rc = lib.crf_slice_launch(
-        rgb.data_ptr(), grid.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        pack.ctypes.data, len(ctaps), Z, P, L, nc, inv_step, _stream(rgb))
+        rgb.data_ptr(), grid.data_ptr(), out.data_ptr(), pack.ctypes.data,
+        len(ctaps), Z, P, L, nc, inv_step, plan.lg, plan.lb, plan.lgp,
+        int(plan.pad), plan.splits, plan.smem, _stream(rgb))
     _ok(lib, rc, "slice_planes")
     slice_planes.launches += 1
     return out

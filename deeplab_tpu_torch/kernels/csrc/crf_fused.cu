@@ -50,16 +50,26 @@
 //    threads (an earlier 512 measured 25% slower on the noise scene:
 //    latency-bound compare-and-swap loops), and an explicit interleaving
 //    of the 8 loops measured slower than the compiler's.
-//  - grid blur of the norm pass and of slice_planes: one block per (cell,
-//    label) stages that label's grid planes in shared memory, runs the
-//    joint (r, g) blur as a stencil over the nonzero ones of the TPU's
-//    bf16-rounded kron weights, then the b band in f32, and writes the
-//    blurred grid in bf16 to device memory (scratch).
-//  - slice_attrs / slice pixel pass: one thread per pixel works out its 8
-//    corners once and gathers them for each label from the blurred grid in
-//    device memory.  slice_planes (the XLA engine's color blur and slice)
-//    is the grid blur of an f32 grid followed by the same gather, with f32
-//    outputs and no messages.
+//  - grid blur of the norm pass: one block per cell stages its grid planes
+//    in shared memory, runs the joint (r, g) blur as a stencil over the
+//    nonzero ones of the TPU's bf16-rounded kron weights, then the b band in
+//    f32, and writes the blurred grid in bf16 to device memory (scratch);
+//    slice_attrs: one thread per pixel works out its 8 corners once and
+//    gathers them from that scratch.
+//  - slice_planes (the XLA engine's color blur and slice; slice_plan in
+//    kernels/crf_fused.py): one kernel.  Its floor is the (r, g) stencil's
+//    f32 multiply-adds, 49 a grid value at nc = 21 (467 M a 21-label launch
+//    at 512x512, 14 us at 67 TFLOP/s), not its 38 MB of grid.  One block
+//    per (cell, group of labels): the group's f32 planes by cp.async (the
+//    next round's while this one is blurred, where they fit), rounded to
+//    bf16 once into zero-padded planes, blurred two labels a round in
+//    shared memory (an item walks 3 output rows, so a window load feeds up
+//    to 3 rows' taps), the blurred group kept label-innermost so that the
+//    pixel pass reads a corner's labels with one 8- or 16-byte load.  Label
+//    groups give two blocks an SM; the one-label norm pass splits a cell's
+//    pixels over as many blocks as keep one an SM.  No blurred grid goes
+//    to device memory and back (the two-kernel form's 19 MB a launch and
+//    its 2-byte gathers).
 //  - mf_step (step_plan in kernels/crf_fused.py), fused where the cell's
 //    grid fits in shared memory and its logits in registers (L <= 32):
 //    one block per cell stages the z-blurred grid with cp.async (142 KB at
@@ -119,23 +129,25 @@
 //    values is exact in f32, so fmaf(t, v, acc) rounds as the plain
 //    versions' multiply then add (unless the product falls below f32's
 //    normal range), and the kernel equals the chained y and x plain passes
-//    bit for bit.  It takes cells whose width is a multiple of 4 and radii
-//    up to 16; gaussian_blur_planes sends it cells whose height is a
-//    multiple of 16.
-//  - spatial blur in two passes, for every other geometry (cs_y = 75, 50 or
-//    72 from VOC image heights; radii past 16): the y pass, one block per
-//    (cell, label, strip of rows), stages bf16(Q * gn) with r halo rows from
-//    the cells above and below and sums each output down its column; the x
-//    pass, one block per (cell, label, strip of rows), stages the rows with
-//    r halo columns from the cells left and right and sums along the row.
-//    Threads take (row, column) pairs, neighbouring threads neighbouring
-//    columns; the taps sit in shared memory, so any radius up to 128 runs
-//    without a register window.  Each pass reads its input about once (the
-//    halo adds 2r rows or columns a strip) and writes a bf16 (B*Z, L, P)
-//    tensor: together twice the row kernel's device-memory traffic, but
-//    every input read about once where the row kernel at cs_y = 75 (a strip
-//    of one row) reads each 1 + 2r times.
-//
+//    bit for bit.  It takes cells whose width is a multiple of 4, any height
+//    (a strip's halo rows are found by image row; the y pass's windows round
+//    a strip up to whole windows, and the rows they read past the staged
+//    rows + 2r feed only outputs at or past `rows`, which are never
+//    stored), radii up to 16 and gn (Z, 1, P): gaussian_blur_planes sends
+//    it every such call (row_kernel_fits), the VOC photos' 75- and 50-row
+//    cells included, each cell a block whose halo is read once.
+//  - spatial blur in two passes (pass_plan in kernels/crf_fused.py), for
+//    radii 17-128 and for gn (B*Z, 1, P): the y pass, then the x pass, each
+//    moving 2 bf16 bytes in and 2 out per (pixel, label) like the row
+//    kernel.  One block per (cell, strip, group of labels), the strip the
+//    whole cell where it fits; 16-byte staging with no division per element;
+//    bf16 tiles; the y pass's gn tile staged once a group and the next
+//    label's a held in registers during this label's sums; each thread
+//    streams down a column pair (y) or along 8 outputs of a row (x) so that
+//    a shared-memory load feeds all its taps; the taps compile-time kernel
+//    parameters for 41 taps (r = 20), else slid through registers.  Each pass
+//    equals its plain version bit for bit.
+
 // Measured on the H100 (PERF.md): each kernel takes several times its bound.
 //
 // Rounding points are the TPU's, so that a kernel and its plain version differ
@@ -1038,6 +1050,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(gmem));
 }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(gmem));
+}
 
 // Bytes of the fused kernel's shared memory (step_fused_smem in
 // kernels/crf_fused.py): the cell's bf16 grid with room to keep its 16-byte
@@ -1148,27 +1165,385 @@ mf_step_pixel_kernel(StepArgs a) {
                            reinterpret_cast<float*>(dyn_smem) + threadIdx.x);
 }
 
-// ------------------------------------------------------------- slice pass ----
-// out[z, l, p] = the slice at pixel p of the blurred grid's label-l planes, f32
+// ------------------------------------------------------------ slice_planes ----
+// out[z, l, p] = the slice at pixel p of the color-blurred grid's label-l
+// planes, f32 (slice_plan in kernels/crf_fused.py).  One block per (cell,
+// group of lg labels, pixel split), the group's labels lb at a time:
+//  1. a round's f32 planes by cp.async into X (16-byte copies, 4-byte ones
+//     for the ends of a plane's run of C floats; each label's planes at the
+//     same offset within 16 bytes as in device memory, X's pitch xp being
+//     C*L modulo 4);
+//  2. rounded to bf16 once into S, a thread a grid row, each plane with
+//     SLICE_PAD zero rows and columns around it (with PAD; so that the
+//     (r, g) pass loads its windows as unconditional 4-byte pairs) or none
+//     (grids too large for the padding); X lies in Tb's place, so the next
+//     round's copy waits for the b band;
+//  3. the (r, g) pass of the round (blur_rg_pad, or blur_rg_rows without
+//     padding) into Tb, then its b band (blur_b_round, the step's blur_b
+//     with a grid point's pair of labels one store) into O, the group's
+//     blurred grid label-innermost [b][r][g][LGP] bf16;
+//  4. a thread a pixel: its hats and corners once, then per corner the
+//     group's labels as one LGP-wide load from O, summed as slice_at sums;
+//     each label's row of P f32 outputs written coalesced.
+// Both passes keep blur_rg's order for every output, (dr, dg) row-major
+// with a zero tap or an off-grid source adding an exact zero, so the
+// blurred grid equals grid_blur_kernel's bit for bit and the outputs equal
+// the two-kernel form this kernel replaced.
+constexpr int SLICE_THREADS = 512;
+constexpr int SLICE_LG_MAX = 8;     // labels a group: one 16-byte load
+constexpr int SLICE_LB = 2;         // labels a blur round, at most
+constexpr int SLICE_RR = 3;         // (r, g) pass: output rows an item
+constexpr int SLICE_PIX = 4;        // pixels a thread loads ahead
+constexpr int SLICE_PAD = MAX_CTAPS / 2;   // zero rows and columns around S
+
 struct SliceArgs {
   const float* rgb;       // (Z, 3, P)
-  const bf16* gblur;      // (Z, D, C) blurred grid
+  const float* grid;      // (Z, nc*L, C) z-blurred, f32
   float* out;             // (Z, L, P)
-  int P, L, nc;
+  int P, L, nc, lg, lb, splits, ncp;
+  int xp, prow, spitch;   // X's run pitch; S's rows and row pitch a plane
+  int s_off, tb_off;      // byte offsets (O at 0); X in Tb's place
   float inv_step;
 };
 
-__global__ void __launch_bounds__(256) slice_kernel(SliceArgs a) {
-  const int z = blockIdx.x, P = a.P, L = a.L, C = a.nc * a.nc;
-  const bf16* gb = a.gblur + (size_t)z * a.nc * L * C;
+// The slice_plan's shared-memory layout (slice_smem in kernels/crf_fused.py):
+// O [nc^3][LGP] bf16; S [lb][nc][prow][spitch] bf16 (padded, or prow =
+// spitch = nc); Tb [lb][nc][nc][ncp] f32, and in its place X, lb labels of
+// nc runs of xp floats and 4 of room for their offset.
+struct SliceLayout {
+  int xp, prow, spitch;
+  size_t s_off, tb_off, total;
+};
+
+__host__ __device__ inline int slice_lgp(int lg) {
+  return lg <= 1 ? 1 : lg <= 2 ? 2 : lg <= 4 ? 4 : 8;
+}
+
+// Floats of a staged label: nc runs of xp, a whole number of 16-byte words
+// with room for the runs' offset.
+__host__ __device__ inline int slice_xl(int nc, int xp) {
+  return (nc * xp + 3) / 4 * 4 + 4;
+}
+
+inline SliceLayout slice_layout(int nc, int L, int lg, int lb, bool pad) {
+  const int C = nc * nc, ncp = (nc + STEP_SEG - 1) / STEP_SEG * STEP_SEG;
+  SliceLayout s;
+  s.xp = C + ((L - 1) * C) % 4;
+  s.prow = pad ? (nc + SLICE_RR - 1) / SLICE_RR * SLICE_RR + 2 * SLICE_PAD
+               : nc;
+  s.spitch = pad ? ncp + 2 * SLICE_PAD : nc;
+  s.s_off = align16((size_t)2 * slice_lgp(lg) * nc * C);
+  s.tb_off = s.s_off + align16((size_t)2 * lb * nc * s.prow * s.spitch);
+  const size_t tb = (size_t)4 * lb * nc * nc * ncp;
+  const size_t x = (size_t)4 * lb * slice_xl(nc, s.xp);
+  s.total = s.tb_off + (x > tb ? x : tb);
+  return s;
+}
+
+// The (r, g) pass of nl labels as blur_rg computes it, an item per (label,
+// b, SLICE_RR rows, segment of STEP_SEG along g), from S's zero-padded
+// planes ([label][b][prow][spitch], row r and column g at r + SLICE_PAD, g +
+// SLICE_PAD): the item walks its 2re + SLICE_RR source rows from the bottom
+// up, each row's window loaded once, as 4-byte pairs, and fed to every
+// output row it reaches, so that each output still sums its taps in (dr,
+// dg) row-major order.  Output (label, b, r, g) to
+// Tb[((label*nc + b)*nc + r)*ncp + g].
+template <int RE>
+__device__ void blur_rg_pad(const bf16* S, int nl, int nc, int ncp, int prow,
+                            int spitch, float* Tb, const StepTaps& t) {
+  constexpr int RR = SLICE_RR, NW = 2 * RE + 1, WIN = STEP_SEG + 2 * RE;
+  // the window's first column in S is g0 + SLICE_PAD - RE: from the even
+  // column at or below it, NP pairs
+  constexpr int OFF = SLICE_PAD - RE, SH = OFF & 1, NP = (SH + WIN + 1) / 2;
+  const int nseg = ncp / STEP_SEG, nrb = (nc + RR - 1) / RR;
+  const int items = nl * nc * nrb * nseg;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int seg = it % nseg, rest = it / nseg, rb = rest % nrb;
+    const int plane = rest / nrb;    // label * nc + b
+    const int g0 = seg * STEP_SEG, r0 = rb * RR;
+    const bf16* sp = S + (size_t)plane * prow * spitch + g0 + OFF - SH;
+    float acc[RR][STEP_SEG];
+#pragma unroll
+    for (int i = 0; i < RR; ++i)
+#pragma unroll
+      for (int j = 0; j < STEP_SEG; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int q = 0; q < RR + 2 * RE; ++q) {
+      const int rr = r0 + RR - 1 + RE - q;    // source row, bottom up
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(
+          sp + (size_t)(rr + SLICE_PAD) * spitch);
+      float e[2 * NP];
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const float2 f = unpack_bf2(row[k]);
+        e[2 * k] = f.x;
+        e[2 * k + 1] = f.y;
+      }
+#pragma unroll
+      for (int i = 0; i < RR; ++i) {
+        const int dr = i + q - (RR - 1) - RE;   // output r0 + i - rr
+        if (dr < -RE || dr > RE) continue;
+#pragma unroll
+        for (int dg = -RE; dg <= RE; ++dg) {
+          const float w = t.w[(dr + RE) * NW + dg + RE];
+#pragma unroll
+          for (int j = 0; j < STEP_SEG; ++j)   // source column g0 + j - dg
+            acc[i][j] = __fmaf_rn(w, e[SH + j - dg + RE], acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      if (r0 + i >= nc) break;
+      float4* o = reinterpret_cast<float4*>(
+          Tb + ((size_t)plane * nc + r0 + i) * ncp + g0);
+      o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      o[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+}
+
+// blur_rg_pad's pass on unpadded planes, S [label][b][nc][nc]: each window
+// value loaded element by element, zero off the grid.
+template <int RE>
+__device__ void blur_rg_rows(const bf16* S, int nl, int nc, int ncp,
+                             float* Tb, const StepTaps& t) {
+  constexpr int RR = SLICE_RR, NW = 2 * RE + 1, WIN = STEP_SEG + 2 * RE;
+  const int nseg = ncp / STEP_SEG, nrb = (nc + RR - 1) / RR;
+  const int items = nl * nc * nrb * nseg;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int seg = it % nseg, rest = it / nseg, rb = rest % nrb;
+    const int plane = rest / nrb;
+    const int g0 = seg * STEP_SEG, r0 = rb * RR;
+    const bf16* sp = S + (size_t)plane * nc * nc;
+    float acc[RR][STEP_SEG];
+#pragma unroll
+    for (int i = 0; i < RR; ++i)
+#pragma unroll
+      for (int j = 0; j < STEP_SEG; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int q = 0; q < RR + 2 * RE; ++q) {
+      const int rr = r0 + RR - 1 + RE - q;    // source row, bottom up
+      const bool rok = rr >= 0 && rr < nc;
+      float win[WIN];   // win[m]: source column g0 + m - RE
+#pragma unroll
+      for (int m = 0; m < WIN; ++m) {
+        const int gg = g0 + m - RE;
+        win[m] = rok && gg >= 0 && gg < nc
+                     ? __bfloat162float(sp[rr * nc + gg]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < RR; ++i) {
+        const int dr = i + q - (RR - 1) - RE;   // output r0 + i - rr
+        if (dr < -RE || dr > RE) continue;
+#pragma unroll
+        for (int dg = -RE; dg <= RE; ++dg) {
+          const float w = t.w[(dr + RE) * NW + dg + RE];
+#pragma unroll
+          for (int j = 0; j < STEP_SEG; ++j)
+            acc[i][j] = __fmaf_rn(w, win[j - dg + RE], acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      if (r0 + i >= nc) break;
+      float4* o = reinterpret_cast<float4*>(
+          Tb + ((size_t)plane * nc + r0 + i) * ncp + g0);
+      o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      o[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+}
+
+// blur_b for a round of nb <= SLICE_LB labels of the slice: an item per (b,
+// r, segment of STEP_SEG along g) sums the round's labels in the same order
+// (off ascending, separate multiply and add), and a grid point's pair of
+// labels, adjacent in O's label-innermost layout (j0 even), is one 4-byte
+// store.  Output (label j, b, r, g) to O[(b*C + r*nc + g)*lgp + j0 + j].
+template <int RE>
+__device__ void blur_b_round(const float* Tb, int nb, int nc, int ncp,
+                             const StepTaps& t, bf16* O, int j0, int lgp) {
+  const int nseg = ncp / STEP_SEG, items = nc * nc * nseg, C = nc * nc;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int seg = it % nseg, rest = it / nseg, r = rest % nc;
+    const int b = rest / nc, g0 = seg * STEP_SEG;
+    float acc[SLICE_LB][STEP_SEG];
+#pragma unroll
+    for (int l = 0; l < SLICE_LB; ++l)
+#pragma unroll
+      for (int j = 0; j < STEP_SEG; ++j) acc[l][j] = 0.f;
+#pragma unroll
+    for (int off = -RE; off <= RE; ++off) {
+      const int b2 = b + off;
+      if (b2 < 0 || b2 >= nc) continue;
+      const float tb = t.b[off + RE];
+#pragma unroll
+      for (int l = 0; l < SLICE_LB; ++l) {
+        if (l >= nb) break;
+        const float4* x = reinterpret_cast<const float4*>(
+            Tb + (((size_t)l * nc + b2) * nc + r) * ncp + g0);
+        const float4 x0 = x[0], x1 = x[1];
+        const float v[STEP_SEG] = {x0.x, x0.y, x0.z, x0.w,
+                                   x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int j = 0; j < STEP_SEG; ++j)
+          acc[l][j] = __fadd_rn(acc[l][j], __fmul_rn(v[j], tb));
+      }
+    }
+    bf16* o = O + (size_t)(b * C + r * nc + g0) * lgp + j0;
+#pragma unroll
+    for (int j = 0; j < STEP_SEG; ++j) {
+      if (g0 + j >= nc) break;
+      if (nb == 2)
+        *reinterpret_cast<uint32_t*>(o + (size_t)j * lgp) =
+            pack_bf2(acc[0][j], acc[1][j]);
+      else
+        o[(size_t)j * lgp] = __float2bfloat16_rn(acc[0][j]);
+    }
+  }
+}
+
+// The LGP labels of one grid point of O, as f32.
+template <int LGP>
+__device__ __forceinline__ void load_labels(const bf16* p, float* v) {
+  if constexpr (LGP == 1) {
+    v[0] = __bfloat162float(*p);
+  } else {
+    uint32_t w[LGP / 2];
+    if constexpr (LGP == 2) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else if constexpr (LGP == 4) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      w[0] = q.x;
+      w[1] = q.y;
+    } else {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
+    }
+#pragma unroll
+    for (int h = 0; h < LGP / 2; ++h) {
+      const float2 f = unpack_bf2(w[h]);
+      v[2 * h] = f.x;
+      v[2 * h + 1] = f.y;
+    }
+  }
+}
+
+template <int RE, int LGP, bool PAD>
+__global__ void __launch_bounds__(SLICE_THREADS)
+slice_fused_kernel(SliceArgs a, StepTaps t) {
+  const int z = blockIdx.x, nc = a.nc, C = nc * nc, L = a.L, P = a.P;
+  const int l0 = blockIdx.y * a.lg, nl = min(a.lg, L - l0);
+  const int tid = threadIdx.x, T = blockDim.x;
+  bf16* O = reinterpret_cast<bf16*>(dyn_smem);
+  bf16* S = reinterpret_cast<bf16*>(dyn_smem + a.s_off);
+  float* Tb = reinterpret_cast<float*>(dyn_smem + a.tb_off);
+  // label j's plane b: a run of C floats at src + b*L*C + j*C; label jj of
+  // a round at X + jj*slice_xl + its offset within 16 bytes
+  const float* src = a.grid + ((size_t)z * nc * L + l0) * C;
+  float* X = Tb;
+  const int xl = slice_xl(nc, a.xp);
+  auto mis = [&](int j) { return (int)(((uintptr_t)(src + j * C) >> 2) & 3); };
+  // a round's copies as one loop over its planes' words: plane (label jj,
+  // b) takes VPP items, its 16-byte words then its 4-byte ends
+  const int VPP = C / 4 + 6;
+  auto stage = [&](int j0) {   // the round of labels j0 .. j0 + lb - 1
+    const int nb = min(a.lb, nl - j0);
+    for (int w = tid; w < nb * nc * VPP; w += T) {
+      const int plane = w / VPP, k = w - plane * VPP;
+      const int jj = plane / nc, b = plane - jj * nc;
+      const int m = mis(j0 + jj);
+      const float* s = src + (size_t)(j0 + jj) * C + (size_t)b * L * C;
+      float* d = X + jj * xl + m + b * a.xp;
+      const int head = min(C, (4 - ((m + b * a.xp) & 3)) & 3);
+      const int body = (C - head) / 4, ends = C - 4 * body;
+      if (k < body) {
+        cp_async16(d + head + 4 * k, s + head + 4 * k);
+      } else if (k - body < ends) {
+        const int i = k - body, e = i < head ? i : 4 * body + i;
+        cp_async4(d + e, s + e);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage(0);
+  // S's zero rows and columns (its interior is rewritten every round)
+  if (PAD) {
+    const int sn = a.lb * nc * a.prow * a.spitch;
+    for (int i = tid; i < sn / 2; i += T)
+      reinterpret_cast<uint32_t*>(S)[i] = 0u;
+  }
+  constexpr int SP = PAD ? SLICE_PAD : 0;
+  for (int j0 = 0; j0 < nl; j0 += a.lb) {
+    const int nb = min(a.lb, nl - j0);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();   // the round's planes; S and Tb free
+    // S = bf16(X), a thread a grid row (label jj, plane b, row r)
+    for (int row = tid; row < nb * nc * nc; row += T) {
+      const int plane = row / nc, r = row - plane * nc;
+      const int jj = plane / nc, b = plane - jj * nc;
+      const float* x = X + jj * xl + mis(j0 + jj) + b * a.xp + r * nc;
+      bf16* d = S + ((size_t)plane * a.prow + r + SP) * a.spitch + SP;
+      for (int g = 0; g < nc; ++g) d[g] = __float2bfloat16_rn(x[g]);
+    }
+    __syncthreads();   // S; X free
+    if (PAD)
+      blur_rg_pad<RE>(S, nb, nc, a.ncp, a.prow, a.spitch, Tb, t);
+    else
+      blur_rg_rows<RE>(S, nb, nc, a.ncp, Tb, t);
+    __syncthreads();
+    blur_b_round<RE>(Tb, nb, nc, a.ncp, t, O, j0, LGP);
+    if (j0 + a.lb < nl) {
+      __syncthreads();   // Tb read: X takes its place
+      stage(j0 + a.lb);
+    }
+  }
+  __syncthreads();
+  // 3. the pixels of this split, a thread each, SLICE_PIX at a time: their
+  // rgb loads issue together, ahead of the arithmetic
   const float* px = a.rgb + (size_t)z * 3 * P;
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  if (p < P) {
-    const Hat hr = hat(px[p] * a.inv_step), hg = hat(px[P + p] * a.inv_step),
-              hb = hat(px[2 * P + p] * a.inv_step);
-    const Corners k = corners(hr, hg, hb, a.nc, L * C, 1);
-    float* o = a.out + (size_t)z * L * P + p;
-    for (int l = 0; l < L; ++l) o[(size_t)l * P] = slice_at(gb, k, l * C);
+  float* out = a.out + ((size_t)z * L + l0) * P;
+  const int step = T * a.splits;
+  for (int p0 = blockIdx.z * T + tid; p0 < P; p0 += SLICE_PIX * step) {
+    float rgb[SLICE_PIX][3];
+#pragma unroll
+    for (int u = 0; u < SLICE_PIX; ++u) {
+      const int p = p0 + u * step;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) rgb[u][c] = p < P ? px[c * P + p] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < SLICE_PIX; ++u) {
+      const int p = p0 + u * step;
+      if (p >= P) break;
+      const Hat hr = hat(rgb[u][0] * a.inv_step),
+                hg = hat(rgb[u][1] * a.inv_step),
+                hb = hat(rgb[u][2] * a.inv_step);
+      const Corners k = corners(hr, hg, hb, nc, C * LGP, LGP);
+      float m[2][LGP];
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+#pragma unroll
+        for (int j = 0; j < LGP; ++j) m[kb][j] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v[LGP];
+          load_labels<LGP>(O + k.off[kb * 4 + c], v);
+          const float w = k.w[kb * 4 + c];
+#pragma unroll
+          for (int j = 0; j < LGP; ++j)
+            m[kb][j] = __fmaf_rn(v[j], w, m[kb][j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < LGP; ++j)
+        if (j < nl)
+          out[(size_t)j * P + p] = m[0][j] * k.wb[0] + m[1][j] * k.wb[1];
+    }
   }
 }
 
@@ -1446,129 +1821,413 @@ blur_kernel(BlurArgs a) {
   }
 }
 
-// The two-pass blur's arguments; `in` is a for the y pass, its output for
-// the x pass.
-struct BlurPassArgs {
-  const bf16* in;         // (B*Z, L, P)
-  const float* gn;        // y pass: (Z, 1, P), one plane per image position,
-                          // or (B*Z, 1, P) when gn_per_image; x: unused
+// The two-pass blur (pass_plan in kernels/crf_fused.py).  One block per
+// (cell, strip of ty rows, group of lg labels), the strip the whole cell
+// wherever its tile fits in shared memory.  Per label the block stages its
+// tile with 16-byte loads (8 bf16; elementwise where the cells' width is
+// not a multiple of 8), sums, and writes its outputs from registers.
+//  - y pass: the strip's rows and r halo rows above and below, found by
+//    image row in the cells above and below through a table of the tile's
+//    rows built once per block (zero outside the image); the f32 gn tile
+//    staged once for the group; A = bf16(a * gn) in shared memory as bf16.
+//    A thread takes a column pair and PASS_RY rows, and streams down the
+//    column pair: each 4-byte load feeds up to 2 * PASS_RY taps.
+//  - x pass: the strip's rows with halo columns (r rounded up to 8, so that
+//    16-byte words never straddle two cells) from the cells left and right.
+//    A thread takes 8 outputs of a row and streams along it, 16 bytes a
+//    load, each value feeding up to 8 taps.
+// Output (j) sums tap k of the value at j + k in tap order with one fmaf a
+// term (the products of two bf16 values are exact), as the plain versions
+// do: each pass equals its plain version bit for bit.  NT, the tap count,
+// is a template parameter for the common counts (17: r = 8; 41: r = 20),
+// whose taps are compile-time-indexed kernel parameters; with NT = 0 any
+// count up to MAX_YX_TAPS, the taps staged in shared memory and slid
+// through a register window of the PASS_RY (or 8) taps a value meets.
+constexpr int PASS_RY = 8;             // y-pass rows a thread
+constexpr int PASS_MAX_THREADS = 512;
+constexpr int PASS_PREFETCH = 8;       // 16-byte words of a a y-pass thread
+                                       // holds for the next label
+
+struct PassArgs {
+  const bf16* in;         // (B*Z, L, P): a for the y pass, its output for x
+  const float* gn;        // y: (Z, 1, P), or (B*Z, 1, P) when gn_per_image
   bf16* out;              // (B*Z, L, P)
-  int ny, nx, cs_y, cs_x, L, TY, gn_per_image;
+  int ny, nx, cs_y, cs_x, L, ty, lg, wp, halo, gn_per_image, vec;
   LongTaps taps;
 };
 
-__device__ __forceinline__ void stage_taps(const LongTaps& taps, float* t) {
-  for (int i = threadIdx.x; i < taps.n; i += blockDim.x) t[i] = taps.t[i];
+// The pass_plan's shared-memory layout (pass_smem in kernels/crf_fused.py):
+// the taps (f32, padded to 4), then for the y pass the tile's row table
+// (cell and row offset, 2 ints a row) and the f32 gn and bf16 A tiles of
+// round_up(ty, PASS_RY) + 2r rows of wp; for the x pass the bf16 tile of ty
+// rows of wp = round_up(cs_x, 8) + 2 * halo.
+struct PassLayout {
+  int rows, wp, halo;
+  size_t table, tile, total;
+};
+
+inline PassLayout pass_layout(int ty, int cs_x, int ntaps, bool y_pass) {
+  PassLayout s;
+  const int r = ntaps / 2, cx = (cs_x + 7) / 8 * 8;
+  s.halo = (r + 7) / 8 * 8;
+  s.table = align16((size_t)4 * ((ntaps + 3) / 4 * 4));
+  if (y_pass) {
+    s.rows = (ty + PASS_RY - 1) / PASS_RY * PASS_RY + 2 * r;
+    s.wp = cx;
+    s.tile = s.table + align16((size_t)8 * s.rows);
+    s.total = s.tile + (size_t)s.rows * s.wp * (sizeof(float) + sizeof(bf16));
+  } else {
+    s.rows = ty;
+    s.wp = cx + 2 * s.halo;
+    s.tile = s.table;
+    s.total = s.tile + (size_t)s.rows * s.wp * sizeof(bf16);
+  }
+  return s;
 }
 
-// y pass: rows y0 - r .. y0 + rows + r - 1 of this cell's columns, found
-// by image row in the cells above and below (zero outside the image), then
-// each output the taps down its column in tap order.
-__global__ void blur_y_kernel(BlurPassArgs a) {
+__device__ __forceinline__ void store_outputs(bf16* o, const float* v, int n,
+                                              int avail, bool vec) {
+  // n (2 or 8) consecutive outputs, of which `avail` lie in the cell
+  if (vec && avail >= n) {
+    if (n == 8) {
+      uint4 w;
+      w.x = pack_bf2(v[0], v[1]); w.y = pack_bf2(v[2], v[3]);
+      w.z = pack_bf2(v[4], v[5]); w.w = pack_bf2(v[6], v[7]);
+      *reinterpret_cast<uint4*>(o) = w;
+    } else {
+      *reinterpret_cast<uint32_t*>(o) = pack_bf2(v[0], v[1]);
+    }
+    return;
+  }
+  for (int j = 0; j < n && j < avail; ++j) o[j] = __float2bfloat16_rn(v[j]);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(PASS_MAX_THREADS)
+blur_y_kernel(PassArgs a) {
+  constexpr int RY = PASS_RY;
+  const int n = NT ? NT : a.taps.n, r = n / 2;
+  const int Z = a.ny * a.nx, P = a.cs_y * a.cs_x, wp = a.wp;
+  const int z = blockIdx.x, bimg = z / Z, zz = z % Z;
+  const int iy = zz / a.nx, ix = zz % a.nx;
+  const int y0 = blockIdx.y * a.ty, rows = min(a.ty, a.cs_y - y0);
+  const int H = (rows + RY - 1) / RY * RY + 2 * r;   // tile rows staged
+  const int Ha = (a.ty + RY - 1) / RY * RY + 2 * r;  // tile rows allocated
+  const int tid = threadIdx.x, T = blockDim.x;
   float* tap = reinterpret_cast<float*>(dyn_smem);
-  const int n = a.taps.n, r = n / 2;
-  float* A = tap + ((n + 3) & ~3);   // [rows + 2r][cs_x]  bf16(a * gn)
-  const int Z = a.ny * a.nx, P = a.cs_y * a.cs_x, H = a.ny * a.cs_y;
-  const int z = blockIdx.x / a.L, l = blockIdx.x % a.L;
-  const int bimg = z / Z, zz = z % Z, iy = zz / a.nx, ix = zz % a.nx;
-  const int y0 = blockIdx.y * a.TY, rows = min(a.TY, a.cs_y - y0);
-  const float* gn = a.gn + (a.gn_per_image ? (size_t)bimg * Z * P : 0);
-  stage_taps(a.taps, tap);
-  for (int i = threadIdx.x; i < (rows + 2 * r) * a.cs_x; i += blockDim.x) {
-    const int yy = i / a.cs_x, x = i - yy * a.cs_x;
+  int* rcell = reinterpret_cast<int*>(
+      dyn_smem + align16((size_t)4 * ((n + 3) / 4 * 4)));
+  int* roff = rcell + Ha;
+  float* G = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(rcell) + align16((size_t)8 * Ha));
+  bf16* A = reinterpret_cast<bf16*>(G + (size_t)Ha * wp);
+  if (!NT)
+    for (int i = tid; i < n; i += T) tap[i] = a.taps.t[i];
+  // the tile's rows: image row iy*cs_y + y0 + yy - r, in cell rcell (of the
+  // batch) at row offset roff, or rcell -1 outside the image
+  for (int yy = tid; yy < H; yy += T) {
     const int gy = iy * a.cs_y + y0 + yy - r;
-    float v = 0.f;
-    if (gy >= 0 && gy < H) {
-      const int iy2 = gy / a.cs_y, p = (gy - iy2 * a.cs_y) * a.cs_x + x;
-      const int zz2 = iy2 * a.nx + ix;
-      const size_t z2 = (size_t)bimg * Z + zz2;
-      v = bf16r(__bfloat162float(a.in[(z2 * a.L + l) * P + p]) *
-                gn[(size_t)zz2 * P + p]);
+    int cell = -1, off = 0;
+    if (gy >= 0 && gy < a.ny * a.cs_y) {
+      const int iy2 = gy / a.cs_y;
+      cell = bimg * Z + iy2 * a.nx + ix;
+      off = (gy - iy2 * a.cs_y) * a.cs_x;
     }
-    A[i] = v;
+    rcell[yy] = cell;
+    roff[yy] = off;
   }
   __syncthreads();
-  bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
-  for (int i = threadIdx.x; i < rows * a.cs_x; i += blockDim.x) {
-    const float* col = A + i;        // output (yy, x) reads A[yy + k][x]
-    float acc = 0.f;
-    for (int k = 0; k < n; ++k) acc += tap[k] * col[k * a.cs_x];
-    o[i] = __float2bfloat16_rn(acc);
+  const int V = a.vec ? 8 : 1, units = wp / V;
+  const int gbase = a.gn_per_image ? 0 : bimg * Z;   // gn plane of a cell
+  for (int i = tid; i < H * units; i += T) {
+    const int yy = i / units, x = (i - yy * units) * V;
+    const int cell = rcell[yy];
+    float* d = G + (size_t)yy * wp + x;
+    if (V == 8) {
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (cell >= 0) {
+        const float4* s = reinterpret_cast<const float4*>(
+            a.gn + (size_t)(cell - gbase) * P + roff[yy] + x);
+        lo = s[0];
+        hi = s[1];
+      }
+      reinterpret_cast<float4*>(d)[0] = lo;
+      reinterpret_cast<float4*>(d)[1] = hi;
+    } else {
+      *d = cell >= 0 && x < a.cs_x
+               ? a.gn[(size_t)(cell - gbase) * P + roff[yy] + x] : 0.f;
+    }
+  }
+  const int npairs = (a.cs_x + 1) / 2, segs = (rows + RY - 1) / RY;
+  const int l_end = min(a.L, (int)blockIdx.z * a.lg + a.lg);
+  // With 16-byte staging of at most PASS_PREFETCH words a thread, the next
+  // label's words are loaded into registers while this label's sums run.
+  const int words = H * units;
+  const bool prefetch = V == 8 && words <= PASS_PREFETCH * T;
+  uint4 next[PASS_PREFETCH];
+  auto fetch = [&](int l) {
+#pragma unroll
+    for (int q = 0; q < PASS_PREFETCH; ++q) {
+      const int i = tid + q * T;
+      next[q] = make_uint4(0, 0, 0, 0);
+      if (i < words) {
+        const int yy = i / units, cell = rcell[yy];
+        if (cell >= 0)
+          next[q] = *reinterpret_cast<const uint4*>(
+              a.in + ((size_t)cell * a.L + l) * P + roff[yy] +
+              (i - yy * units) * 8);
+      }
+    }
+  };
+  if (prefetch) fetch(blockIdx.z * a.lg);
+  for (int l = blockIdx.z * a.lg; l < l_end; ++l) {
+    __syncthreads();   // the gn tile; the previous label's sums
+    // A = bf16(a * gn), zero outside the image
+#pragma unroll
+    for (int q = 0; q < PASS_PREFETCH; ++q) {
+      const int i = tid + q * T;
+      if (!prefetch || i >= words) break;
+      const int yy = i / units, x = (i - yy * units) * 8;
+      const float4* g4 = reinterpret_cast<const float4*>(
+          G + (size_t)yy * wp + x);
+      const float4 ga = g4[0], gb = g4[1];
+      const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+      const uint32_t sw[4] = {next[q].x, next[q].y, next[q].z, next[q].w};
+      uint32_t vw[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float2 f = unpack_bf2(sw[h]);
+        vw[h] = pack_bf2(f.x * g[2 * h], f.y * g[2 * h + 1]);
+      }
+      *reinterpret_cast<uint4*>(A + (size_t)yy * wp + x) =
+          make_uint4(vw[0], vw[1], vw[2], vw[3]);
+    }
+    for (int i = tid; !prefetch && i < words; i += T) {
+      const int yy = i / units, x = (i - yy * units) * V;
+      const int cell = rcell[yy];
+      const float* g = G + (size_t)yy * wp + x;
+      bf16* d = A + (size_t)yy * wp + x;
+      if (V == 8) {
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (cell >= 0) {
+          const uint4 s = *reinterpret_cast<const uint4*>(
+              a.in + ((size_t)cell * a.L + l) * P + roff[yy] + x);
+          const uint32_t sw[4] = {s.x, s.y, s.z, s.w};
+          uint32_t vw[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const float2 f = unpack_bf2(sw[h]);
+            vw[h] = pack_bf2(f.x * g[2 * h], f.y * g[2 * h + 1]);
+          }
+          v = make_uint4(vw[0], vw[1], vw[2], vw[3]);
+        }
+        *reinterpret_cast<uint4*>(d) = v;
+      } else {
+        *d = __float2bfloat16_rn(
+            cell >= 0 && x < a.cs_x
+                ? __bfloat162float(
+                      a.in[((size_t)cell * a.L + l) * P + roff[yy] + x]) * *g
+                : 0.f);
+      }
+    }
+    __syncthreads();
+    if (prefetch && l + 1 < l_end) fetch(l + 1);
+    bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
+    for (int i = tid; i < npairs * segs; i += T) {
+      const int seg = i / npairs, cp = i - seg * npairs;
+      const bf16* col = A + (size_t)seg * RY * wp + 2 * cp;
+      float s0[RY], s1[RY];
+#pragma unroll
+      for (int j = 0; j < RY; ++j) s0[j] = s1[j] = 0.f;
+      if (NT) {
+#pragma unroll
+        for (int m = 0; m < RY + (NT ? NT : 1) - 1; ++m) {
+          const float2 v = unpack_bf2(
+              *reinterpret_cast<const uint32_t*>(col + (size_t)m * wp));
+#pragma unroll
+          for (int j = 0; j < RY; ++j) {
+            const int k = m - j;
+            if (k >= 0 && k < NT) {
+              s0[j] = __fmaf_rn(a.taps.t[k], v.x, s0[j]);
+              s1[j] = __fmaf_rn(a.taps.t[k], v.y, s1[j]);
+            }
+          }
+        }
+      } else {
+        float tw[RY];   // tw[j] = tap[m - j], 0 outside the taps
+#pragma unroll
+        for (int j = 0; j < RY; ++j) tw[j] = 0.f;
+        for (int m = 0; m < RY + n - 1; ++m) {
+#pragma unroll
+          for (int j = RY - 1; j > 0; --j) tw[j] = tw[j - 1];
+          tw[0] = m < n ? tap[m] : 0.f;
+          const float2 v = unpack_bf2(
+              *reinterpret_cast<const uint32_t*>(col + (size_t)m * wp));
+#pragma unroll
+          for (int j = 0; j < RY; ++j) {
+            s0[j] = __fmaf_rn(tw[j], v.x, s0[j]);
+            s1[j] = __fmaf_rn(tw[j], v.y, s1[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RY; ++j) {
+        const int yy = seg * RY + j;
+        if (yy < rows) {
+          const float v[2] = {s0[j], s1[j]};
+          store_outputs(o + (size_t)yy * a.cs_x + 2 * cp, v, 2,
+                        a.cs_x - 2 * cp, a.cs_x % 2 == 0);
+        }
+      }
+    }
   }
 }
 
-// x pass: the strip's rows with r halo columns from the cells left and
-// right (zero outside the image), then each output the taps along its row.
-__global__ void blur_x_kernel(BlurPassArgs a) {
-  float* tap = reinterpret_cast<float*>(dyn_smem);
-  const int n = a.taps.n, r = n / 2, W2 = a.cs_x + 2 * r;
-  float* T = tap + ((n + 3) & ~3);   // [rows][cs_x + 2r]
+template <int NT>
+__global__ void __launch_bounds__(PASS_MAX_THREADS)
+blur_x_kernel(PassArgs a) {
+  const int n = NT ? NT : a.taps.n, r = n / 2, halo = a.halo, wp = a.wp;
   const int Z = a.ny * a.nx, P = a.cs_y * a.cs_x, W = a.nx * a.cs_x;
-  const int z = blockIdx.x / a.L, l = blockIdx.x % a.L;
-  const int bimg = z / Z, zz = z % Z, iy = zz / a.nx, ix = zz % a.nx;
-  const int y0 = blockIdx.y * a.TY, rows = min(a.TY, a.cs_y - y0);
-  stage_taps(a.taps, tap);
-  for (int i = threadIdx.x; i < rows * W2; i += blockDim.x) {
-    const int yy = i / W2, gx = ix * a.cs_x + i - yy * W2 - r;
-    float v = 0.f;
-    if (gx >= 0 && gx < W) {
-      const int ix2 = gx / a.cs_x;
-      const size_t z2 = (size_t)bimg * Z + iy * a.nx + ix2;
-      v = __bfloat162float(a.in[(z2 * a.L + l) * P + (size_t)(y0 + yy) *
-                                a.cs_x + gx - ix2 * a.cs_x]);
+  const int z = blockIdx.x, bimg = z / Z, zz = z % Z;
+  const int iy = zz / a.nx, ix = zz % a.nx;
+  const int y0 = blockIdx.y * a.ty, rows = min(a.ty, a.cs_y - y0);
+  const int tid = threadIdx.x, T = blockDim.x;
+  float* tap = reinterpret_cast<float*>(dyn_smem);
+  bf16* Tt = reinterpret_cast<bf16*>(
+      dyn_smem + align16((size_t)4 * ((n + 3) / 4 * 4)));   // [ty][wp]
+  if (!NT)
+    for (int i = tid; i < n; i += T) tap[i] = a.taps.t[i];
+  const int units = wp / 8, xq = (a.cs_x + 7) / 8;
+  // tile column t is cell column t - halo; a 16-byte word at a multiple of
+  // 8 lies in one cell when cs_x is a multiple of 8
+  const int d = halo - r;   // the first element a thread's outputs read
+  const int l_end = min(a.L, (int)blockIdx.z * a.lg + a.lg);
+  for (int l = blockIdx.z * a.lg; l < l_end; ++l) {
+    if (l > (int)blockIdx.z * a.lg) __syncthreads();   // previous sums
+    for (int i = tid; i < rows * units; i += T) {
+      const int yy = i / units, t = (i - yy * units) * 8;
+      const size_t row = (size_t)(y0 + yy) * a.cs_x;
+      bf16* dst = Tt + (size_t)yy * wp + t;
+      if (a.vec) {
+        const int c = t - halo;
+        const int dx = c < 0 ? -1 : (c >= a.cs_x ? 1 : 0), ix2 = ix + dx;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (ix2 >= 0 && ix2 < a.nx)
+          v = *reinterpret_cast<const uint4*>(
+              a.in + ((size_t)(bimg * Z + iy * a.nx + ix2) * a.L + l) * P +
+              row + c - dx * a.cs_x);
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int gx = ix * a.cs_x + t + e - halo;
+          bf16 v = __float2bfloat16_rn(0.f);
+          if (gx >= 0 && gx < W) {
+            const int ix2 = gx / a.cs_x;
+            v = a.in[((size_t)(bimg * Z + iy * a.nx + ix2) * a.L + l) * P +
+                     row + gx - ix2 * a.cs_x];
+          }
+          dst[e] = v;
+        }
+      }
     }
-    T[i] = v;
-  }
-  __syncthreads();
-  bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
-  for (int i = threadIdx.x; i < rows * a.cs_x; i += blockDim.x) {
-    const int yy = i / a.cs_x;
-    const float* row = T + yy * W2 + (i - yy * a.cs_x);
-    float acc = 0.f;
-    for (int k = 0; k < n; ++k) acc += tap[k] * row[k];
-    o[i] = __float2bfloat16_rn(acc);
+    __syncthreads();
+    bf16* o = a.out + ((size_t)z * a.L + l) * P + (size_t)y0 * a.cs_x;
+    for (int i = tid; i < rows * xq; i += T) {
+      const int yy = i / xq, x0 = (i - yy * xq) * 8;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          Tt + (size_t)yy * wp + x0);
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+      if (NT) {
+        // value e' of the words is tap k of output j where e' = d + j + k
+        constexpr int R = (NT ? NT : 1) / 2, DC = (8 - R % 8) % 8;
+        constexpr int NW = (DC + (NT ? NT : 1) + 6) / 8 + 1;
+#pragma unroll
+        for (int q = 0; q < NW; ++q) {
+          const uint4 u = src[q];
+          const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float2 f2 = unpack_bf2(uw[e / 2]);
+            const float v = e % 2 ? f2.y : f2.x;
+            const int m = 8 * q + e - DC;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int k = m - j;
+              if (k >= 0 && k < NT) acc[j] = __fmaf_rn(a.taps.t[k], v, acc[j]);
+            }
+          }
+        }
+      } else {
+        float tw[8];   // tw[j] = tap[m - j], 0 outside the taps
+#pragma unroll
+        for (int j = 0; j < 8; ++j) tw[j] = 0.f;
+        const int nw = (d + n + 6) / 8 + 1;
+        for (int q = 0; q < nw; ++q) {
+          const uint4 u = src[q];
+          const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int m = 8 * q + e - d;
+            if (m < 0 || m >= n + 7) continue;
+            const float2 f2 = unpack_bf2(uw[e / 2]);
+            const float v = e % 2 ? f2.y : f2.x;
+#pragma unroll
+            for (int j = 7; j > 0; --j) tw[j] = tw[j - 1];
+            tw[0] = m < n ? tap[m] : 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(tw[j], v, acc[j]);
+          }
+        }
+      }
+      store_outputs(o + (size_t)yy * a.cs_x + x0, acc, 8, a.cs_x - x0,
+                    a.vec != 0);
+    }
   }
 }
 
-// One pass of the two-pass blur.  Strips of at most 32 rows (fewer where
-// the tile would not fit in shared memory), evened out over the cell: the y
-// pass stages rows + 2r rows of cs_x, the x pass rows of cs_x + 2r.
+// One pass of the two-pass blur, in the launch plan's geometry.
 int launch_blur_pass(const bf16* in, const float* gn, int gn_per_image,
                      bf16* out, const float* taps, int ntaps, int B, int ny,
-                     int nx, int cs_y, int cs_x, int L, bool y_pass,
-                     cudaStream_t st) {
+                     int nx, int cs_y, int cs_x, int L, int ty, int lg,
+                     int threads, int smem, bool y_pass, cudaStream_t st) {
   const int r = ntaps / 2;
   if (!taps || ntaps < 1 || ntaps > MAX_YX_TAPS || ntaps % 2 == 0 ||
       B < 1 || ny < 1 || nx < 1 || L < 1 || cs_y < 1 || cs_x < 1 ||
       r > cs_y || r > cs_x || (y_pass && !gn))
     return ERR_ARGS;
-  BlurPassArgs args;
+  // the plan (pass_plan in kernels/crf_fused.py): strips of ty rows, lg
+  // labels and `threads` threads a block, its shared memory as pass_layout
+  // lays it out
+  const PassLayout lay = pass_layout(ty, cs_x, ntaps, y_pass);
+  if (ty < 1 || ty > cs_y || lg < 1 || lg > L || threads < 32 ||
+      threads > PASS_MAX_THREADS || threads % 32 ||
+      (size_t)smem != lay.total || smem > SMEM_MAX)
+    return ERR_PLAN;
+  PassArgs args;
   args.in = in; args.gn = gn; args.out = out;
   args.ny = ny; args.nx = nx; args.cs_y = cs_y; args.cs_x = cs_x; args.L = L;
+  args.ty = ty; args.lg = lg; args.wp = lay.wp; args.halo = lay.halo;
   args.gn_per_image = gn_per_image;
+  // 16-byte staging and stores where rows are whole words
+  args.vec = cs_x % 8 == 0 && (uintptr_t)in % 16 == 0 &&
+             (uintptr_t)out % 16 == 0 && (!y_pass || (uintptr_t)gn % 16 == 0);
   args.taps.n = ntaps;
   for (int i = 0; i < ntaps; ++i) args.taps.t[i] = taps[i];
-  size_t smem = 0;
-  int TY = 0;
-  for (int most = 32; most >= 1; most /= 2) {
-    const int strips = (cs_y + most - 1) / most;
-    TY = (cs_y + strips - 1) / strips;
-    const size_t tile = y_pass ? (size_t)(TY + 2 * r) * cs_x
-                               : (size_t)TY * (cs_x + 2 * r);
-    smem = sizeof(float) * (((ntaps + 3) & ~3) + tile);
-    if (smem <= (size_t)SMEM_MAX) break;
-  }
-  if (smem > (size_t)SMEM_MAX) return ERR_SMEM;
-  args.TY = TY;
-  cudaError_t e = set_smem(
-      y_pass ? (const void*)blur_y_kernel : (const void*)blur_x_kernel, smem);
+  const void* fn =
+      y_pass ? (ntaps == 41 ? (const void*)blur_y_kernel<41>
+                            : (const void*)blur_y_kernel<0>)
+             : (ntaps == 41 ? (const void*)blur_x_kernel<41>
+                            : (const void*)blur_x_kernel<0>);
+  cudaError_t e = set_smem(fn, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * ny * nx * L, (cs_y + TY - 1) / TY);
-  if (y_pass)
-    blur_y_kernel<<<grid, 256, smem, st>>>(args);
-  else
-    blur_x_kernel<<<grid, 256, smem, st>>>(args);
-  return cudaGetLastError();
+  void* kargs[] = {&args};
+  return cudaLaunchKernel(fn,
+                          dim3(B * ny * nx, (cs_y + ty - 1) / ty,
+                               (L + lg - 1) / lg),
+                          dim3(threads), kargs, smem, st);
 }
 
 bool read_color_taps(const float* pack, int n, ColorTaps* t) {
@@ -1769,18 +2428,20 @@ int crf_blur_launch(const void* a, const float* gn, void* out,
 
 int crf_blur_y_launch(const void* a, const float* gn, int gn_per_image,
                       void* out, const float* taps, int ntaps, int B, int ny,
-                      int nx, int cs_y, int cs_x, int L, void* stream) {
-  return launch_blur_pass((const bf16*)a, gn, gn_per_image,
-                          (bf16*)out, taps, ntaps, B, ny, nx, cs_y, cs_x, L,
-                          true, (cudaStream_t)stream);
+                      int nx, int cs_y, int cs_x, int L, int ty, int lg,
+                      int threads, int smem, void* stream) {
+  return launch_blur_pass((const bf16*)a, gn, gn_per_image, (bf16*)out,
+                          taps, ntaps, B, ny, nx, cs_y, cs_x, L, ty, lg,
+                          threads, smem, true, (cudaStream_t)stream);
 }
 
 int crf_blur_x_launch(const void* in, void* out, const float* taps,
                       int ntaps, int B, int ny, int nx, int cs_y, int cs_x,
-                      int L, void* stream) {
-  return launch_blur_pass((const bf16*)in, nullptr, 0,
-                          (bf16*)out, taps, ntaps, B, ny, nx, cs_y, cs_x, L,
-                          false, (cudaStream_t)stream);
+                      int L, int ty, int lg, int threads, int smem,
+                      void* stream) {
+  return launch_blur_pass((const bf16*)in, nullptr, 0, (bf16*)out, taps,
+                          ntaps, B, ny, nx, cs_y, cs_x, L, ty, lg, threads,
+                          smem, false, (cudaStream_t)stream);
 }
 
 int crf_mf_step_launch(const float* attrs, const void* grid, void* scratch,
@@ -1828,22 +2489,57 @@ int crf_mf_step_launch(const float* attrs, const void* grid, void* scratch,
   }
 }
 
-int crf_slice_launch(const float* rgb, const float* grid, void* scratch,
-                     float* out, const float* ctaps, int ntaps, int Z, int P,
-                     int L, int nc, float inv_step, void* stream) {
+int crf_slice_launch(const float* rgb, const float* grid, float* out,
+                     const float* ctaps, int ntaps, int Z, int P, int L,
+                     int nc, float inv_step, int lg, int lb, int lgp,
+                     int pad, int splits, int smem,
+                     void* stream) {
   ColorTaps taps;
   if (!read_color_taps(ctaps, ntaps, &taps) || Z <= 0 || P <= 0 || L < 1 ||
-      nc < 1)
+      nc < 1 || (uintptr_t)grid % 4)
     return ERR_ARGS;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e =
-      launch_grid_blur<float>(grid, (bf16*)scratch, Z, L, nc, taps, st);
-  if (e != cudaSuccess) return e;
+  // the plan (slice_plan in kernels/crf_fused.py): groups of lg labels
+  // blurred lb a round, LGP-wide grid points, S padded or not, `splits`
+  // blocks a (cell, group), its shared memory as slice_layout lays it out
+  if (lg < 1 || lg > L || lg > SLICE_LG_MAX || lb < 1 || lb > lg ||
+      lb > SLICE_LB ||
+      lgp != slice_lgp(lg) || splits < 1 || splits > 65535 ||
+      (size_t)smem != slice_layout(nc, L, lg, lb, pad).total ||
+      smem > SMEM_MAX)
+    return ERR_PLAN;
+  const SliceLayout lay = slice_layout(nc, L, lg, lb, pad);
+  const StepTaps t = step_taps(taps);
   SliceArgs a;
-  a.rgb = rgb; a.gblur = (const bf16*)scratch; a.out = out;
-  a.P = P; a.L = L; a.nc = nc; a.inv_step = inv_step;
-  slice_kernel<<<dim3(Z, (P + 255) / 256), 256, 0, st>>>(a);
-  return cudaGetLastError();
+  a.rgb = rgb; a.grid = grid; a.out = out;
+  a.P = P; a.L = L; a.nc = nc; a.lg = lg; a.lb = lb; a.splits = splits;
+  a.ncp = (nc + STEP_SEG - 1) / STEP_SEG * STEP_SEG;
+  a.xp = lay.xp; a.prow = lay.prow; a.spitch = lay.spitch;
+  a.s_off = (int)lay.s_off; a.tb_off = (int)lay.tb_off;
+  a.inv_step = inv_step;
+#define SLICE_FNS(PAD)                                                        \
+  {{(const void*)slice_fused_kernel<1, 1, PAD>,                                \
+    (const void*)slice_fused_kernel<1, 2, PAD>,                                \
+    (const void*)slice_fused_kernel<1, 4, PAD>,                                \
+    (const void*)slice_fused_kernel<1, 8, PAD>},                               \
+   {(const void*)slice_fused_kernel<2, 1, PAD>,                                \
+    (const void*)slice_fused_kernel<2, 2, PAD>,                                \
+    (const void*)slice_fused_kernel<2, 4, PAD>,                                \
+    (const void*)slice_fused_kernel<2, 8, PAD>},                               \
+   {(const void*)slice_fused_kernel<3, 1, PAD>,                                \
+    (const void*)slice_fused_kernel<3, 2, PAD>,                                \
+    (const void*)slice_fused_kernel<3, 4, PAD>,                                \
+    (const void*)slice_fused_kernel<3, 8, PAD>}}
+  const void* fns[2][3][4] = {SLICE_FNS(false), SLICE_FNS(true)};
+#undef SLICE_FNS
+  if (t.re < 1 || t.re > 3) return ERR_ARGS;
+  const void* fn = fns[pad ? 1 : 0][t.re - 1]
+                      [lgp == 1 ? 0 : lgp == 2 ? 1 : lgp == 4 ? 2 : 3];
+  cudaError_t e = set_smem(fn, smem);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&a, const_cast<StepTaps*>(&t)};
+  return cudaLaunchKernel(fn, dim3(Z, (L + lg - 1) / lg, splits),
+                          dim3(SLICE_THREADS), args, smem,
+                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

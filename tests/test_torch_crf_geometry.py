@@ -91,8 +91,9 @@ def _taps(sigma):
     return tuple(float(t) for t in TDC._gauss_taps(sigma))
 
 
-# (cs_y, sigma, gn per image): the VOC cell heights 24/60/75 at r = 8, and
-# radii 18 and 30 past the row kernel's 16 on 64-row cells
+# (cs_y, sigma, gn per image): the VOC cell heights 24/60/75 at r = 8 (the
+# TPU's fallback; the port's row kernel on the card), gn per cell, and radii
+# 18 and 30 past the row kernel's 16 on 64-row cells
 FALLBACK = [(24, 3.0, False), (60, 3.0, False), (75, 3.0, False),
             (75, 3.0, True), (64, 7.0, False), (64, 12.0, True)]
 
@@ -102,7 +103,13 @@ def test_blur_passes_match_jax_fallback(cs_y, sigma, per_image,
                                         monkeypatch):
     B, ny, nx, cs_x, L = 2, 2, 2, 128, 5
     kw = dict(taps=_taps(sigma), B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
-    assert not TK.row_kernel_fits(kw["taps"], cs_y)
+    # The port's dispatch on the card: r = 8 with gn (Z, 1, P) takes the row
+    # kernel at any cell height (the VOC heights 24, 60 and 75 included);
+    # gn per cell and radii 18 and 30 keep the y and x passes.  JAX runs its
+    # fallback kernels at all of these, so the passes' plain versions are
+    # held to them below in every case.
+    assert TK.row_kernel_fits(kw["taps"], cs_x, per_image) == (
+        sigma == 3.0 and not per_image)
     q, gn = _blur_inputs(B, ny, nx, cs_y, cs_x, L, per_image)
     want, (jy, jx) = _jax_blur(q, gn, monkeypatch, **kw)
     np.testing.assert_array_equal(jx, want)
@@ -138,7 +145,7 @@ def test_blur_where_only_the_tpu_vmem_clause_declines(monkeypatch):
     port keeps the row kernel (its geometry fits) and equals JAX."""
     B, ny, nx, cs_y, cs_x, L = 1, 1, 8, 64, 128, 21
     kw = dict(taps=_taps(3.0), B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
-    assert TK.row_kernel_fits(kw["taps"], cs_y)
+    assert TK.row_kernel_fits(kw["taps"], cs_x)
     assert nx * L * cs_y * cs_x * 2 > JK._ROW_BLOCK_BYTES
     q, gn = _blur_inputs(B, ny, nx, cs_y, cs_x, L, False, seed=2)
     want, outs = _jax_blur(q, gn, monkeypatch, **kw)
@@ -270,7 +277,7 @@ def _batched(cfg, jcfg, H, W, L, seeds):
 
 
 @pytest.mark.parametrize("name,cfg,H,W,L", [
-    # cs_y = 60: the y and x passes at the production config
+    # cs_y = 60 at the production config: on the card the row kernel
     ("production 120x256", TCRF.PRODUCTION_CONFIG, 120, 256, 21),
     # r = 18 on 64x128 cells
     ("sxy_gaussian 7", TCRF.CrfConfig(sxy_gaussian=7.0), 128, 256, 5),

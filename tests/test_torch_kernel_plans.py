@@ -1,8 +1,9 @@
 """The launch plans of the redesigned kernels, on the CPU.
 
 ``fused_mbconv``'s plan (``kernels/fused_mbconv.py::mbconv_plan``), the
-CRF row blur's (``kernels/crf_fused.py::blur_plan``), the splat's
-(``splat_plan``), the mean-field step's (``step_plan``) and the training
+CRF row blur's (``kernels/crf_fused.py::blur_plan``), the blur's y and x
+passes' (``pass_plan``), the splat's (``splat_plan``), the mean-field
+step's (``step_plan``), ``slice_planes``' (``slice_plan``) and the training
 block's halo phases' (``kernels/fused_mbconv_train.py::train_plan``) are
 plain Python that the CUDA launchers check and never recompute
 differently.  Here: every
@@ -171,18 +172,22 @@ def test_mbconv_main_path_plans_at_the_served_batch():
         assert (p.th * p.tw == 64) == (cout == 320), (cin, ce, cout, p)
 
 
+VOC_HEIGHTS = (375, 500, 360)   # VOC photos: cells of 75, 50 and 72 rows
+
+
 def _row_blur_geometries():
     """Every (cs_y, cs_x, taps) that gaussian_blur_planes sends to the row
-    kernel at the three configs, images from 128 to 1024 px a side."""
+    kernel at the three configs, images from 128 to 1024 px a side and the
+    VOC heights."""
     out = set()
     for cfg in (CRF.PRODUCTION_CONFIG, CRF.FAST_FAITHFUL_CONFIG,
                 CRF.THROUGHPUT_CONFIG):
         taps = DC._gauss_taps(cfg.sxy_gaussian)
-        for h in range(128, 1025, 8):
+        for h in list(range(128, 1025, 8)) + list(VOC_HEIGHTS):
             for w in (128, 500, 1024):
                 plan = DC.CellPlan(1, h, w, cfg.sxy_bilateral, cfg.srgb,
                                    cfg.color_step, cfg.splat_stride)
-                if CK.row_kernel_fits(taps, plan.cs_y):
+                if CK.row_kernel_fits(taps, plan.cs_x):
                     out.add((plan.cs_y, plan.cs_x, len(taps)))
     return sorted(out)
 
@@ -192,7 +197,22 @@ ROW_GEOMETRIES = _row_blur_geometries()
 
 def test_row_blur_geometries_are_found():
     assert (64, 128, 17) in ROW_GEOMETRIES
-    assert {g[0] for g in ROW_GEOMETRIES} >= {64, 80}
+    assert {g[0] for g in ROW_GEOMETRIES} >= {64, 80, 75, 50, 72}
+
+
+def test_blur_plan_fits_every_cell_height():
+    """CellPlan's heights at 128 px (40 to 80 rows, sxy_bilateral 80) each
+    fit whole in one row-kernel block, at every label count of the configs
+    and B = 1 and 8; the y pass's windows round a height up to blur_ry rows,
+    all of them staged."""
+    heights = {DC.CellPlan(1, h, 500, 80.0, 13.0, 1.5).cs_y
+               for h in range(40, 1200)}
+    assert heights == set(range(40, 81))
+    for cs_y in sorted(heights):
+        for B, L in ((1, 1), (8, 21), (8, 2)):
+            p = CK.blur_plan(B, 5, 4, cs_y, 128, L, 17)
+            assert (p.ty, p.strips) == (cs_y, 1)
+            assert p.smem == CK.blur_smem(cs_y, 128, 17) <= LIMIT
 
 
 @pytest.mark.parametrize("geom", ROW_GEOMETRIES)
@@ -242,6 +262,211 @@ def test_blur_plan_splits_tall_cells_into_even_strips():
     p = CK.blur_plan(1, 1, 1, 512, 512, 3, 33)
     assert p.strips > 1 and p.smem <= LIMIT
     assert p.ty == -(-512 // p.strips)
+
+
+# ---------------------------------------------------------------------------
+# slice_planes and the spatial blur's y and x passes.
+
+SLICE_NC = tuple(range(9, 22))        # the configs' 9-21 and every nc between
+# P of the XLA engine's cells: 80x80 (sxy 80), 16x16 (sxy 16), 15x15
+SLICE_P = (6400, 256, 225)
+
+
+@pytest.mark.parametrize("nc", SLICE_NC)
+def test_slice_plan_fits_and_covers_each_cell_label_and_pixel_once(nc):
+    """At every label count 1-32 and cell size: the block's layout fits and
+    is the plan's, its planes padded; groups of lg labels, blurred lb a
+    round (lgp >= lg a grid point), and pixel splits (chunks s, s + splits,
+    ... of SLICE_THREADS) cover every (label, pixel) of a cell once; the
+    staged planes keep their offsets within 16 bytes, and a plane's
+    cp.async items (16-byte words, then 4-byte ends) cover it once.  A
+    49-cell image gives two blocks an SM where its labels allow, and at
+    least one an SM where its labels and pixels allow, splitting a cell's
+    pixels no further than that (blocks past one an SM measured slower,
+    PERF.md §6)."""
+    C = nc * nc
+    T = CK.SLICE_THREADS
+    for L in range(1, 33):
+        for P in SLICE_P:
+            p = CK.slice_plan(49, P, L, nc)
+            assert p.pad
+            assert p.smem == CK.slice_smem(nc, L, p.lg, p.lb, p.pad)
+            assert p.smem <= LIMIT
+            assert 1 <= p.lb <= min(p.lg, CK.SLICE_LB)
+            assert 1 <= p.lg <= CK.SLICE_LG_MAX
+            assert p.lgp == CK.slice_lgp(p.lg) >= p.lg and 2 * p.lgp <= 16
+            assert p.grid == (49, p.groups, p.splits)
+            labels = sorted(g * p.lg + j0 + i for g in range(p.groups)
+                            for j0 in range(0, min(p.lg, L - g * p.lg), p.lb)
+                            for i in range(min(p.lb,
+                                               min(p.lg, L - g * p.lg) - j0)))
+            assert labels == list(range(L))
+            pixels = sorted(c0 + i for s in range(p.splits)
+                            for c0 in range(s * T, P, T * p.splits)
+                            for i in range(min(T, P - c0)))
+            assert pixels == list(range(P))
+            chunks = -(-P // T)
+            assert p.splits <= max(1, chunks)
+            assert p.groups >= min(L, -(-2 * CK.SLICE_SLOTS // 49))
+            blocks = 49 * p.groups * p.splits
+            assert blocks <= CK.SLICE_SLOTS or p.splits == 1
+            assert blocks >= min(CK.SLICE_SLOTS // 49 * 49, 49 * L * chunks)
+        xp = CK.slice_xp(nc, L)
+        xl = CK.slice_xl(nc, xp)
+        assert xp >= C and (xp - L * C) % 4 == 0
+        assert xl % 4 == 0 and xl >= nc * xp + 3
+        vpp = C // 4 + 6                    # the kernel's items a plane
+        for mis in range(4):      # a label's first plane, mod 16 bytes
+            for b in range(nc):
+                dev = mis + b * L * C       # floats from a 16-byte line
+                sm = xl + mis + b * xp      # the round's second label
+                assert dev % 4 == sm % 4
+                head = min(C, (4 - sm % 4) % 4)
+                body = (C - head) // 4
+                ends = C - 4 * body
+                assert body + ends <= vpp
+                covered = []
+                for k in range(vpp):        # 16-byte words, then the ends
+                    if k < body:
+                        covered += [head + 4 * k + e for e in range(4)]
+                    elif k - body < ends:
+                        i = k - body
+                        covered.append(i if i < head else 4 * body + i)
+                assert sorted(covered) == list(range(C))
+                assert (sm + head) % 4 == 0
+
+
+@pytest.mark.parametrize("re", [1, 2, 3])
+def test_slice_padded_windows_stay_in_their_plane(re):
+    """The padded (r, g) pass (blur_rg_pad): an item's window, read as
+    4-byte pairs from the even column at or below g0 + SLICE_PAD - re, and
+    its 2re + SLICE_RR source rows lie in the plane's padded rows and row
+    pitch, and output (r0 + i, g0 + j) reads source (r0 + i - dr, g0 + j -
+    dg) for every tap (the kernel's index arithmetic, mirrored)."""
+    pad, rr_n, seg = CK.SLICE_PAD, CK.SLICE_RR, CK.STEP_SEG
+    off = pad - re
+    sh = off & 1
+    win = seg + 2 * re
+    npairs = (sh + win + 1) // 2
+    for nc in SLICE_NC + (28,):
+        ncp = CK.step_ncp(nc)
+        prow = -(-nc // rr_n) * rr_n + 2 * pad
+        pitch = ncp + 2 * pad
+        assert (off - sh) % 2 == 0 and pitch % 2 == 0
+        for g0 in range(0, ncp, seg):
+            first = g0 + off - sh
+            assert first >= 0 and first + 2 * npairs <= pitch
+            for j in (0, seg - 1):
+                for dg in (-re, re):
+                    k = sh + j - dg + re          # the window's element
+                    assert 0 <= k < 2 * npairs
+                    assert first + k == g0 + j - dg + pad
+        for r0 in range(0, nc, rr_n):
+            rows = [r0 + rr_n - 1 + re - q + pad
+                    for q in range(rr_n + 2 * re)]
+            assert min(rows) >= 0 and max(rows) < prow
+            for i in range(rr_n):
+                for q in range(rr_n + 2 * re):
+                    dr = i + q - (rr_n - 1) - re
+                    if -re <= dr <= re:
+                        assert rows[q] - pad == r0 + i - dr
+
+
+def test_slice_plan_at_the_configs():
+    """FAITHFUL_CONFIG's XLA engine at 512x512 (49 cells of 80x80, nc 21):
+    the norm pass splits each cell's pixels two ways (98 blocks, one an
+    SM); an iteration's 21 labels in 6 groups of 4, 294 blocks, 2 labels a
+    blur round, each corner's labels one 8-byte load.  PRODUCTION_CONFIG
+    (nc 15): the same groups.  Grids past the padded form's room (nc 29 and
+    30, the largest the parent's grid blur took) take the compact form, one
+    label a group."""
+    p1 = CK.slice_plan(49, 6400, 1, 21)
+    assert (p1.lg, p1.groups, p1.splits) == (1, 1, 2)
+    p = CK.slice_plan(49, 6400, 21, 21)
+    assert (p.lg, p.groups, p.lb, p.lgp, p.pad, p.splits) == (
+        4, 6, 2, 4, True, 1)
+    q = CK.slice_plan(49, 6400, 21, 15)
+    assert (q.lg, q.groups, q.lb, q.lgp, q.pad) == (4, 6, 2, 4, True)
+    for nc in (29, 30):
+        big = CK.slice_plan(49, 6400, 21, nc)
+        assert big.lg == 1 and not big.pad and big.smem <= LIMIT
+
+
+def _pass_heights():
+    """Cell heights of the plane engine: CellPlan's at sxy_bilateral 80
+    (40-80 rows, test_blur_plan_fits_every_cell_height), 16 (sxy 16), 32
+    (resolution_scale 2), and taller cells of larger sxy_bilateral up to
+    256."""
+    return sorted(set(range(40, 81)) | {16, 32, 96, 128, 160, 256})
+
+
+PASS_HEIGHTS = _pass_heights()
+
+
+@pytest.mark.parametrize("y_pass", [True, False])
+@pytest.mark.parametrize("cs_x", [128, 40, 36])
+def test_pass_plan_fits_and_covers_each_output_once(y_pass, cs_x):
+    """Radii 17-128 (and the main path's 8) at every height that admits
+    them: the tile fits and is the plan's; strips and label groups cover
+    every row and label once; each thread round covers the items (y:
+    column pairs by PASS_RY rows; x: 8 outputs of a row) once; every value
+    an item reads lies in the staged tile, and output j reads tap k at the
+    cell position j + k - r (the kernels' index arithmetic, mirrored)."""
+    for n in [17] + list(range(35, 258, 2)):
+        r = n // 2
+        for cs_y in PASS_HEIGHTS:
+            if r > min(cs_y, cs_x):
+                continue
+            for B, L in ((8, 21), (1, 3)):
+                p = CK.pass_plan(B, 5, 4, cs_y, cs_x, L, n, y_pass)
+                assert p.smem == CK.pass_smem(p.ty, cs_x, n, y_pass) <= LIMIT
+                assert p.threads % 32 == 0
+                assert 32 <= p.threads <= CK.PASS_MAX_THREADS
+                rows = [y for s in range(p.strips) for y in
+                        range(s * p.ty, s * p.ty + min(p.ty, cs_y - s * p.ty))]
+                assert rows == list(range(cs_y))
+                labels = [l for g in range(p.groups)
+                          for l in range(g * p.lg, min(L, (g + 1) * p.lg))]
+                assert labels == list(range(L))
+                if p.strips > 1:
+                    assert p.smem + 8 * cs_x > LIMIT or y_pass
+            cx = -(-cs_x // 8) * 8
+            if y_pass:
+                ty = p.ty
+                staged = -(-ty // CK.PASS_RY) * CK.PASS_RY + 2 * r
+                segs = -(-ty // CK.PASS_RY)
+                # item (cp, seg) reads tile rows seg*RY + m, m < RY + n - 1
+                assert (segs - 1) * CK.PASS_RY + CK.PASS_RY + n - 2 < staged
+                assert 2 * (-(-cs_x // 2)) <= cx
+            else:
+                halo = CK.pass_halo(n)
+                assert r <= halo < r + 8 and halo % 8 == 0
+                wp = cx + 2 * halo
+                d = halo - r
+                nw = (d + n + 6) // 8 + 1
+                for x0 in range(0, cx, 8):
+                    assert x0 + 8 * nw <= wp
+                    for j in (0, 7):
+                        for k in (0, n - 1):
+                            t = x0 + d + j + k      # tile index read
+                            assert 0 <= t < wp
+                            assert t - halo == x0 + j + k - r
+
+
+def test_pass_plan_at_voc_and_wide_gaussians():
+    """The passes' geometry: whole 75-row VOC cells, labels in groups that
+    give four blocks an SM (gn staged once a group); r = 20 at 512x512 in
+    64x128 cells; r = 128 on 128x128 cells splits the y pass's tile into
+    strips, the x pass's fits whole."""
+    y = CK.pass_plan(8, 5, 4, 75, 128, 21, 17, True)
+    x = CK.pass_plan(8, 5, 4, 75, 128, 21, 17, False)
+    assert (y.ty, y.strips, x.ty, x.strips) == (75, 1, 75, 1)
+    assert y.BZ * y.groups >= CK.PASS_SLOTS and y.lg > 1
+    w = CK.pass_plan(8, 8, 4, 64, 128, 21, 41, True)
+    assert (w.ty, w.strips) == (64, 1)
+    big = CK.pass_plan(1, 4, 4, 128, 128, 21, 257, True)
+    assert big.strips > 1 and big.ty == -(-128 // big.strips)
+    assert CK.pass_plan(1, 4, 4, 128, 128, 21, 257, False).strips == 1
 
 
 # ---------------------------------------------------------------------------

@@ -45,12 +45,17 @@ to each other bit for bit, at both strides, both unary forms and both
 dispatches; a launch that fails or a plan the launcher rejects raises.
 
 The spatial blur's y and x passes against their plain versions (2 bf16
-ulps; both sum the taps in the same order and should agree bit for bit) at
-the VOC cell heights 75, 50 and 72, radii 20 and 32, ragged label counts and
-both forms of gn; ``gaussian_blur_planes`` dispatching to the row kernel or
-to the two passes, read off the launch counters; and the CRF at a VOC
-geometry, at ``resolution_scale`` 2 and at the notebook's sxy 16, each with
-exact launch counts.
+ulps) at the VOC cell heights 75, 50 and 72, radii 20 and 32, ragged label
+counts and both forms of gn, and bit for bit (both sum the taps in tap
+order with exact products) at radii 8 to 128; the row kernel bit for bit
+against the chained plain passes at every odd tap count and at the VOC
+cell heights; ``gaussian_blur_planes`` dispatching to the row kernel (radii
+up to 16, gn (Z, 1, P), any cell height) or to the two passes, read off the
+launch counters; ``slice_planes`` against its plain version (2 bf16 ulps)
+over both engine grid sizes, the norm pass's and the iterations' label
+counts and ragged cells, and bit for bit against itself with every launch
+form forced; and the CRF at a VOC geometry, at ``resolution_scale`` 2 and
+at the notebook's sxy 16, each with exact launch counts.
 """
 
 import dataclasses
@@ -434,11 +439,14 @@ def test_blur_passes_match_reference(cuda, shape):
                             ("gaussian_blur_x_planes", x, x_ref)):
         err, ok = CK.max_err_vs_plain(name, got, want)
         assert ok, (name, shape, err)
-    # the dispatch: two passes, no row kernel
+    # the dispatch: the row kernel where its radius and gn form fit (the
+    # VOC heights at r = 8, any height), else the two passes
+    rows = CK.row_kernel_fits(kw["taps"], kw["cs_x"], shape[-1])
     before = _blur_counts()
     out = CK.gaussian_blur_planes(q, gn, **kw)
     torch.cuda.synchronize()
-    assert _blur_counts() == (before[0], before[1] + 1, before[2] + 1)
+    assert _blur_counts() == ((before[0] + 1, before[1], before[2]) if rows
+                              else (before[0], before[1] + 1, before[2] + 1))
     err, ok = CK.max_err_vs_plain(
         "gaussian_blur_planes", out,
         CK.gaussian_blur_planes_reference(q, gn, **kw))
@@ -448,7 +456,7 @@ def test_blur_passes_match_reference(cuda, shape):
 @pytest.mark.gpu
 def test_row_kernel_where_its_geometry_fits(cuda):
     q, gn, kw = _blur_case(cuda, 2, 2, 2, 64, 128, 7, 3.0, False)
-    assert CK.row_kernel_fits(kw["taps"], 64)
+    assert CK.row_kernel_fits(kw["taps"], 128)
     before = _blur_counts()
     out = CK.gaussian_blur_planes(q, gn, **kw)
     torch.cuda.synchronize()
@@ -492,6 +500,140 @@ def test_blur_pass_wrappers_raise_instead_of_falling_back(cuda):
     assert _blur_counts() == before
 
 
+# (B, ny, nx, cs_y, cs_x, L, taps, gn per image): radii 17, 20, 32 and 64
+# (the generic instantiation, and r = 20's own), r = 8 (17 taps, generic)
+# with gn per cell, a ragged L, both forms of gn, a width that is not a
+# multiple of 8 (element-wise staging and stores), 128-row cells that the
+# y pass splits into strips at r = 128
+PASS_CASES = [(2, 2, 2, 64, 128, 5, 35, False), (2, 2, 2, 64, 128, 7, 41, True),
+              (1, 2, 2, 64, 128, 3, 65, False), (2, 1, 2, 80, 128, 3, 129, True),
+              (2, 5, 4, 75, 128, 21, 17, True), (2, 2, 3, 48, 36, 3, 35, False),
+              (1, 2, 2, 128, 128, 2, 257, False),
+              (8, 8, 4, 64, 128, 21, 41, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PASS_CASES)
+def test_blur_passes_equal_their_plain_versions(cuda, case):
+    """Each redesigned pass sums its taps in tap order with exact products,
+    as its plain version: equal bit for bit (the x pass on the y pass's
+    plain output, so both sides take the same input)."""
+    B, ny, nx, cs_y, cs_x, L, n, per_image = case
+    taps = _taps(n)
+    r = np.random.RandomState(9)
+    Z, P = ny * nx, cs_y * cs_x
+    q = torch.from_numpy(r.rand(B * Z, L, P).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    gn = torch.from_numpy(0.5 + r.rand(B * Z if per_image else Z, 1, P)
+                          .astype(np.float32)).to(cuda)
+    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+    before = _blur_counts()
+    y = CK.gaussian_blur_y_planes(q, gn, **kw)
+    y_ref = CK.gaussian_blur_y_planes_reference(q, gn, **kw)
+    x = CK.gaussian_blur_x_planes(y_ref, **kw)
+    x_ref = CK.gaussian_blur_x_planes_reference(y_ref, **kw)
+    torch.cuda.synchronize()
+    assert _blur_counts() == (before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(y, y_ref), (y.float() - y_ref.float()).abs().max()
+    assert torch.equal(x, x_ref), (x.float() - x_ref.float()).abs().max()
+
+
+def _slice_case(cuda, nc, L, Z, P, seed=10):
+    """Seeded XLA-engine inputs of slice_planes: rgb planes 0-255 and a
+    z-blurred f32 grid of the splat's magnitude; the color taps and step of
+    the config with that grid size."""
+    cfg = CRF.FAITHFUL_CONFIG if nc == 21 else CRF.PRODUCTION_CONFIG
+    ctaps = tuple(float(t) for t in CRF.dense_crf._cfg_color_taps(cfg))
+    r = np.random.RandomState(seed)
+    rgb = torch.from_numpy((r.rand(Z, 3, P) * 255).astype(np.float32))
+    grid = torch.from_numpy((r.rand(Z, nc * L, nc * nc) * 40)
+                            .astype(np.float32))
+    kw = dict(nc=nc, L=L, inv_step=1.0 / (cfg.srgb * cfg.color_step),
+              ctaps=ctaps)
+    return rgb.to(cuda), grid.to(cuda), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", [15, 21])
+@pytest.mark.parametrize("L", [1, 2, 5, 21])
+@pytest.mark.parametrize("Z,P", [(49, 6400), (1, 6400), (1, 225),
+                                 (4, 256)])
+def test_slice_planes_sweep(cuda, nc, L, Z, P):
+    """The fused slice_planes against its plain version (2 bf16 ulps of
+    the largest value) at both engine grid sizes, the label counts of the
+    norm pass and the iterations, one cell and an image's 49, and ragged
+    cells (15x15, 16x16)."""
+    rgb, grid, kw = _slice_case(cuda, nc, L, Z, P)
+    before = CK.slice_planes.launches
+    got = CK.slice_planes(rgb, grid, **kw)
+    want = CK.slice_planes_reference(rgb, grid, **kw)
+    torch.cuda.synchronize()
+    assert CK.slice_planes.launches == before + 1
+    err, ok = CK.max_err_vs_plain("slice_planes", got, want)
+    assert ok, (nc, L, Z, P, err, CK.slice_plan(Z, P, L, nc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", [15, 21])
+def test_slice_planes_every_form_and_group_size(cuda, monkeypatch, nc):
+    """Every block form of slice_plan (S padded or not), every label group
+    size and one or two of its labels a blur round, where they fit, forced:
+    outputs equal the plan's bit for bit (one blur order, one slice order)
+    and within tolerance of the plain version."""
+    L, Z, P = 5, 3, 6400
+    rgb, grid, kw = _slice_case(cuda, nc, L, Z, P, seed=11)
+    want = CK.slice_planes(rgb, grid, **kw)
+    plain = CK.slice_planes_reference(rgb, grid, **kw)
+    real = CK.slice_plan(Z, P, L, nc)
+    for lg in range(1, L + 1):
+        for lb in range(1, min(lg, CK.SLICE_LB) + 1):
+            for pad in (True, False):
+                smem = CK.slice_smem(nc, L, lg, lb, pad)
+                if smem > CK.BLUR_SMEM_LIMIT:
+                    continue
+                plan = dataclasses.replace(
+                    real, lg=lg, groups=-(-L // lg), lb=lb,
+                    lgp=CK.slice_lgp(lg), pad=pad, splits=2, smem=smem)
+                monkeypatch.setattr(CK, "slice_plan", lambda *a, p=plan: p)
+                got = CK.slice_planes(rgb, grid, **kw)
+                torch.cuda.synchronize()
+                monkeypatch.undo()
+                assert torch.equal(got, want), (lg, lb, pad)
+    err, ok = CK.max_err_vs_plain("slice_planes", want, plain)
+    assert ok, err
+
+
+@pytest.mark.gpu
+def test_slice_and_passes_raise_instead_of_falling_back(cuda, monkeypatch):
+    """A plan the launcher does not reproduce raises; the counts do not
+    move and no plain version runs in the kernel's place."""
+    rgb, grid, kw = _slice_case(cuda, 15, 5, 2, 256)
+    real = CK.slice_plan(2, 256, 5, 15)
+    monkeypatch.setattr(CK, "slice_plan", lambda *a: dataclasses.replace(
+        real, smem=real.smem + 16))
+    before = CK.slice_planes.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CK.slice_planes(rgb, grid, **kw)
+    assert CK.slice_planes.launches == before
+    q, gn, bkw = _blur_case(cuda, 1, 2, 2, 64, 128, 3, 8.0, False)
+    for wrong in ("ty", "threads"):
+        for y_pass in (True, False):
+            real = CK.pass_plan(1, 2, 2, 64, 128, 3, len(bkw["taps"]),
+                                y_pass)
+            bad = dataclasses.replace(
+                real, **{wrong: getattr(real, wrong) + (1 if wrong == "ty"
+                                                        else 16)})
+            monkeypatch.setattr(CK, "pass_plan", lambda *a: bad)
+            before = _blur_counts()
+            with pytest.raises(RuntimeError, match="launch failed"):
+                if y_pass:
+                    CK.gaussian_blur_y_planes(q, gn, **bkw)
+                else:
+                    CK.gaussian_blur_x_planes(q, **bkw)
+            assert _blur_counts() == before
+    monkeypatch.undo()
+
+
 def _taps(n):
     r = n // 2
     t = np.exp(-0.5 * ((np.arange(n) - r) / (0.4 * r + 0.5)) ** 2)
@@ -499,11 +641,15 @@ def _taps(n):
 
 
 # (B, ny, nx, cs_y, cs_x, L, taps): every odd tap count on 64x128 cells;
-# cell heights 16, 48 and 128 with a ragged L; widths that are not a
-# multiple of 8 (elementwise staging, 4 outputs a thread); the production
-# input (8, 512, 512) at L = 21
+# cell heights 16, 48 and 128 with a ragged L; the VOC cell heights 75
+# (375 rows), 50 (500), 72 (360) and 60 at r = 8 with gn (Z, 1, P), heights
+# that are not a multiple of the y pass's 16-row windows; widths that are
+# not a multiple of 8 (elementwise staging, 4 outputs a thread); the
+# production input (8, 512, 512) at L = 21
 ROW_BLUR_CASES = ([(2, 2, 2, 64, 128, 5, n) for n in range(3, 34, 2)]
                   + [(2, 3, 2, cs, 128, 7, 17) for cs in (16, 48, 128)]
+                  + [(2, 5, 4, 75, 128, 21, 17), (2, 10, 3, 50, 128, 7, 17),
+                     (1, 5, 4, 72, 128, 21, 17), (2, 2, 3, 60, 128, 5, 17)]
                   + [(2, 2, 3, 32, 36, 3, 9), (1, 2, 2, 48, 40, 4, 17)]
                   + [(8, 8, 4, 64, 128, 21, 17)])
 
@@ -516,7 +662,7 @@ def test_row_kernel_equals_the_chained_passes(cuda, case):
     existing tolerance of the fused plain version (F.conv2d's order)."""
     B, ny, nx, cs_y, cs_x, L, n = case
     taps = _taps(n)
-    assert CK.row_kernel_fits(taps, cs_y)
+    assert CK.row_kernel_fits(taps, cs_x)
     r = np.random.RandomState(8)
     Z, P = ny * nx, cs_y * cs_x
     q = torch.from_numpy(r.rand(B * Z, L, P).astype(np.float32)).to(
@@ -543,8 +689,8 @@ def _crf_counts():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg,H,W,L,blur", [
-    # cs_y = 75: 5 y and 5 x passes, no row kernel
-    (CRF.PRODUCTION_CONFIG, 150, 200, 11, "passes"),
+    # cs_y = 75: the row kernel, no y or x pass
+    (CRF.PRODUCTION_CONFIG, 150, 200, 11, "rows"),
     # 32x40 cells at half resolution: the image-layout blur, no blur kernel
     (dataclasses.replace(CRF.PRODUCTION_CONFIG, resolution_scale=2), 128,
      256, 21, "image"),
@@ -570,7 +716,8 @@ def test_crf_geometries_match_reference(cuda, cfg, H, W, L, blur):
     n = cfg.n_iters
     passes = n if blur == "passes" else 0
     assert moved == {"splat_planes": n + 1, "slice_attrs_planes": 1,
-                     "gaussian_blur_planes": 0, "mf_step_planes": n,
+                     "gaussian_blur_planes": n if blur == "rows" else 0,
+                     "mf_step_planes": n,
                      "gaussian_blur_y_planes": passes,
                      "gaussian_blur_x_planes": passes}, moved
     assert got.shape == masks.shape
