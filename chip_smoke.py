@@ -72,9 +72,11 @@ Phases, each of which fails the run (exit code 1, no result line):
    float32) with its peak device memory, and a ``torch.profiler`` table of
    the bf16 step;
 8. the evaluation slice: ``fused_dw_bn_relu6`` (MobileNetV2 block 0, one
-   launch per forward beside the 14 ``fused_mbconv``) against its plain
-   version at block 0's shape, 64x64x384 at rate 2 and a ragged shape, under
-   "mixed" and bf16; ``slice_planes`` and the f32 splat against their plain
+   launch per forward beside the 14 ``fused_mbconv``) equal bit for bit to
+   its plain version at block 0's maps of 512x512, 384x384, 640x640 and
+   375x500 requests, 64x64x384 at rate 2, a C that is not a multiple of 4
+   and a ragged map, under "mixed" and bf16; ``slice_planes`` and the f32
+   splat against their plain
    versions on every call of the XLA engine's 512x512 ``mean_field`` at
    ``FAITHFUL_CONFIG`` and ``PRODUCTION_CONFIG``; the notebook CRF:
    ``do_crf`` per 512x512 image with 2, 5 and 21 sparse label ids,
@@ -111,8 +113,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    directly on the same input, each beside its bound, its plain version and
    one depthwise ``F.conv2d``, the passes also at r = 20 on (8, 512, 512)
    in 64x128 cells, ``mean_field_batched`` per (8, 375, 500) batch, and
-   production end to end at ``resolution_scale`` 2, B=16.
+   production end to end at ``resolution_scale`` 2, B=16;
+10. the serving surface: ``Predictor(net, crf=PRODUCTION_CONFIG, "mixed",
+   tta_scales=(0.75, 1.0, 1.25), tta_flip=True)`` serves 2 requests of 8
+   (seeded scenes, then seeded noise; per request fused_dw 6, fused_mbconv
+   84, splat 6, slice_attrs 1, blur 5, mf_step 5), its raw and refined
+   labels against the same run with every plain version in its kernel's
+   place; one Xception TTA request (fused_sepconv 390);
+   ``serve._Dispatcher`` over
+   ``Predictor(net, crf=PRODUCTION_CONFIG, "mixed")`` (max_batch 16,
+   max_wait 5 ms) takes 128 requests from 32 client threads: exact launch
+   counts per device call, the model on the dispatcher's thread only, in
+   inference mode, on that thread's current stream, each mask against a
+   direct call on its image, the histogram of device batch sizes; one round
+   trip through ``BatchingServer`` over HTTP where PIL imports; TTA ms per
+   B=8 request and the dispatcher's requests/s and p50/p99 latency.
 
+``python3 chip_smoke.py --dw`` holds ``fused_dw_bn_relu6`` bit for bit to
+its plain version at phase 8's shapes and times it there (events, device
+time in a CUDA graph, beside its bound, its plain version and a copy of x);
+public API only, so a copy run from a parent checkout times the parent's
+kernel; where ``dw_plan`` exists it also times every strip width and chunk
+the plan may choose at block 0's shape.
 ``python3 chip_smoke.py --plan-sweep`` times instead every tile and chunk
 that ``fused_mbconv``'s launch plan may choose at each main-path block shape
 (the data its cost model is fitted to) and exits.  ``--crf-scenes`` times
@@ -259,16 +281,35 @@ TRAIN_LOSS_DROP = 0.10
 # percentile, worst) may be no larger than the composition's.
 TRAIN_LOSS_REL, TRAIN_BN_REL = 1e-2, 1e-2
 
-# fused_dw_bn_relu6 against its plain version, relative to the largest
-# output: both sum the 9 taps in f32 in the same order with the same
-# roundings and should agree bit for bit; the bounds are those of a
-# summation-order difference (f32 outputs) and one flipped bf16 rounding
-# (bf16 outputs, 2 ulps)
+# fused_dw_bn_relu6 against its plain version: both sum the 9 taps in f32
+# in the same order with the same roundings and must agree bit for bit;
+# the relative bounds, printed beside, are those of a summation-order
+# difference (f32 outputs) and one flipped bf16 rounding (bf16, 2 ulps)
 DW_REL_TOL = {"mixed": 1e-5, "bfloat16": 2 * 2.0 ** -8}
-# (B, H, W, C, rate): block 0 at 512x512 and the served batch, the JAX
-# kernel's documented shape, and a ragged one
-DW_SHAPES = ((SERVE_B, 256, 256, 32, 1), (SERVE_B, 64, 64, 384, 2),
+# rows a block that ``--dw`` forces at block 0's shape
+DW_SWEEP_ROWS = (8, 16, 32, 48, 64, 96, 128)
+# (B, H, W, C, rate) at which fused_dw_bn_relu6 must equal its plain
+# version bit for bit: block 0 of the served batch at 512x512 and at the
+# test-time augmentation's 384x384 and 640x640, at VOC's 375x500, the JAX
+# kernel's documented shape, a C that is not a multiple of 4, a ragged map
+DW_SHAPES = ((SERVE_B, 256, 256, 32, 1), (SERVE_B, 192, 192, 32, 1),
+             (SERVE_B, 320, 320, 32, 1), (SERVE_B, 188, 250, 32, 1),
+             (SERVE_B, 64, 64, 384, 2), (2, 20, 36, 7, 1),
              (2, 37, 53, 24, 4))
+# the serving surface: test-time augmentation at 384, 512 and 640 (the
+# twins' block-0 maps 192, 256, 320), with flips, through the production
+# CRF: per request 6 forwards of 1 + 14 model launches and one CRF run; the
+# Xception net's 6 forwards of 65 fused_sepconv launches
+TTA_SCALES, TTA_REQUESTS = (0.75, 1.0, 1.25), 2
+TTA_PER_REQUEST = {"fused_dw_bn_relu6": 6, "fused_mbconv": 84,
+                   "splat_planes": 6, "slice_attrs_planes": 1,
+                   "gaussian_blur_planes": 5, "mf_step_planes": 5}
+TTA_XCEPTION_SEPCONV = 390
+# the dispatcher under load: requests from client threads, its gather
+# limits, and each mask against a direct Predictor call on its image
+# (a different batch composition: cuDNN may choose other algorithms)
+DISPATCH_CLIENTS, DISPATCH_REQUESTS = 32, 128
+DISPATCH_MAX_BATCH, DISPATCH_WAIT_MS, DISPATCH_FLOOR = 16, 5.0, 0.99
 # the notebook CRF: label counts of the 512x512 do_crf scenes; the oracle
 # floors of tests/test_crf_goldens.py for do_crf at CrfConfig() and
 # FAST_FAITHFUL_CONFIG (the latter is CRF_PATH_FLOOR's neighbour above)
@@ -737,6 +778,110 @@ def dw_bound_ms(x):
     nbytes = 2 * x.numel() * x.element_size() + 4 * 11 * x.shape[-1]
     t_b, t_o = nbytes / HBM_BYTES_S, 20 * x.numel() / F32_FLOP_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def dw_inputs(shape, dtype, gen, dev):
+    """Seeded (x, taps, scale, shift) of one fused_dw_bn_relu6 launch."""
+    B, H, W, C, _ = shape
+    x = torch.randn((B, H, W, C), generator=gen, device=dev)
+    k = 0.3 * torch.randn((3, 3, C, 1), generator=gen, device=dev)
+    scale = 1 + 0.2 * torch.randn(C, generator=gen, device=dev)
+    shift = 0.5 * torch.randn(C, generator=gen, device=dev)
+    return x.to(dtype), k, scale, shift
+
+
+def dw_times(card) -> int:
+    """``--dw``: ``fused_dw_bn_relu6`` held bit for bit to its plain version
+    at every DW_SHAPES entry, f32 and bf16, and timed there (CUDA events,
+    and device time in a CUDA graph) beside its bound, its plain version and
+    a copy of x (the bytes' yardstick: one read and one write of x).  Public
+    API only, so a copy of this file run from a parent checkout times the
+    parent's kernel.  Where the checkout has ``dw_plan``, every strip width
+    and channel chunk the plan may choose is also forced and timed at block
+    0's shape (the data its cost model is judged by).  Returns 1 if a shape
+    disagrees."""
+    from deeplab_tpu_torch.kernels import build
+    from deeplab_tpu_torch.kernels import fused_dw as FDW
+    for kern, info in ptxas_table(build.build(["fused_dw"])["fused_dw"]):
+        print(f"  [fused_dw] {kern}: {info}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    plan_of = getattr(FDW, "dw_plan", None)
+    bad = 0
+
+    def one(x, k, scale, shift, rate):
+        return FDW.fused_dw_bn_relu6(x, k, scale, shift, rate=rate)
+
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            for shape in DW_SHAPES:
+                rate = shape[-1]
+                x, k, scale, shift = dw_inputs(shape, dt, gen, dev)
+                got = one(x, k, scale, shift, rate)
+                ref = FDW.fused_dw_bn_relu6_reference(x, k, scale, shift,
+                                                      rate=rate)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                bad += not same
+                ms = cuda_ms(lambda: one(x, k, scale, shift, rate), 50)
+                dms = graph_ms(lambda: one(x, k, scale, shift, rate))
+                plain = cuda_ms(lambda: FDW.fused_dw_bn_relu6_reference(
+                    x, k, scale, shift, rate=rate), 5, warmup=1)
+                copy = graph_ms(lambda: x.clone())
+                bms, bb = dw_bound_ms(x)
+                plan = (plan_of(*shape[:4], rate, dt, FDW.dw_vec(
+                    shape[3], x.element_size())) if plan_of else None)
+                print(f"  dw {str(dt)[6:]:8s} {shape}: "
+                      f"{'bit for bit' if same else 'DIFFERS'}; kernel "
+                      f"{ms:.4f} ms, device {dms:.4f}, plain {plain:.4f}, "
+                      f"copy of x {copy:.4f}, bound {bms:.4f} ({bb}), "
+                      f"{bms / dms:.3f} of bound; plan {plan} [{card}]",
+                      flush=True)
+        if plan_of:
+            shape = DW_SHAPES[0]
+            B, H, W, C, _ = shape
+            for dt in (torch.float32, torch.bfloat16):
+                x, k, scale, shift = dw_inputs(shape, dt, gen, dev)
+                ref = FDW.fused_dw_bn_relu6_reference(x, k, scale, shift)
+                esize = x.element_size()
+                vec = FDW.dw_vec(C, esize)
+                chosen = plan_of(B, H, W, C, 1, dt, vec)
+                mine = (chosen.sw, chosen.cv, chosen.th, chosen.prefetch)
+                rows = []
+                try:
+                    for sw, cv, th, pf in itertools.product(
+                            FDW.DW_STRIPS, (16, 8, 4, 2), DW_SWEEP_ROWS,
+                            (1, 2, 4)):
+                        threads = sw * cv
+                        if (cv > C // vec or (C // vec) % cv
+                                or not 64 <= threads <= FDW.DW_MAX_THREADS):
+                            continue
+                        smem = FDW.dw_smem(1, sw, cv, vec, esize, pf)
+                        plan = dataclasses.replace(
+                            chosen, sw=sw, th=th, cv=cv, prefetch=pf,
+                            threads=threads, smem=smem,
+                            strips_x=-(-W // sw), strips_y=-(-H // th),
+                            chunks=C // vec // cv, est=0.0)
+                        FDW.dw_plan = lambda *a, plan=plan, **kw: plan
+                        got = one(x, k, scale, shift, 1)
+                        same = torch.equal(got, ref)
+                        bad += not same
+                        dms = graph_ms(lambda: one(x, k, scale, shift, 1))
+                        rows.append((dms, sw, cv, th, pf))
+                        tag = " (the plan)" if rows[-1][1:] == mine else ""
+                        print(f"  dw sweep {shape} {str(dt)[6:]} sw {sw} cv "
+                              f"{cv} th {th} prefetch {pf}: device "
+                              f"{dms:.4f} ms{'' if same else ' DIFFERS'}"
+                              f"{tag}", flush=True)
+                finally:
+                    FDW.dw_plan = plan_of
+                best = min(rows)
+                print(f"  dw sweep {str(dt)[6:]}: best {best[0]:.4f} ms at "
+                      f"sw {best[1]} cv {best[2]} th {best[3]} prefetch "
+                      f"{best[4]}; the plan sw {chosen.sw} cv {chosen.cv} th "
+                      f"{chosen.th} prefetch {chosen.prefetch}", flush=True)
+    print(card)
+    return 1 if bad else 0
 
 
 def sparse_mask(mask, n_labels, seed):
@@ -1316,6 +1461,8 @@ def main() -> int:
         return 2
     if "--plan-sweep" in sys.argv[1:]:
         return plan_sweep()
+    if "--dw" in sys.argv[1:]:
+        return dw_times(card_line())
     if "--crf-fallbacks" in sys.argv[1:]:
         from deeplab_tpu_torch.kernels import build
         card = card_line()
@@ -1385,6 +1532,7 @@ def main() -> int:
     crf_report = {n: {"max_abs_err": 0.0} for n in CRF_KERNELS}
     crf_b8 = {}
     dw_report = {}
+    serving = {}
     notebook = {}
     geo = {}
 
@@ -1483,12 +1631,9 @@ def main() -> int:
         worst = 0.0
         for pol_name in ("mixed", "bfloat16"):
             dt = core.resolve_compute_dtype(pol_name).dtype
-            for B, H, W, C, rate in DW_SHAPES:
-                x = torch.randn((B, H, W, C), generator=gen, device=dev)
-                k = 0.3 * torch.randn((3, 3, C, 1), generator=gen, device=dev)
-                scale = 1 + 0.2 * torch.randn(C, generator=gen, device=dev)
-                shift = 0.5 * torch.randn(C, generator=gen, device=dev)
-                x = x.to(dt)
+            for shape in DW_SHAPES:
+                B, H, W, C, rate = shape
+                x, k, scale, shift = dw_inputs(shape, dt, gen, dev)
                 got = FDW.fused_dw_bn_relu6(x, k, scale, shift, rate=rate)
                 ref = FDW.fused_dw_bn_relu6_reference(x, k, scale, shift,
                                                       rate=rate)
@@ -1497,10 +1642,13 @@ def main() -> int:
                 scale_ = ref.float().abs().max().item()
                 rel = err / max(scale_, 1e-30)
                 tol = DW_REL_TOL[pol_name]
-                ok = math.isfinite(err) and got.dtype == dt and rel <= tol
+                same = torch.equal(got, ref)
+                ok = (math.isfinite(err) and got.dtype == dt and rel <= tol
+                      and same)
                 print(f"  {pol_name:8s} ({B}, {H}, {W}, {C}) rate {rate}: "
                       f"max_abs {err:.3e} max|ref| {scale_:.3e} rel "
-                      f"{rel:.3e} (tol {tol:.4g}) {'ok' if ok else 'FAIL'}")
+                      f"{rel:.3e} (tol {tol:.4g}), bit for bit {same} "
+                      f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"fused_dw_bn_relu6 disagrees at "
                                          f"{(B, H, W, C, rate)}")
@@ -1946,6 +2094,8 @@ def main() -> int:
         with torch.inference_mode():
             ms = cuda_ms(lambda: FDW.fused_dw_bn_relu6(xh, taps, scale,
                                                        shift), 50)
+            dms = graph_ms(lambda: FDW.fused_dw_bn_relu6(xh, taps, scale,
+                                                         shift))
             plain = cuda_ms(lambda: FDW.fused_dw_bn_relu6_reference(
                 xh, taps, scale, shift), 20)
             with core.precision_flags(pol):
@@ -1953,10 +2103,11 @@ def main() -> int:
                     getattr(net, p + "depthwise_BN")(
                         getattr(net, p + "depthwise")(x, pol))), 50)
         bms, bb = dw_bound_ms(xh)
-        dw_report.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bb,
-                         composition_ms=comp)
+        dw_report.update(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+                         bound_by=bb, composition_ms=comp)
         print(f"  fused_dw_bn_relu6 block 0, ({SERVE_B}, {SIZE // 2}, "
-              f"{SIZE // 2}, {C}) f32 io: kernel {ms:.4f} ms, plain "
+              f"{SIZE // 2}, {C}) f32 io: kernel {ms:.4f} ms (device "
+              f"{dms:.4f}), plain "
               f"{plain:.4f} ms, bound {bms:.4f} ms ({bb}), {bms / ms:.3f} "
               f"of bound; the layer composition (grouped conv, BN affine, "
               f"clamp, under mixed) {comp:.4f} ms [{card}]")
@@ -2520,6 +2671,185 @@ def main() -> int:
     run.phase("subpixel head: Predictor(SegNet(mobilenetv2, subpixel), mixed)",
               serve_subpixel)
 
+    # 10. the serving surface ---------------------------------------------
+    def tta_serving():
+        cfg = CRF.PRODUCTION_CONFIG
+        kw = dict(tta_scales=TTA_SCALES, tta_flip=True)
+        pred = Predictor(net, crf=cfg, compute_dtype="mixed",
+                         return_raw=True, **kw)
+        print(f"  twins {[m.sz for m in pred.twins]}, flips {pred.flips}")
+        # a batch of seeded scenes, then seeded noise (the scenes' smooth
+        # regions leave the averaged argmax few classes for the CRF to move)
+        gen = torch.Generator().manual_seed(SEED + 710)
+        reqs = [scene_batch(SERVE_B, SEED + 700, "cpu")[0].numpy()] + [
+            (torch.rand((SERVE_B, SIZE, SIZE, 3), generator=gen) * 255
+             ).numpy() for _ in range(TTA_REQUESTS - 1)]
+        zero_counts()
+        outs = [pred(r) for r in reqs]
+        got = counts()
+        want = {k: 0 for k in got}
+        want.update({n: k * TTA_REQUESTS for n, k in TTA_PER_REQUEST.items()})
+        print(f"  {TTA_REQUESTS} TTA requests of B={SERVE_B} with the CRF: "
+              f"launches {got} (want {want})")
+        assert got == want, (got, want)
+        with model_plain_versions(), CK.plain_versions():
+            plain = [pred(r) for r in reqs]
+        for (raw, ref), (p_raw, p_ref) in zip(outs, plain):
+            for m in (raw, ref):
+                assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
+                assert m.min() >= 0 and m.max() < CLASSES
+            a_raw = float((raw == p_raw).mean())
+            a_ref = float((ref == p_ref).mean())
+            print(f"  kernels vs plain versions: raw argmax {a_raw:.6f} "
+                  f"(floor {KERNEL_PATH_FLOOR}), CRF masks {a_ref:.6f} "
+                  f"(floor {CRF_PATH_FLOOR}); {len(np.unique(raw))} classes "
+                  f"present, the CRF changed {(raw != ref).mean():.6f} of "
+                  f"the pixels")
+            assert a_raw >= KERNEL_PATH_FLOOR and a_ref >= CRF_PATH_FLOOR
+        img = torch.from_numpy(reqs[0]).to(dev)
+        ms = cuda_ms(lambda: pred._run(img), 5, warmup=1)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pred(reqs[0])
+        host = (time.perf_counter() - t0) / 3 * 1e3
+        serving.update(tta_ms=ms, tta_host_ms=host)
+        print(f"  TTA {TTA_SCALES} x flip + CRF per B={SERVE_B} request: "
+              f"{ms:.3f} ms (CUDA events, on the card's input), {host:.3f} "
+              f"ms (host clock, numpy in and out) [{card}]")
+
+        xpred = Predictor(xc["net"], compute_dtype="mixed", **kw)
+        req = scene_batch(SERVE_B, SEED + 750, "cpu")[0].numpy()
+        zero_counts()
+        m = xpred(req)
+        got = counts()
+        want = {k: 0 for k in got}
+        want["fused_sepconv"] = TTA_XCEPTION_SEPCONV
+        print(f"  one Xception TTA request of B={SERVE_B}, model only: "
+              f"launches {got} (want {want})")
+        assert got == want, (got, want)
+        assert m.shape == (SERVE_B, SIZE, SIZE) and m.max() < CLASSES
+    run.phase("serving surface: Predictor(crf=PRODUCTION_CONFIG, mixed, "
+              "tta_scales, tta_flip)", tta_serving)
+
+    def dispatcher_load():
+        import collections
+        import threading
+        from deeplab_tpu_torch.serve import _Dispatcher
+        cfg = CRF.PRODUCTION_CONFIG
+        pred = Predictor(net, crf=cfg, compute_dtype="mixed")
+        base = scene_batch(DISPATCH_CLIENTS, SEED + 800, "cpu")[0].numpy()
+        n = DISPATCH_CLIENTS
+        imgs = [np.roll(base[i % n], 7 * (i // n), axis=1)
+                for i in range(DISPATCH_REQUESTS)]
+        direct = np.concatenate([
+            pred(np.stack(imgs[i:i + DISPATCH_MAX_BATCH]))
+            for i in range(0, DISPATCH_REQUESTS, DISPATCH_MAX_BATCH)])
+        b = 1
+        while b <= DISPATCH_MAX_BATCH:          # every bucket, warm
+            pred(np.stack(imgs[:b]))
+            b *= 2
+        seen, sizes = [], []
+        hook = net.Conv.register_forward_pre_hook(
+            lambda mod, args: seen.append((
+                threading.get_ident(), torch.is_inference_mode_enabled(),
+                torch.cuda.current_stream().cuda_stream)))
+
+        def pipeline(batch):
+            sizes.append(batch.shape[0])
+            return pred(batch)
+        d = _Dispatcher(pipeline, DISPATCH_MAX_BATCH, DISPATCH_WAIT_MS)
+        masks = [None] * DISPATCH_REQUESTS
+        lat = [0.0] * DISPATCH_REQUESTS
+
+        def client(c):
+            for i in range(c, DISPATCH_REQUESTS, DISPATCH_CLIENTS):
+                t = time.perf_counter()
+                masks[i] = d.submit(imgs[i])
+                lat[i] = (time.perf_counter() - t) * 1e3
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(DISPATCH_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            got = counts()
+        finally:
+            d.shutdown()
+            hook.remove()
+        calls = len(sizes)
+        want = {k: 0 for k in got}
+        want["fused_mbconv"] = FUSED_PER_FORWARD * calls
+        want["fused_dw_bn_relu6"] = calls
+        want.update({n: k * calls for n, k in CRF_PER_REQUEST.items()})
+        print(f"  {DISPATCH_REQUESTS} requests from {DISPATCH_CLIENTS} "
+              f"clients, max_batch {DISPATCH_MAX_BATCH}, max_wait "
+              f"{DISPATCH_WAIT_MS} ms: {calls} device calls, batch sizes "
+              f"{dict(sorted(collections.Counter(sizes).items()))}; "
+              f"launches {got} (want {want})")
+        assert got == want, (got, want)
+        threads_seen = {r[0] for r in seen}
+        modes = sorted({r[1] for r in seen})
+        print(f"  the model ran on threads {threads_seen} (the dispatcher's "
+              f"{d.thread.ident}), inference mode {modes}, streams "
+              f"{sorted({r[2] for r in seen})}")
+        assert threads_seen == {d.thread.ident} and len(seen) == calls
+        assert all(r[1] for r in seen)
+        assert {r[2] for r in seen} == {torch.cuda.current_stream(
+            ).cuda_stream}
+        worst = min(float((m == direct[i]).mean())
+                    for i, m in enumerate(masks))
+        lat_s = sorted(lat)
+        p50 = lat_s[len(lat_s) // 2]
+        p99 = lat_s[min(len(lat_s) - 1, int(0.99 * len(lat_s)))]
+        serving.update(rps=DISPATCH_REQUESTS / wall, p50_ms=p50, p99_ms=p99,
+                       batches=dict(collections.Counter(sizes)))
+        print(f"  masks vs a direct Predictor call: worst agreement "
+              f"{worst:.6f} (floor {DISPATCH_FLOOR})")
+        print(f"  dispatcher at {DISPATCH_CLIENTS} clients: "
+              f"{DISPATCH_REQUESTS / wall:.1f} requests/s, latency p50 "
+              f"{p50:.1f} ms, p99 {p99:.1f} ms (host clock) [{card}]")
+        assert worst >= DISPATCH_FLOOR
+
+        try:
+            import PIL  # noqa: F401 -- a host decoder the card may lack
+        except ImportError:
+            print("  HTTP round trip: not run (PIL does not import here)")
+            return
+        import io
+        import urllib.request
+        from PIL import Image
+        from deeplab_tpu_torch.serve import BatchingServer, _decode_bgr
+        buf = io.BytesIO()
+        Image.fromarray(imgs[0][..., ::-1].astype(np.uint8)).save(
+            buf, format="PNG")
+        srv = BatchingServer(pred, (SIZE, SIZE), max_batch=DISPATCH_MAX_BATCH,
+                             max_wait_ms=DISPATCH_WAIT_MS)
+        port = srv.start(port=0)
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=buf.getvalue(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                mask = np.asarray(Image.open(io.BytesIO(r.read())))
+                classes = r.headers["X-Classes"]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=30) as r:
+                health = json.loads(r.read())
+        finally:
+            srv.stop()
+        want = pred(_decode_bgr(buf.getvalue(), (SIZE, SIZE))[None])[0]
+        a = float((mask == want).mean())
+        print(f"  HTTP round trip through BatchingServer: ran; mask "
+              f"{mask.shape}, classes {classes}, agreement with a direct "
+              f"call {a:.6f}; healthz {health['status']}")
+        assert mask.shape == (SIZE, SIZE) and a >= DISPATCH_FLOOR
+    run.phase("serving surface: _Dispatcher under load and BatchingServer "
+              "over HTTP", dispatcher_load)
+
     def xception_times():
         xnet = xc["net"]
         gen = torch.Generator(dev).manual_seed(SEED + 13)
@@ -3064,7 +3394,8 @@ def main() -> int:
         "max_abs_err": dw_report["max_abs_err"], "ms": dw_report["ms"],
         "plain_ms": dw_report["plain_ms"], "bound_ms": dw_report["bound_ms"],
         "bound_by": dw_report["bound_by"], "library_ms": None,
-        "composition_ms": dw_report["composition_ms"]}]
+        "composition_ms": dw_report["composition_ms"],
+        "device_ms": dw_report["device_ms"]}]
     for n in CRF_KERNELS:
         rep = crf_report[n]
         entry = {

@@ -1,2 +1,4 @@
-"""Host data pipeline (deeplab_tpu/data): in-memory batches and a prefetch
-thread.  The JPEG/PNG ``SegmentationGenerator`` is a later slice."""
+"""Host data pipeline (deeplab_tpu/data): in-memory batches, a prefetch
+thread, the image readers and the numpy resizes (``augment``).  The
+JPEG/PNG ``SegmentationGenerator`` and the augmentations are a later
+slice."""

@@ -1,5 +1,7 @@
-"""In-memory batches and a background prefetch thread (the port's copy of
-``ArrayBatcher`` and ``Prefetcher`` of deeplab_tpu/data/generator.py).
+"""In-memory batches, a background prefetch thread and the image readers
+(the port's copy of ``ArrayBatcher``, ``Prefetcher``, ``_imread_bgr`` and
+``_imread_gray`` of deeplab_tpu/data/generator.py; PIL is imported by the
+readers, never with the module).
 
 A batch is ``(X, Y, {"pred_mask": SW})``: X (b, H, W, 3) float BGR 0-255,
 Y (b, H*W, 1) labels (``n_classes`` is void), SW (b, H*W) per-pixel weights.
@@ -12,6 +14,26 @@ import threading
 from typing import Optional
 
 import numpy as np
+
+
+def _imread_bgr(path: str) -> np.ndarray:
+    """Read an image as uint8 BGR (the reference's cv2.imread contract,
+    utils.py:315).  PIL decodes; the channels are swapped to BGR."""
+    from PIL import Image
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB"))
+    return arr[..., ::-1].copy()
+
+
+def _imread_gray(path: str) -> np.ndarray:
+    """Read a label map as uint8 single channel (utils.py:316).  A
+    palettized PNG (the VOC label format) gives its palette indices, as
+    cv2.imread(path, 0) does on VOC SegmentationClassAug files."""
+    from PIL import Image
+    with Image.open(path) as im:
+        if im.mode in ("P", "L"):
+            return np.asarray(im.convert("L") if im.mode == "L" else im).copy()
+        return np.asarray(im.convert("L")).copy()
 
 
 class ArrayBatcher:

@@ -11,20 +11,31 @@
 // What bounds it on the H100.  18 f32 flops and 2 more per output value
 // against one value read and one written: 5 flops per byte in f32, far under
 // the card's ridge, so the bound is the bytes, (B*H*W*C) * (in + out) at
-// 3.35 TB/s.  A composition of a grouped conv, the affine and the clamp moves
-// the activation through device memory three times; the kernel reads it once
-// and writes it once.
+// 3.35 TB/s: 0.040 ms for MobileNetV2 block 0 of a B=8 512x512 request,
+// (8, 256, 256, 32) f32.
 //
-// Design (a simple kernel first): a block owns an 8 x 32 output tile of one
-// image and a chunk of up to 32 channels.  It stages its taps and affine, then
-// the input tile with its halo of `rate` pixels on each side (zero outside the
-// image) in shared memory, 4 channels a thread by 16-byte (f32) or 8-byte
-// (bf16) loads when C % 4 == 0 (one channel a thread otherwise), and then each
-// thread computes 4 (or 1) channels of one output pixel from shared memory.
-// Neighbouring threads take neighbouring channels, so loads and stores are
-// coalesced and the shared-memory reads are conflict-free.  The chunk shrinks
-// when a large rate's halo would not fit in shared memory.  Blocks are
-// independent and run in any order.
+// Design: a stencil that streams.  A block owns a strip of `sw` output
+// columns, `th` output rows and a chunk of `cv` vectors of channels (a
+// vector is 16 bytes where C allows: 4 f32 or 8 bf16 channels), and walks
+// down its rows.  Its input rows (the strip and a halo of `rate` columns on
+// each side, zero outside the image) pass through a ring of 2*rate + 1 +
+// `prefetch` rows in shared memory, filled by cp.async 16-byte copies with
+// zero fill: while output row y is computed from ring rows y, y + rate and
+// y + 2*rate (relative to the block's first input row), the copies of the
+// next `prefetch` input rows are in flight, so loads and arithmetic overlap
+// and each input byte of the strip is read from device memory once (the
+// halo columns and the th-row segments' 2*rate halo rows are re-read, from
+// L2 where neighbouring blocks run together).  One barrier a row.  A thread
+// owns one vector of channels of one column for the whole walk, so its 9
+// taps and the affine sit in registers, its ring reads are 16-byte and
+// conflict-free (a warp reads 512 contiguous bytes), and its stores are
+// 16-byte and coalesced.  No division per item: a thread's column and
+// vector are fixed, the ring slots advance with the row.
+//
+// The launch plan (strip width, rows a block, channel chunk, prefetch depth,
+// threads and shared memory) is decided in plain Python by
+// kernels/fused_dw.py::dw_plan and checked here; the grid is (strips along
+// W, row segments along H, channel chunks x B).
 //
 // Rounding points are the plain version's (kernels/fused_dw.py): the 9
 // products summed in f32 in its order, then the affine, each operation
@@ -35,18 +46,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 extern __shared__ __align__(16) unsigned char dyn_smem[];
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using mbconv::cp16;
+using mbconv::cp8;
+using mbconv::cp_commit;
+using mbconv::cp_wait;
+using mbconv::smem_u32;
 
-constexpr int TH = 8, TW = 32;              // output tile
-constexpr int CMAX = 32;                    // channels per block
-constexpr int NTHREADS = 256;
-constexpr int SMEM_MAX = 227 * 1024;
+constexpr int MAX_THREADS = 256;
+constexpr int MAX_PREFETCH = 4;
+constexpr int SMEM_MAX = 232448;
 
-enum { ERR_ARGS = 100001, ERR_SMEM = 100002 };
+enum { ERR_ARGS = 100001, ERR_PLAN = 100002 };
 
 struct Args {
   const void* x;            // (B, H, W, C)
@@ -54,132 +71,221 @@ struct Args {
   const float* scale;       // (C)
   const float* shift;       // (C)
   void* out;                // (B, H, W, C), dtype of x
-  int H, W, C, rate, relu6, CC, tiles_x;
+  int H, W, C, rate, relu6;
+  int sw, th, cv, prefetch, chunks;
 };
 
-template <int VEC> struct Vec { float v[VEC]; };
+// VEC elements of T as one load or store of VEC * sizeof(T) bytes, and as
+// 32-bit words in registers (a bf16 pair a word, the low half first)
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { typedef uint4 t; };
+template <> struct Raw<8> { typedef uint2 t; };
+template <> struct Raw<4> { typedef uint32_t t; };
+template <> struct Raw<2> { typedef unsigned short t; };
 
-__device__ __forceinline__ void load(const float* p, Vec<4>& o) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  o.v[0] = t.x; o.v[1] = t.y; o.v[2] = t.z; o.v[3] = t.w;
+__device__ __forceinline__ void to_words(const uint4& r, uint32_t (&w)[4]) {
+  w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
 }
-__device__ __forceinline__ void load(const bf16* p, Vec<4>& o) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  o.v[0] = __low2float(a); o.v[1] = __high2float(a);
-  o.v[2] = __low2float(b); o.v[3] = __high2float(b);
+__device__ __forceinline__ void to_words(const uint2& r, uint32_t (&w)[2]) {
+  w[0] = r.x; w[1] = r.y;
 }
-__device__ __forceinline__ void load(const float* p, Vec<1>& o) {
-  o.v[0] = __ldg(p);
+__device__ __forceinline__ void to_words(uint32_t r, uint32_t (&w)[1]) {
+  w[0] = r;
 }
-__device__ __forceinline__ void load(const bf16* p, Vec<1>& o) {
-  o.v[0] = __bfloat162float(
-      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+__device__ __forceinline__ void to_words(unsigned short r,
+                                         uint32_t (&w)[1]) {
+  w[0] = r;
 }
-
-__device__ __forceinline__ void store(float* p, const Vec<4>& o) {
-  *reinterpret_cast<float4*>(p) = make_float4(o.v[0], o.v[1], o.v[2], o.v[3]);
+__device__ __forceinline__ void from_words(const uint32_t (&w)[4], uint4& r) {
+  r = make_uint4(w[0], w[1], w[2], w[3]);
 }
-__device__ __forceinline__ void store(bf16* p, const Vec<4>& o) {
-  uint2 t;
-  *reinterpret_cast<__nv_bfloat162*>(&t.x) =
-      __floats2bfloat162_rn(o.v[0], o.v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&t.y) =
-      __floats2bfloat162_rn(o.v[2], o.v[3]);
-  *reinterpret_cast<uint2*>(p) = t;
+__device__ __forceinline__ void from_words(const uint32_t (&w)[2], uint2& r) {
+  r = make_uint2(w[0], w[1]);
 }
-__device__ __forceinline__ void store(float* p, const Vec<1>& o) {
-  *p = o.v[0];
+__device__ __forceinline__ void from_words(const uint32_t (&w)[1],
+                                           uint32_t& r) {
+  r = w[0];
 }
-__device__ __forceinline__ void store(bf16* p, const Vec<1>& o) {
-  *p = __float2bfloat16_rn(o.v[0]);
+__device__ __forceinline__ void from_words(const uint32_t (&w)[1],
+                                           unsigned short& r) {
+  r = static_cast<unsigned short>(w[0]);
 }
 
+// element k of the words, in f32 (bf16 widens exactly), and back
+template <typename T>
+__device__ __forceinline__ float elem(const uint32_t* w, int k);
+template <> __device__ __forceinline__ float elem<float>(const uint32_t* w,
+                                                         int k) {
+  return __uint_as_float(w[k]);
+}
+template <> __device__ __forceinline__ float elem<bf16>(const uint32_t* w,
+                                                        int k) {
+  return __uint_as_float(k & 1 ? w[k >> 1] & 0xffff0000u : w[k >> 1] << 16);
+}
+template <typename T>
+__device__ __forceinline__ void put(uint32_t* w, int k, float v);
+template <> __device__ __forceinline__ void put<float>(uint32_t* w, int k,
+                                                       float v) {
+  w[k] = __float_as_uint(v);
+}
+template <> __device__ __forceinline__ void put<bf16>(uint32_t* w, int k,
+                                                      float v) {
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  w[k >> 1] = k & 1 ? (w[k >> 1] & 0xffffu) | (h << 16) : h;
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+// one vector into the ring: cp.async with zero fill (16, 8 or 4 bytes), or
+// a plain load and store (2 bytes: one bf16 channel a thread)
+template <int BYTES>
+__device__ __forceinline__ void copy_vec(void* dst, const void* src, bool ok) {
+  if constexpr (BYTES == 16) {
+    cp16(dst, src, ok ? 16 : 0);
+  } else if constexpr (BYTES == 8) {
+    cp8(dst, src, ok ? 8 : 0);
+  } else if constexpr (BYTES == 4) {
+    cp4(dst, src, ok ? 4 : 0);
+  } else {
+    *static_cast<unsigned short*>(dst) =
+        ok ? __ldg(static_cast<const unsigned short*>(src)) : 0;
+  }
+}
+
+// wait until at most n commit groups of this thread are pending (n < 4)
+__device__ __forceinline__ void wait_pending(int n) {
+  switch (n) {
+    case 0: cp_wait<0>(); break;
+    case 1: cp_wait<1>(); break;
+    case 2: cp_wait<2>(); break;
+    default: cp_wait<3>(); break;
+  }
+}
+
+// 16-byte bf16 vectors keep 72 taps in registers: two blocks of 256 threads
+// an SM (at most 128 registers a thread); the others three (at most 85)
 template <typename T, int VEC>
-__global__ void __launch_bounds__(NTHREADS) fused_dw_kernel(Args a) {
-  const int CC = a.CC, CV = CC / VEC, r = a.rate;
-  const int SW = TW + 2 * r, SH = TH + 2 * r;
-  float* tp = reinterpret_cast<float*>(dyn_smem);  // [9][CC], scale, shift
-  float* tile = tp + 11 * CC;                       // [SH][SW][CC]
-  const int b = blockIdx.z, c0 = blockIdx.y * CC;
-  const int y0 = (blockIdx.x / a.tiles_x) * TH;
-  const int x0 = (blockIdx.x % a.tiles_x) * TW;
-  for (int i = threadIdx.x; i < 11 * CC; i += NTHREADS) {
-    const int k = i / CC, c = c0 + i % CC;
-    float v = 0.f;
-    if (c < a.C)
-      v = k < 9 ? a.taps[k * a.C + c] : (k == 9 ? a.scale[c] : a.shift[c]);
-    tp[i] = v;
+__global__ void __launch_bounds__(MAX_THREADS,
+                                  (sizeof(T) == 2 && VEC == 8) ? 2 : 3)
+fused_dw_kernel(Args a) {
+  constexpr int BYTES = VEC * sizeof(T);
+  constexpr int NW = (BYTES + 3) / 4;
+  typedef typename Raw<BYTES>::t R;
+  const int r = a.rate, CV = a.cv, SW = a.sw, P = a.prefetch;
+  const int PW = SW + 2 * r;                // ring row: pixels
+  const int D = 2 * r + 1 + P;              // ring rows
+  const int row_vecs = PW * CV;
+  R* ring = reinterpret_cast<R*>(dyn_smem); // [D][PW][CV] vectors
+  const int x0 = blockIdx.x * SW, y0 = blockIdx.y * a.th;
+  const int b = blockIdx.z / a.chunks;
+  const int c0 = (blockIdx.z - b * a.chunks) * CV * VEC;
+  const int px = threadIdx.x / CV, cv = threadIdx.x - px * CV;
+  const int c = c0 + cv * VEC;
+  const bool cok = c < a.C;                 // C % VEC == 0: all VEC or none
+  const int rows_out = min(a.th, a.H - y0);
+  const int rows_in = rows_out + 2 * r;
+  const size_t img = (size_t)a.H * a.W * a.C;
+  const T* xb = static_cast<const T*>(a.x) + b * img;
+  T* ob = static_cast<T*>(a.out) + b * img;
+
+  float tap[9][VEC], sc[VEC], sh[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      tap[t][k] = cok ? a.taps[t * a.C + c + k] : 0.f;
+    sc[k] = cok ? a.scale[c + k] : 0.f;
+    sh[k] = cok ? a.shift[c + k] : 0.f;
   }
-  const T* xb = static_cast<const T*>(a.x) + (size_t)b * a.H * a.W * a.C;
-  for (int i = threadIdx.x; i < SH * SW * CV; i += NTHREADS) {
-    const int cv = i % CV, pix = i / CV;
-    const int sx = pix % SW, sy = pix / SW;
-    const int gy = y0 - r + sy, gx = x0 - r + sx, c = c0 + cv * VEC;
-    Vec<VEC> v;
-    if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.C) {
-      load(xb + ((size_t)gy * a.W + gx) * a.C + c, v);
-    } else {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) v.v[k] = 0.f;
-    }
-    float* d = tile + (size_t)pix * CC + cv * VEC;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) d[k] = v.v[k];
-  }
-  __syncthreads();
-  T* ob = static_cast<T*>(a.out) + (size_t)b * a.H * a.W * a.C;
-  for (int i = threadIdx.x; i < TH * TW * CV; i += NTHREADS) {
-    const int cv = i % CV, pix = i / CV;
-    const int ox = pix % TW, oy = pix / TW, cc = cv * VEC;
-    const int gy = y0 + oy, gx = x0 + ox, c = c0 + cc;
-    if (gy >= a.H || gx >= a.W || c >= a.C) continue;
-    Vec<VEC> acc;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc.v[k] = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float* s =
-            tile + ((size_t)(oy + dy * r) * SW + ox + dx * r) * CC + cc;
-        const float* t = tp + (dy * 3 + dx) * CC + cc;
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc.v[k] += s[k] * t[k];
+
+  // input row i of the block (image row y0 - r + i) into ring slot `slot`
+  auto issue = [&](int i, int slot) {
+    if (i < rows_in) {
+      const int gy = y0 - r + i;
+      const bool yok = gy >= 0 && gy < a.H && cok;
+      const T* src = xb + ((size_t)(yok ? gy : 0) * a.W) * a.C + c;
+      R* dst = ring + (size_t)slot * row_vecs + cv;
+      for (int p = px; p < PW; p += SW) {
+        const int gx = x0 - r + p;
+        const bool ok = yok && gx >= 0 && gx < a.W;
+        copy_vec<BYTES>(dst + p * CV, ok ? src + (size_t)gx * a.C : xb, ok);
       }
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      float y = acc.v[k] * tp[9 * CC + cc + k] + tp[10 * CC + cc + k];
-      if (a.relu6) y = fminf(fmaxf(y, 0.f), 6.f);
-      acc.v[k] = y;
     }
-    store(ob + ((size_t)gy * a.W + gx) * a.C + c, acc);
-  }
-}
+    cp_commit();
+  };
 
-size_t smem_bytes(int CC, int rate) {
-  return sizeof(float) * (size_t)CC *
-         (11 + (size_t)(TH + 2 * rate) * (TW + 2 * rate));
+  int next = 0;                              // slot of input row 2r + P + j
+  for (int i = 0; i < 2 * r + P; ++i) {
+    issue(i, next);
+    next = next + 1 == D ? 0 : next + 1;
+  }
+  const bool store = cok && x0 + px < a.W;
+  int s0 = 0;                                // slot of input row j
+  for (int j = 0; j < rows_out; ++j) {
+    wait_pending(P - 1);                     // input row j + 2r has landed
+    __syncthreads();                         // and row j - 1 is done with
+    issue(j + 2 * r + P, next);
+    next = next + 1 == D ? 0 : next + 1;
+    if (store) {
+      float acc[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+      int s = s0;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const R* row = ring + (size_t)s * row_vecs + px * CV + cv;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          uint32_t w[NW];
+          to_words(row[dx * r * CV], w);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k)
+            acc[k] += elem<T>(w, k) * tap[dy * 3 + dx][k];
+        }
+        s += r;
+        if (s >= D) s -= D;
+      }
+      uint32_t w[NW];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        float y = acc[k] * sc[k] + sh[k];
+        if (a.relu6) y = fminf(fmaxf(y, 0.f), 6.f);
+        put<T>(w, k, y);
+      }
+      R o;
+      from_words(w, o);
+      *reinterpret_cast<R*>(ob + ((size_t)(y0 + j) * a.W + x0 + px) * a.C +
+                            c) = o;
+    }
+    s0 = s0 + 1 == D ? 0 : s0 + 1;
+  }
 }
 
 template <typename T, int VEC>
-int launch(Args a, int B, cudaStream_t st) {
-  int CC = a.C < CMAX ? (a.C + VEC - 1) / VEC * VEC : CMAX;
-  while (smem_bytes(CC, a.rate) > (size_t)SMEM_MAX && CC > VEC) {
-    CC = (CC / 2 + VEC - 1) / VEC * VEC;
-  }
-  const size_t smem = smem_bytes(CC, a.rate);
-  if (smem > (size_t)SMEM_MAX) return ERR_SMEM;
-  a.CC = CC;
-  a.tiles_x = (a.W + TW - 1) / TW;
-  const int tiles_y = (a.H + TH - 1) / TH;
+int launch(Args a, int B, int threads, int smem, cudaStream_t st) {
+  constexpr int BYTES = VEC * sizeof(T);
+  const int r = a.rate;
+  // the plan of kernels/fused_dw.py::dw_plan, checked
+  if (a.sw < 1 || a.th < 1 || a.cv < 1 || a.prefetch < 1 ||
+      a.prefetch > MAX_PREFETCH || threads != a.sw * a.cv ||
+      threads > MAX_THREADS || a.C % VEC ||
+      (long long)smem != (long long)(2 * r + 1 + a.prefetch) *
+                             (a.sw + 2 * r) * a.cv * BYTES ||
+      smem > SMEM_MAX)
+    return ERR_PLAN;
+  const int strips_x = (a.W + a.sw - 1) / a.sw;
+  const int strips_y = (a.H + a.th - 1) / a.th;
+  a.chunks = (a.C / VEC + a.cv - 1) / a.cv;
+  if (strips_y > 65535 || (long long)B * a.chunks > 65535) return ERR_PLAN;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)fused_dw_kernel<T, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid(a.tiles_x * tiles_y, (a.C + CC - 1) / CC, B);
-  fused_dw_kernel<T, VEC><<<grid, NTHREADS, smem, st>>>(a);
+  const dim3 grid(strips_x, strips_y, B * a.chunks);
+  fused_dw_kernel<T, VEC><<<grid, threads, smem, st>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -188,26 +294,42 @@ int launch(Args a, int B, cudaStream_t st) {
 extern "C" {
 
 // Returns 0, one of the ERR_* codes, or the cudaError_t of the launch (the
-// caller raises on non-zero).  vec4: C % 4 == 0 and x, out 16-byte aligned.
+// caller raises on non-zero).  vec: channels a vector, with C % vec == 0
+// and x, out aligned to vec * sizeof(element); the rest is dw_plan's.
 int fused_dw_launch(const void* x, const float* taps, const float* scale,
                     const float* shift, void* out, int B, int H, int W, int C,
-                    int rate, int relu6, int x_bf16, int vec4, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || rate < 1 || B > 65535 ||
-      (vec4 && C % 4) || (long long)H * W > (1LL << 30))
+                    int rate, int relu6, int x_bf16, int vec, int sw, int th,
+                    int cv, int prefetch, int threads, int smem,
+                    void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || rate < 1 ||
+      (long long)H * W * C > (1LL << 31))
     return ERR_ARGS;
   Args a;
   a.x = x; a.taps = taps; a.scale = scale; a.shift = shift; a.out = out;
   a.H = H; a.W = W; a.C = C; a.rate = rate; a.relu6 = relu6;
+  a.sw = sw; a.th = th; a.cv = cv; a.prefetch = prefetch; a.chunks = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return vec4 ? launch<bf16, 4>(a, B, st) : launch<bf16, 1>(a, B, st);
-  return vec4 ? launch<float, 4>(a, B, st) : launch<float, 1>(a, B, st);
+  if (x_bf16) {
+    switch (vec) {
+      case 8: return launch<bf16, 8>(a, B, threads, smem, st);
+      case 4: return launch<bf16, 4>(a, B, threads, smem, st);
+      case 2: return launch<bf16, 2>(a, B, threads, smem, st);
+      case 1: return launch<bf16, 1>(a, B, threads, smem, st);
+    }
+    return ERR_ARGS;
+  }
+  switch (vec) {
+    case 4: return launch<float, 4>(a, B, threads, smem, st);
+    case 2: return launch<float, 2>(a, B, threads, smem, st);
+    case 1: return launch<float, 1>(a, B, threads, smem, st);
+  }
+  return ERR_ARGS;
 }
 
 const char* fused_dw_error(int code) {
   switch (code) {
     case ERR_ARGS: return "arguments the fused_dw kernel does not take";
-    case ERR_SMEM: return "the halo tile does not fit in shared memory";
+    case ERR_PLAN: return "a launch plan the fused_dw kernel does not take";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

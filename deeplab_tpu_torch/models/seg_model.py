@@ -14,6 +14,8 @@ is a walk over names (params.py).
 
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
@@ -69,6 +71,36 @@ class SegNet(nn.Module):
         """Layer names in Keras graph order (JAX ``SegNet.layer_order``),
         which the freeze policy counts from."""
         return tuple(name for name, _ in self.named_children())
+
+    def at_size(self, image_size):
+        """A twin of this network at another input size (JAX
+        ``SegNet.at_size``) that shares its submodules, so the same
+        parameter and buffer tensors, with no copy.  The graph is fully
+        convolutional: the ASPP image pool and the decoder take their
+        geometry from the input, the 'original' head resizes to the twin's
+        size.  Used by the Predictor's multi-scale test-time
+        augmentation."""
+        twin = copy.copy(self)                  # its own attribute dict
+        twin._modules = dict(self._modules)     # holding the same modules
+        twin.sz = tuple(image_size)
+        return twin
+
+    def apply(self, img, compute_dtype="float32"):
+        """(B, H, W, 3) BGR 0-255 -> (B, H*W, n) float32 softmax of the head
+        logits, the forward in eval mode whatever the net's mode (JAX
+        ``SegNet.apply`` with ``training=False``).  A callable argument
+        keeps ``nn.Module.apply``: ``fn`` on every submodule."""
+        if callable(img):
+            return super().apply(img)
+        was = self.training
+        self.eval()
+        try:
+            logits = self.logits(img, compute_dtype)
+        finally:
+            self.train(was)
+        B, H, W, n = logits.shape
+        with torch.inference_mode():
+            return torch.softmax(logits.float().reshape(B, H * W, n), dim=-1)
 
     def _logits_nchw(self, img, policy, gen=None):
         feats = deeplabv3p.deeplabv3_forward(self, img, policy, gen)

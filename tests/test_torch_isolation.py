@@ -1,8 +1,11 @@
 """The port stands alone: no jax and no deeplab_tpu in its imports, no silent
-CPU fallback, and no kernel launch counted on the CPU."""
+CPU fallback, no kernel launch counted on the CPU, and no PIL until an image
+is decoded or encoded (the card's machine may lack it)."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -55,3 +58,16 @@ def test_cpu_forward_counts_no_launch():
         np.random.RandomState(0).rand(2, 32, 32, 3) * 255)
     assert out.shape == (2, 32, 32)
     assert FM.fused_mbconv.launches == before == 0
+
+
+def test_serving_modules_leave_pil_out():
+    """Importing the serving surface in a fresh interpreter imports no PIL:
+    only decoding and encoding do."""
+    code = ("import sys; import deeplab_tpu_torch.serve, "
+            "deeplab_tpu_torch.data.augment, deeplab_tpu_torch.data.generator,"
+            " deeplab_tpu_torch.predictor; print(sorted(m for m in "
+            "sys.modules if m.split('.')[0] == 'PIL'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

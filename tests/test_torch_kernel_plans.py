@@ -3,8 +3,9 @@
 ``fused_mbconv``'s plan (``kernels/fused_mbconv.py::mbconv_plan``), the
 CRF row blur's (``kernels/crf_fused.py::blur_plan``), the blur's y and x
 passes' (``pass_plan``), the splat's (``splat_plan``), the mean-field
-step's (``step_plan``), ``slice_planes``' (``slice_plan``) and the training
-block's halo phases' (``kernels/fused_mbconv_train.py::train_plan``) are
+step's (``step_plan``), ``slice_planes``' (``slice_plan``), the training
+block's halo phases' (``kernels/fused_mbconv_train.py::train_plan``) and
+``fused_dw_bn_relu6``'s (``kernels/fused_dw.py::dw_plan``) are
 plain Python that the CUDA launchers check and never recompute
 differently.  Here: every
 main-path shape fits in a block's 232,448 bytes of shared memory; the tiles,
@@ -13,7 +14,9 @@ edges included (the kernels' index arithmetic, mirrored); the recompute
 factors that the sources' headers state are the plans' own; the step's
 fused form runs exactly where its grid fits; a numpy model of the splat's
 binning (counting sort, pieces of one key) sums to the plain version; and
-the step's label-innermost scratch maps every grid value once.
+the step's label-innermost scratch maps every grid value once; and
+``fused_dw``'s ring of input rows holds each row from its copy to its last
+read (the kernel's slot counters, mirrored).
 """
 
 import itertools
@@ -25,6 +28,7 @@ import torch
 from deeplab_tpu_torch import crf as CRF
 from deeplab_tpu_torch.crf import dense_crf as DC
 from deeplab_tpu_torch.kernels import crf_fused as CK
+from deeplab_tpu_torch.kernels import fused_dw as FDW
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
 from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 from deeplab_tpu_torch.models import mobilenetv2 as M
@@ -1482,3 +1486,120 @@ def test_f3_covers_every_output_once(case):
         assert not seen[:, real:].any()
         cols[n0:n0 + real] += 1
     assert set(cols) == {1}
+
+
+# fused_dw_bn_relu6's launches: block 0 of a B=8 request at 512x512, at the
+# test-time augmentation's 384x384 and 640x640 and at VOC's 375x500; the
+# JAX kernel's documented shape; a C that is not a multiple of 4; a ragged
+# map; a rate past the map
+DW_SHAPES = [(8, 256, 256, 32, 1), (8, 192, 192, 32, 1),
+             (8, 320, 320, 32, 1), (8, 188, 250, 32, 1),
+             (8, 64, 64, 384, 2), (2, 20, 36, 7, 1), (2, 37, 53, 24, 4),
+             (1, 32, 32, 16, 18)]
+
+
+def _dw_cover(n_blocks, per_block, inside):
+    """How often each index along one axis is an output: block b's item i
+    writes b * per_block + i where ``inside`` says (the kernel's
+    ``x0 + px < W``, ``j < rows_out`` and ``c < C``)."""
+    seen = {}
+    for b in range(n_blocks):
+        for i in range(per_block):
+            idx = b * per_block + i
+            if inside(idx):
+                seen[idx] = seen.get(idx, 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_plan_fits_and_covers_each_output_once(monkeypatch, shape, dtype):
+    """At every shape, with the plan's own choice and with each strip width
+    forced: the ring fits, the block's threads are its columns times its
+    vectors, the launcher's checks pass, and the strips, row segments and
+    channel chunks write every output exactly once."""
+    B, H, W, C, rate = shape
+    esize = 2 if dtype == torch.bfloat16 else 4
+    strips = FDW.DW_STRIPS
+    try:
+        for forced in (None,) + strips:
+            monkeypatch.setattr(FDW, "DW_STRIPS",
+                                strips if forced is None else (forced,))
+            FDW.dw_plan.cache_clear()
+            p = FDW.dw_plan(B, H, W, C, rate, dtype)
+            assert forced is None or p.sw == forced
+            assert p.vec == FDW.dw_vec(C, esize) and C % p.vec == 0
+            assert p.vec * esize <= 16
+            assert p.threads == p.sw * p.cv <= FDW.DW_MAX_THREADS
+            assert 1 <= p.prefetch <= max(FDW.DW_PREFETCH)
+            assert p.smem == FDW.dw_smem(rate, p.sw, p.cv, p.vec, esize,
+                                         p.prefetch) <= LIMIT
+            assert FDW.dw_blocks_per_sm(p.threads, p.smem, p.vec, esize) >= 1
+            assert p.strips_y <= 65535 and p.chunks * p.B <= 65535
+            assert p.grid == (-(-W // p.sw), -(-H // p.th),
+                              -(-(C // p.vec) // p.cv) * B)
+            cols = _dw_cover(p.strips_x, p.sw, lambda x: x < W)
+            rows = _dw_cover(p.strips_y, p.th, lambda y: y < H)
+            vecs = _dw_cover(p.chunks, p.cv, lambda v: v * p.vec < C)
+            assert sorted(cols) == list(range(W)) and set(cols.values()) == {1}
+            assert sorted(rows) == list(range(H)) and set(rows.values()) == {1}
+            assert (sorted(vecs) == list(range(C // p.vec))
+                    and set(vecs.values()) == {1})
+    finally:
+        FDW.dw_plan.cache_clear()
+
+
+@pytest.mark.parametrize("rate", [1, 2, 4, 18])
+def test_dw_ring_holds_each_row_from_copy_to_last_read(rate):
+    """The kernel's ring schedule, its slot counters mirrored: the prologue
+    copies input rows 0 .. 2 rate + prefetch - 1; before output row j a
+    thread waits until at most prefetch - 1 of its copies are pending, then
+    (after the barrier) copies row j + 2 rate + prefetch, then reads rows j,
+    j + rate and j + 2 rate.  Every row read must have landed and still be
+    in its slot, and no copy may land in a slot this row reads."""
+    for prefetch in FDW.DW_PREFETCH:
+        D = 2 * rate + 1 + prefetch
+        for rows_out in (1, 2, 5, 48):
+            rows_in = rows_out + 2 * rate
+            slot_row, issued = {}, []
+
+            def issue(i, slot):
+                issued.append(i if i < rows_in else None)   # empty group
+                if i < rows_in:
+                    slot_row[slot] = i
+
+            nxt = 0
+            for i in range(2 * rate + prefetch):
+                issue(i, nxt)
+                nxt = 0 if nxt + 1 == D else nxt + 1
+            s0 = 0
+            for j in range(rows_out):
+                # wait_group(prefetch - 1): the groups older than the last
+                # prefetch - 1 have landed
+                landed = {i for i in issued[:len(issued) - (prefetch - 1)]
+                          if i is not None}
+                reads, s = [], s0
+                for dy in range(3):
+                    reads.append(s)
+                    s = s + rate - D if s + rate >= D else s + rate
+                assert nxt not in reads
+                issue(j + 2 * rate + prefetch, nxt)
+                nxt = 0 if nxt + 1 == D else nxt + 1
+                for dy, slot in enumerate(reads):
+                    assert slot_row[slot] == j + dy * rate
+                    assert j + dy * rate in landed
+                s0 = 0 if s0 + 1 == D else s0 + 1
+
+
+def test_dw_plan_fills_the_card_at_block_zero():
+    """Block 0 of the served request: 16-byte vectors, the deepest ring,
+    256 threads, and blocks that fill the SMs' slots in whole waves to
+    within 10% (a part-empty last wave leaves the memory system idle)."""
+    for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        p = FDW.dw_plan(8, 256, 256, 32, 1, dtype)
+        assert p.vec * esize == 16 and p.prefetch == 4
+        assert p.threads == FDW.DW_MAX_THREADS
+        slots = FDW.DW_SM_COUNT * FDW.dw_blocks_per_sm(p.threads, p.smem,
+                                                       p.vec, esize)
+        blocks = p.strips_x * p.strips_y * p.chunks * p.B
+        assert blocks / (-(-blocks // slots) * slots) >= 0.9

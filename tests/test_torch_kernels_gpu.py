@@ -24,7 +24,11 @@ boundary (C3: the tensor cores' sums are not a plain f32 order).
 
 ``fused_dw_bn_relu6`` is held to its plain version within 1e-5 (f32) and 2
 bf16 ulps (bf16) of its largest output, at ragged maps and channel counts,
-an odd C (one channel a thread) and a rate past the map.
+an odd C (one channel a thread) and a rate past the map; and bit for bit
+(both sum the taps in f32 in one order, built with ``-fmad=false``) at
+MobileNetV2 block 0's maps of 512x512, 384x384, 640x640 and 375x500
+requests, 64x64x384 at rate 2, a C that is not a multiple of 4 and a ragged
+map, f32 and bf16, at every strip width ``dw_plan`` may choose, forced.
 
 The CRF kernels are held to their plain versions on the inputs the main path
 gives them: a CRF run with the plain versions records every call, then each
@@ -1174,6 +1178,37 @@ def test_fused_dw_kernel_matches_reference(cuda, relu, x_dtype, B, H, W, C,
     scale_ = ref.float().abs().max().item()
     tol = 1e-5 if x_dtype == torch.float32 else 2 * 2.0 ** -8
     assert scale_ > 0 and err <= tol * scale_, (err, scale_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sw", FDW.DW_STRIPS)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,rate", [
+    (8, 256, 256, 32, 1),    # block 0 of a B=8 512x512 request
+    (8, 192, 192, 32, 1),    # at 384x384, a test-time augmentation twin
+    (8, 320, 320, 32, 1),    # at 640x640
+    (8, 188, 250, 32, 1),    # at VOC's 375x500
+    (2, 64, 64, 384, 2),     # the JAX kernel's documented shape
+    (2, 20, 36, 7, 1),       # C not a multiple of 4
+    (2, 37, 53, 24, 4),      # ragged map
+])
+def test_fused_dw_bit_for_bit_at_each_strip(cuda, monkeypatch, sw, x_dtype,
+                                            B, H, W, C, rate):
+    monkeypatch.setattr(FDW, "DW_STRIPS", (sw,))
+    FDW.dw_plan.cache_clear()
+    try:
+        assert FDW.dw_plan(B, H, W, C, rate, x_dtype).sw == sw
+        r = np.random.RandomState(H + C + rate)
+        t = lambda *s, sc=1.0: torch.from_numpy(
+            (r.randn(*s) * sc).astype(np.float32)).to(cuda)
+        x = t(B, H, W, C).to(x_dtype)
+        k, scale, shift = t(3, 3, C, 1, sc=0.3), 1 + t(C, sc=0.2), t(C, sc=0.5)
+        got = FDW.fused_dw_bn_relu6(x, k, scale, shift, rate=rate)
+        ref = FDW.fused_dw_bn_relu6_reference(x, k, scale, shift, rate=rate)
+        torch.cuda.synchronize()
+        assert got.dtype == x_dtype and torch.equal(got, ref)
+    finally:
+        FDW.dw_plan.cache_clear()
 
 
 @pytest.mark.gpu

@@ -60,10 +60,16 @@ def test_predictor_masks_match_jax(tiles, jax_masks, policy, floor):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(spatial=True), dict(tta_scales=(0.5, 1.0)),
-    dict(tta_flip=True)])
+    dict(mesh=object()), dict(spatial=True),
+    dict(tta_scales=(0.5, 1.0), spatial=True),
+    dict(tta_flip=True, spatial=True)])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """Meshes and spatial sharding wait for the multi-GPU slice; test-time
+    augmentation is served, but with spatial sharding it raises ValueError
+    as in JAX."""
+    err = ValueError if "tta_scales" in kw or "tta_flip" in kw \
+        else NotImplementedError
+    with pytest.raises(err):
         Predictor(SegNet((16, 16), 3), device="cpu", **kw)
 
 
