@@ -127,7 +127,26 @@ Phases, each of which fails the run (exit code 1, no result line):
    inference mode, on that thread's current stream, each mask against a
    direct call on its image, the histogram of device batch sizes; one round
    trip through ``BatchingServer`` over HTTP where PIL imports; TTA ms per
-   B=8 request and the dispatcher's requests/s and p50/p99 latency.
+   B=8 request and the dispatcher's requests/s and p50/p99 latency;
+11. the deployment surface: ``export.save_serving`` exports the production
+   pipeline (the seeded net, "mixed", ``PRODUCTION_CONFIG``) with a symbolic
+   batch on the card; the export seconds, the artifact's MB and the graph's
+   ``deeplab_tpu_torch::`` operator counts (fused_dw 1, fused_mbconv 14,
+   splat 6, slice_attrs 1, row blur 5, mf_step 5); a subprocess that imports
+   only ``deeplab_tpu_torch.export`` loads it and serves B=8 and B=3
+   requests of seeded scenes: no model, CRF or Predictor module loaded, the
+   launch counters rising by exactly the graph's counts per request, the
+   masks against the live ``Predictor(crf=PRODUCTION_CONFIG, "mixed")``'s
+   (floor 0.9999, the differing pixels counted); a fixed-batch-8 artifact
+   pads a B=5 request; an OS-16 Xception artifact serves one request (65
+   ``fused_sepconv`` launches) against the live ``Predictor``; the artifact
+   and the live ``Predictor`` timed per B=8 request (CUDA events on the
+   card's input and the host clock); then ``python -m
+   deeplab_tpu_torch.cli`` on the card: ``export-serving --crf --f32``,
+   ``predict --artifact`` against the live ``predict --crf`` (equal masks),
+   ``serve --artifact`` for one HTTP round trip, and ``evaluate`` over a
+   VOC-layout folder the phase writes with PIL, against the same
+   evaluation in this process.
 
 ``python3 chip_smoke.py --dw`` holds ``fused_dw_bn_relu6`` bit for bit to
 its plain version at phase 8's shapes and times it there (events, device
@@ -308,6 +327,82 @@ TTA_XCEPTION_SEPCONV = 390
 # the dispatcher under load: requests from client threads, its gather
 # limits, and each mask against a direct Predictor call on its image
 # (a different batch composition: cuDNN may choose other algorithms)
+# the deployment surface (phase 11): a saved program's launches per
+# request, by counter; its masks against the live Predictor's
+DEPLOY_PER_REQUEST = {"fused_dw_bn_relu6": 1, "fused_mbconv": 14,
+                      "splat_planes": 6, "slice_attrs_planes": 1,
+                      "gaussian_blur_planes": 5, "mf_step_planes": 5}
+DEPLOY_OPS = {"fused_dw_bn_relu6": 1, "fused_mbconv": 14,
+              "splat_planes": 6, "slice_attrs_planes": 1, "blur_rows": 5,
+              "mf_step_planes": 5}
+DEPLOY_BATCHES, DEPLOY_FIXED, DEPLOY_RAGGED = (8, 3), 8, 5
+DEPLOY_FLOOR, CLI_EVAL_TOL, CLI_TIMEOUT, CLI_IMAGES = 0.9999, 1e-4, 600, 8
+# a process that loads a saved program and serves the .npy batches named
+# on its command line, importing only deeplab_tpu_torch.export; prints
+# "RESULT {json}": per request the launch counters' rise, the modules of
+# the model code it imported, the artifact's time per request on the first
+# batch (CUDA events on the card's input, the host clock numpy to numpy,
+# and the device's busy time under torch.profiler)
+ARTIFACT_RUNNER = r"""
+import json, sys, time
+import numpy as np, torch
+from deeplab_tpu_torch.export import load_serving
+art = load_serving(sys.argv[1])
+mods = sys.modules
+counters = {n: getattr(mods["deeplab_tpu_torch.kernels.crf_fused"], n)
+            for n in ("splat_planes", "slice_attrs_planes",
+                      "gaussian_blur_planes", "gaussian_blur_y_planes",
+                      "gaussian_blur_x_planes", "mf_step_planes",
+                      "slice_planes")}
+fm = mods["deeplab_tpu_torch.kernels.fused_mbconv"]
+counters.update(fused_mbconv=fm.fused_mbconv, fused_sepconv=fm.fused_sepconv,
+                fused_dw_bn_relu6=mods[
+                    "deeplab_tpu_torch.kernels.fused_dw"].fused_dw_bn_relu6)
+res = {"rise": []}
+for i, f in enumerate(sys.argv[3:]):
+    x = np.load(f)
+    before = {n: c.launches for n, c in counters.items()}
+    m = art(x)
+    res["rise"].append({n: c.launches - before[n]
+                        for n, c in counters.items()})
+    np.save(f"{sys.argv[2]}_{i}.npy", m)
+x = np.load(sys.argv[3])
+img = torch.from_numpy(x).cuda()
+from deeplab_tpu_torch import core
+def step():
+    with torch.inference_mode(), core.precision_flags(art.policy):
+        return art._fn.forward(img, art.weights)
+for _ in range(3):
+    step()
+torch.cuda.synchronize()
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+start.record()
+for _ in range(10):
+    step()
+end.record()
+torch.cuda.synchronize()
+res["ms"] = start.elapsed_time(end) / 10
+t0 = time.perf_counter()
+for _ in range(5):
+    art(x)
+res["host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    res["wall_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+res["busy_ms"] = sum(e.self_device_time_total for e in pr.key_averages()
+                     if e.self_device_time_total > 0
+                     and str(e.device_type).endswith("CUDA")) / 3e3
+res["modules"] = sorted(m for m in mods if m.split(".")[0] in (
+    "jax", "deeplab_tpu") or m.startswith((
+    "deeplab_tpu_torch.models", "deeplab_tpu_torch.crf",
+    "deeplab_tpu_torch.predictor")))
+print("RESULT " + json.dumps(res))
+"""
+
 DISPATCH_CLIENTS, DISPATCH_REQUESTS = 32, 128
 DISPATCH_MAX_BATCH, DISPATCH_WAIT_MS, DISPATCH_FLOOR = 16, 5.0, 0.99
 # the notebook CRF: label counts of the 512x512 do_crf scenes; the oracle
@@ -1860,7 +1955,7 @@ def main() -> int:
         raw0 = torch.from_numpy(outs[0][0]).to(dev)
 
         def crf_q():
-            plan = DC.cell_plan(*raw0.shape, cfg, dev)
+            plan = DC.cell_plan(*raw0.shape[1:], cfg, dev)
             with torch.inference_mode(), \
                     core.precision_flags(core.Policy(torch.float32)):
                 rgb = plan.cells_v(img.permute(0, 3, 1, 2))
@@ -1899,7 +1994,7 @@ def main() -> int:
             assert agree >= GOLDEN_FLOOR, (name, agree)
 
     def plan_masks(q):
-        plan = DC.cell_plan(SERVE_B, SIZE, SIZE, CRF.PRODUCTION_CONFIG, dev)
+        plan = DC.cell_plan(SIZE, SIZE, CRF.PRODUCTION_CONFIG, dev)
         pred = torch.argmax(q, dim=1, keepdim=True)
         return plan.uncells_v(pred, 1)[:, 0].to(torch.int32).cpu().numpy()
     run.phase("main path: Predictor(crf=PRODUCTION_CONFIG, mixed) serving",
@@ -2309,7 +2404,7 @@ def main() -> int:
             moved = {k: v - before[k] for k, v in counts().items()}
             want = {k: 0 for k in moved}
             want.update(VOC_PER_RUN)
-            plan = DC.cell_plan(SERVE_B, H, W, cfg, dev)
+            plan = DC.cell_plan(H, W, cfg, dev)
             print(f"  ({SERVE_B}, {H}, {W}) at PRODUCTION_CONFIG: cells "
                   f"{plan.cs_y}x{plan.cs_x}, Z = {plan.Z}, splat stride "
                   f"{plan.stride} (the config's {cfg.splat_stride}; "
@@ -2389,7 +2484,7 @@ def main() -> int:
         want["fused_mbconv"] = FUSED_PER_FORWARD * N_REQUESTS
         want["fused_dw_bn_relu6"] = N_REQUESTS
         want.update({n: k * N_REQUESTS for n, k in RS2_PER_REQUEST.items()})
-        plan = DC.cell_plan(SERVE_B, SIZE // 2, SIZE // 2, DC._at_scale(cfg),
+        plan = DC.cell_plan(SIZE // 2, SIZE // 2, DC._at_scale(cfg),
                             dev)
         print(f"  served {N_REQUESTS} requests of B={SERVE_B} at "
               f"PRODUCTION_CONFIG, resolution_scale 2 (the CRF at "
@@ -2471,7 +2566,7 @@ def main() -> int:
                         gaussian_blur_x_planes=passes)
             if passes:
                 geo["wide_launches"] = got
-            plan = DC.cell_plan(1, SIZE, SIZE, cfg, dev)
+            plan = DC.cell_plan(SIZE, SIZE, cfg, dev)
             print(f"  {name} at 512x512, 5 labels: cells {plan.cs_y}x"
                   f"{plan.cs_x}, Z = {plan.Z}, spatial radius "
                   f"{len(DC._gauss_taps(cfg.sxy_gaussian)) // 2}; launches "
@@ -2849,6 +2944,244 @@ def main() -> int:
         assert mask.shape == (SIZE, SIZE) and a >= DISPATCH_FLOOR
     run.phase("serving surface: _Dispatcher under load and BatchingServer "
               "over HTTP", dispatcher_load)
+
+    # 11. the deployment surface -----------------------------------------
+    def cli(args, root):
+        out = subprocess.run([sys.executable, "-m", "deeplab_tpu_torch.cli"]
+                             + args, cwd=root, capture_output=True,
+                             text=True, timeout=CLI_TIMEOUT)
+        if out.returncode != 0:
+            raise RuntimeError(f"cli {args[0]} failed (rc {out.returncode})"
+                               f":\n{out.stderr[-4000:]}")
+        return out.stdout
+
+    def deploy_cli(work, root):
+        import os
+        import socket
+        import urllib.request
+        from PIL import Image
+        from deeplab_tpu_torch.config import Config
+        from deeplab_tpu_torch.models.seg_model import SegModel
+        # a VOC-layout folder of seeded scenes: JPEG images, PNG labels
+        ds = os.path.join(work, "voc")
+        jpg_dir = os.path.join(ds, "JPEGImages", "train")
+        lab_dir = os.path.join(ds, "SegmentationClassAug")
+        os.makedirs(jpg_dir)
+        os.makedirs(lab_dir)
+        imgs, masks = scene_batch(CLI_IMAGES, SEED + 980, "cpu")
+        jpgs = []
+        for i, (im, m) in enumerate(zip(imgs.numpy(), masks.numpy())):
+            jpgs.append(os.path.join(jpg_dir, f"scene{i:02d}.jpg"))
+            Image.fromarray(np.clip(im[..., ::-1], 0, 255).astype(
+                np.uint8)).save(jpgs[-1], quality=95)
+            Image.fromarray(m.astype(np.uint8), mode="L").save(
+                os.path.join(lab_dir, f"scene{i:02d}.png"))
+        cfg = Config()
+        cfg.model.image_size = (SIZE, SIZE)
+        cfg.model.n_classes = CLASSES
+        cfg.data.dataset = ds
+        cfg.data.validation_split = 0.5
+        cfg.train.checkpoint_dir = os.path.join(work, "no_checkpoints")
+        cpath = os.path.join(work, "config.json")
+        cfg.save(cpath)
+        art = os.path.join(work, "cli.npz")
+        t0 = time.perf_counter()
+        print("  " + cli(["export-serving", "--config", cpath, "--crf",
+                          "--f32", "--out", art], root).strip().replace(
+            "\n", "\n  "))
+        print(f"  cli export-serving: {time.perf_counter() - t0:.1f} s")
+
+        def png_masks(d):
+            return [np.asarray(Image.open(os.path.join(d, os.path.splitext(
+                os.path.basename(p))[0] + "_mask.png"))) for p in jpgs[:2]]
+        d_art, d_live = (os.path.join(work, n) for n in ("p_art", "p_live"))
+        cli(["predict", "--artifact", art, "--images", *jpgs[:2],
+             "--out-dir", d_art], root)
+        cli(["predict", "--config", cpath, "--crf", "--images", *jpgs[:2],
+             "--out-dir", d_live], root)
+        for a, b in zip(png_masks(d_art), png_masks(d_live)):
+            print(f"  cli predict --artifact vs live predict --crf: "
+                  f"{int((a != b).sum())} of {a.size} pixels differ")
+            assert a.shape == (SIZE, SIZE) and np.array_equal(a, b)
+
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        server = subprocess.Popen(
+            [sys.executable, "-m", "deeplab_tpu_torch.cli", "serve",
+             "--artifact", art, "--host", "127.0.0.1", "--port", str(port)],
+            cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        try:
+            deadline = time.perf_counter() + CLI_TIMEOUT
+            while True:
+                if server.poll() is not None:
+                    raise RuntimeError("cli serve exited: "
+                                       + server.stderr.read().decode()[-4000:])
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/healthz",
+                            timeout=5) as r:
+                        health = json.loads(r.read())
+                    break
+                except OSError:
+                    if time.perf_counter() > deadline:
+                        raise
+                    time.sleep(1.0)
+            with open(jpgs[0], "rb") as f:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/predict", data=f.read(),
+                    method="POST")
+            with urllib.request.urlopen(req, timeout=CLI_TIMEOUT) as r:
+                import io
+                mask = np.asarray(Image.open(io.BytesIO(r.read())))
+        finally:
+            server.terminate()
+            try:
+                server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait(timeout=30)
+        same = np.array_equal(mask, png_masks(d_art)[0])
+        print(f"  cli serve --artifact: healthz {health}, one HTTP round "
+              f"trip, mask {mask.shape}, equal to predict --artifact: "
+              f"{same}")
+        assert same
+
+        out = cli(["evaluate", "--config", cpath], root)
+        line = [ln for ln in out.splitlines() if "Mean IOU" in ln][-1]
+        got = float(line.rsplit(":", 1)[1])
+        seg = SegModel(ds, (SIZE, SIZE))
+        seg.set_batch_size(1)
+        netc = seg.create_seg_model("original", n=CLASSES)
+        gen = seg.create_generators(
+            crop_shape=None, mode="validation", n_classes=CLASSES,
+            horizontal_flip=False, vertical_flip=False, brightness=0.0,
+            rotation=0.0, zoom=0.0, validation_split=0.5,
+            seed=cfg.data.seed, do_ahisteq=False)
+        _, _, want = viz.calculate_iou(netc, gen, CLASSES, predict_fn=(
+            Predictor(netc, compute_dtype="float32")))
+        print(f"  cli evaluate over {len(gen)} images: mean IoU {got:.4f}; "
+              f"the same evaluation in this process {want:.6f} (tolerance "
+              f"{CLI_EVAL_TOL})")
+        assert math.isfinite(got) and abs(got - want) <= CLI_EVAL_TOL
+
+    def deployment():
+        import os
+        import shutil
+        from deeplab_tpu_torch import export as EX
+        root = os.path.dirname(os.path.abspath(__file__))
+        work = os.path.join(root, "build", "deploy")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        cfg = CRF.PRODUCTION_CONFIG
+
+        def agreement(got, want, what):
+            assert got.shape == want.shape and got.dtype == np.int32, what
+            diff = int((got != want).sum())
+            a = 1.0 - diff / want.size
+            print(f"  {what}: {diff} of {want.size} pixels differ, "
+                  f"agreement {a:.6f} (floor {DEPLOY_FLOOR})")
+            assert a >= DEPLOY_FLOOR, (what, a)
+
+        path = os.path.join(work, "production.npz")
+        t0 = time.perf_counter()
+        ep = EX.save_serving(path, net, crf=cfg, compute_dtype="mixed")
+        secs = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        ops = EX.op_counts(ep)
+        print(f"  save_serving(production, symbolic batch): {secs:.2f} s "
+              f"(trace and write, one eager warm-up call included), "
+              f"{mb:.2f} MB; graph operators {ops} (want {DEPLOY_OPS})")
+        assert ops == DEPLOY_OPS, ops
+
+        reqs, files = [], []
+        for i, b in enumerate(DEPLOY_BATCHES):
+            x = scene_batch(b, SEED + 900 + 10 * i, "cpu")[0].numpy()
+            files.append(os.path.join(work, f"request{i}.npy"))
+            np.save(files[-1], x)
+            reqs.append(x)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", ARTIFACT_RUNNER, path,
+             os.path.join(work, "masks")] + files, cwd=root,
+            capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError("artifact process failed:\n"
+                               + proc.stderr[-4000:])
+        res = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith("RESULT ")][-1][7:])
+        print(f"  artifact process ({time.perf_counter() - t0:.1f} s): "
+              f"model-code modules loaded {res['modules']}")
+        assert res["modules"] == [], res["modules"]
+        live = Predictor(net, crf=cfg, compute_dtype="mixed")
+        for i, (x, rise) in enumerate(zip(reqs, res["rise"])):
+            want = {k: 0 for k in rise}
+            want.update(DEPLOY_PER_REQUEST)
+            print(f"  artifact request {i} (B={x.shape[0]}): launches "
+                  f"{rise} (want {want})")
+            assert rise == want, (rise, want)
+            agreement(np.load(os.path.join(work, f"masks_{i}.npy")),
+                      live(x), f"artifact vs live Predictor at B="
+                               f"{x.shape[0]}")
+        img = torch.from_numpy(reqs[0]).to(dev)
+        with torch.inference_mode():
+            live_ms = cuda_ms(lambda: live._run(img), 10)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            live(reqs[0])
+        live_host = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"  per B={SERVE_B} request, production pipeline: artifact "
+              f"{res['ms']:.3f} ms (CUDA events, on the card's input) / "
+              f"{res['host_ms']:.3f} ms (host clock, numpy in and out); "
+              f"live Predictor {live_ms:.3f} ms / {live_host:.3f} ms "
+              f"[{card}]")
+        print(f"  artifact per call under torch.profiler: device busy "
+              f"{res['busy_ms']:.3f} ms of {res['wall_ms']:.3f} ms wall "
+              f"(idle share {1 - res['busy_ms'] / res['wall_ms']:.3f})")
+        device_table(lambda: live._run(img), f"live Predictor, B={SERVE_B}",
+                     top=0)
+
+        path8 = os.path.join(work, "fixed8.npz")
+        EX.save_serving(path8, net, crf=cfg, batch=DEPLOY_FIXED,
+                        compute_dtype="mixed")
+        art8 = EX.load_serving(path8)
+        x5 = scene_batch(DEPLOY_RAGGED, SEED + 950, "cpu")[0].numpy()
+        zero_counts()
+        m5 = art8(x5)
+        got = counts()
+        want = {k: 0 for k in got}
+        want.update(DEPLOY_PER_REQUEST)
+        print(f"  fixed-batch-{DEPLOY_FIXED} artifact, a B={DEPLOY_RAGGED} "
+              f"request padded: launches {got} (want {want})")
+        assert got == want, (got, want)
+        agreement(m5, live(x5), f"fixed batch {DEPLOY_FIXED}, B="
+                                f"{DEPLOY_RAGGED}, vs live Predictor")
+
+        xnet = xc["net"]
+        pathx = os.path.join(work, "xception.npz")
+        t0 = time.perf_counter()
+        epx = EX.save_serving(pathx, xnet, compute_dtype="mixed")
+        xsecs = time.perf_counter() - t0
+        xops = EX.op_counts(epx)
+        print(f"  save_serving(Xception OS {XCEPTION_OS}, no CRF): "
+              f"{xsecs:.2f} s, {os.path.getsize(pathx) / 1e6:.2f} MB; "
+              f"graph operators {xops}")
+        assert xops == {"fused_sepconv": SEPCONV_PER_FORWARD}, xops
+        artx = EX.load_serving(pathx)
+        xr = scene_batch(SERVE_B, SEED + 960, "cpu")[0].numpy()
+        zero_counts()
+        mx = artx(xr)
+        got = counts()
+        want = {k: 0 for k in got}
+        want["fused_sepconv"] = SEPCONV_PER_FORWARD
+        print(f"  Xception artifact, one B={SERVE_B} request: launches "
+              f"{got} (want {want})")
+        assert got == want, (got, want)
+        agreement(mx, Predictor(xnet, compute_dtype="mixed")(xr),
+                  "Xception artifact vs live Predictor")
+        deploy_cli(work, root)
+    run.phase("deployment surface: export, artifact and CLI on the card",
+              deployment)
 
     def xception_times():
         xnet = xc["net"]

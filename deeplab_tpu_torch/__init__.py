@@ -20,10 +20,28 @@ runs through ``kernels/csrc/fused_sepconv.cu``.  And the evaluation path:
 ``viz.calculate_iou`` and the confusion-matrix metrics, ``crf.mean_field`` and
 ``crf.do_crf`` on both CRF engines (the XLA engine's color blur and slice in
 ``kernels/csrc/crf_fused.cu``); MobileNetV2 block 0 runs through
-``kernels/csrc/fused_dw.cu``.
+``kernels/csrc/fused_dw.cu``.  And the serving surface: the ``Predictor``'s
+multi-scale and flip test-time augmentation, ``Predictor.predict_files`` and
+the HTTP batching server (``serve.BatchingServer``).  And the deployment
+surface: every serving kernel is a ``torch.library`` operator
+(``kernels/ops.py``), ``export.save_serving`` writes the pipeline as a
+``torch.export`` program with a symbolic batch and ``export.load_serving``
+runs it without the model code; ``config.Config`` and the command line
+(``python -m deeplab_tpu_torch.cli``, with the ``SegModel`` facade and the
+augmenting ``SegmentationGenerator`` behind ``evaluate``).
+
+``SegNet`` and ``Predictor`` are imported when first used, so that loading a
+serving artifact imports no model code.
 """
 
-from deeplab_tpu_torch.models.seg_model import SegNet
-from deeplab_tpu_torch.predictor import Predictor
-
 __all__ = ["SegNet", "Predictor"]
+
+
+def __getattr__(name):
+    if name == "SegNet":
+        from deeplab_tpu_torch.models.seg_model import SegNet
+        return SegNet
+    if name == "Predictor":
+        from deeplab_tpu_torch.predictor import Predictor
+        return Predictor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -254,8 +254,9 @@ class _CellLayout:
 
 
 class CellPlan(_CellLayout):
-    """Cell geometry of a (B, h, w) batch for the plane engine (the JAX
-    package's ``_PallasPlan``, without its TPU tile padding).
+    """Cell geometry of an (h, w) image for the plane engine (the JAX
+    package's ``_PallasPlan``, without its TPU tile padding), for any batch:
+    the batch size is read from the planes' shapes.
 
     Cells are anisotropic: for sxy >= 80 the x width snaps to 128 and the y
     height to the largest divisor of h within [sxy/2, sxy].  ``S`` (Z, Z)
@@ -263,11 +264,11 @@ class CellPlan(_CellLayout):
     kernels module turns into the joint (r, g) blur (the JAX ``Brg``) and
     the b-axis band."""
 
-    def __init__(self, B: int, h: int, w: int, sxy: float, srgb: float,
+    def __init__(self, h: int, w: int, sxy: float, srgb: float,
                  color_step: float, splat_stride: int = 1, ctaps=None,
                  device=None):
         ctaps = ctaps if ctaps is not None else _blur_taps(color_step)
-        self.B, self.h, self.w = B, h, w
+        self.h, self.w = h, w
         self.device = torch.device("cpu" if device is None else device)
         cs = max(int(round(sxy)), 1)
         self.cs_y = cs
@@ -303,12 +304,13 @@ class CellPlan(_CellLayout):
 
 
 @functools.lru_cache(maxsize=16)
-def cell_plan(B: int, h: int, w: int, cfg: CrfConfig, device) -> CellPlan:
-    """The plan of a (B, h, w) batch at ``cfg`` with its (Z, 1, P) spatial
+def cell_plan(h: int, w: int, cfg: CrfConfig, device) -> CellPlan:
+    """The plan of (h, w) images at ``cfg`` with its (Z, 1, P) spatial
     normalization planes ``gn`` (one image position each, shared by the
-    batch), built once: the matrices are copied to the device, and a copy
-    from pageable host memory waits for the device to drain."""
-    plan = CellPlan(B, h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
+    batch), built once for every batch size: the matrices are copied to the
+    device, and a copy from pageable host memory waits for the device to
+    drain.  A traced program (``export.py``) holds them as constants."""
+    plan = CellPlan(h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
                     cfg.splat_stride, ctaps=_cfg_color_taps(cfg),
                     device=device)
     gn = gaussian_norm((h, w), cfg.sxy_gaussian, plan.device)
@@ -447,6 +449,7 @@ def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
     Returns Q (B*Z, L, P) bf16.  The Q state, messages and the unary stream
     are bf16; every kernel computes in f32."""
     L = n_labels
+    B = rgb.shape[0] // plan.Z
     if unary_c is None:
         n_energy = -math.log((1.0 - cfg.gt_prob) / (n_labels - 1))
         p_energy = -math.log(cfg.gt_prob)
@@ -460,18 +463,18 @@ def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
     # _mean_field_planes), from A = bf16(Q * bf16(gn))
     on_planes = (len(taps) // 2 <= min(plan.cs_y, plan.cs_x)
                  and plan.cs_x % 128 == 0)
-    gn_bf = None if on_planes else gn_small.repeat(plan.B, 1, 1).to(
+    gn_bf = None if on_planes else gn_small.repeat(B, 1, 1).to(
         torch.bfloat16)
 
     def spatial(Q):
         if on_planes:
             return K.gaussian_blur_planes(
-                Q, gn_small, taps=taps, B=plan.B, ny=plan.ny, nx=plan.nx,
+                Q, gn_small, taps=taps, B=B, ny=plan.ny, nx=plan.nx,
                 cs_y=plan.cs_y, cs_x=plan.cs_x)
         return plan.cells_v(_sep_conv_bwh_to_bhw(
             plan.uncells_v_wh(Q * gn_bf, L), taps))
 
-    valid = plan.cells_v(torch.ones((plan.B, 1, plan.h, plan.w),
+    valid = plan.cells_v(torch.ones((B, 1, plan.h, plan.w),
                                     dtype=torch.float32, device=dev))
     geo = dict(nc=plan.nc, inv_step=plan.inv_step)
     s = plan.stride
@@ -576,7 +579,7 @@ def mean_field(im: torch.Tensor, unary: torch.Tensor, cfg: CrfConfig,
         if cfg.backend == "xla":
             return _mean_field_xla(im.to(torch.float32), unary, cfg,
                                    n_labels)
-        plan = cell_plan(1, h, w, cfg, dev)
+        plan = cell_plan(h, w, cfg, dev)
         rgb = plan.cells_v(im.to(torch.float32).permute(2, 0, 1)[None])
         u_c = plan.cells_v(unary.reshape(h, w, n_labels).permute(2, 0, 1)
                            [None])
@@ -637,7 +640,7 @@ def mean_field_batched(imgs: torch.Tensor, masks: torch.Tensor,
             Q = mean_field(im, U, cfg, n_labels)
             out.append(torch.argmax(Q, dim=-1).reshape(H, W))
         return torch.stack(out).to(torch.int32)
-    plan = cell_plan(B, H, W, cfg, dev)
+    plan = cell_plan(H, W, cfg, dev)
     # f32 products without TF32: the norm grid's cross-cell blur is the
     # cancellation-sensitive one
     with core.precision_flags(core.Policy(torch.float32)):

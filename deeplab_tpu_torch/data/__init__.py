@@ -1,4 +1,4 @@
-"""Host data pipeline (deeplab_tpu/data): in-memory batches, a prefetch
-thread, the image readers and the numpy resizes (``augment``).  The
-JPEG/PNG ``SegmentationGenerator`` and the augmentations are a later
-slice."""
+"""Host data pipeline (deeplab_tpu/data): the augmenting JPEG/PNG
+``SegmentationGenerator``, in-memory batches, a prefetch thread, the image
+readers, the numpy augmentations (``augment``), the balanced class weights
+and the VOC catalogue."""

@@ -1,19 +1,28 @@
-"""In-memory batches, a background prefetch thread and the image readers
-(the port's copy of ``ArrayBatcher``, ``Prefetcher``, ``_imread_bgr`` and
-``_imread_gray`` of deeplab_tpu/data/generator.py; PIL is imported by the
-readers, never with the module).
+"""Data pipeline (deeplab_tpu/data/generator.py): the augmenting
+``SegmentationGenerator`` over a VOC-layout folder with the reference's
+seeded split, in-memory batches, a background prefetch thread and the image
+readers (PIL is imported by the readers, never with the module).
 
 A batch is ``(X, Y, {"pred_mask": SW})``: X (b, H, W, 3) float BGR 0-255,
 Y (b, H*W, 1) labels (``n_classes`` is void), SW (b, H*W) per-pixel weights.
+The JAX generator's per-host sharding (its multi-host data parallelism) and
+its multi-process prefetcher are not ported.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import queue
+import random
 import threading
 from typing import Optional
 
 import numpy as np
+
+from deeplab_tpu_torch.data import augment as A
+from deeplab_tpu_torch.data.class_weights import (adaptive_pixel_weights,
+                                                  fg_bg_pixel_weights)
 
 
 def _imread_bgr(path: str) -> np.ndarray:
@@ -34,6 +43,160 @@ def _imread_gray(path: str) -> np.ndarray:
         if im.mode in ("P", "L"):
             return np.asarray(im.convert("L") if im.mode == "L" else im).copy()
         return np.asarray(im.convert("L")).copy()
+
+
+def reference_split(n_images: int, validation_split: float, seed: int,
+                    mode: str) -> np.ndarray:
+    """The reference's exact index selection (utils.py:268-276)."""
+    np.random.seed(seed)
+    n_select = round(n_images * validation_split)
+    x = np.random.permutation(n_images)[:n_select]
+    if mode == "train":
+        x = np.setxor1d(x, np.arange(n_images))
+    return x
+
+
+class SegmentationGenerator:
+    """Reference utils.py:257-423: batch generator with augmentation (JAX
+    ``SegmentationGenerator`` on one host).  ``__getitem__`` returns
+    ``(X, Y, {'pred_mask': SW})``: X raw 0-255 float32 BGR, Y flattened
+    (H*W, 1) labels with ids that resizing or warping introduced mapped to
+    void, SW the adaptive balanced per-pixel weights with void zeroed.
+    Augmentation, in the reference's order and with its draws from
+    ``random``: blur, resize or random crop, flips, gamma brightness, the
+    fused rotation and zoom warp, CLAHE on YUV-Y."""
+
+    def __init__(self, folder="/workspace/datasets/", mode="train",
+                 n_classes=21, batch_size=1, resize_shape=None,
+                 validation_split=0.1, seed=7, crop_shape=(640, 320),
+                 horizontal_flip=True, blur=0, vertical_flip=0,
+                 brightness=0.1, rotation=5.0, zoom=0.1, do_ahisteq=True):
+        self.blur = blur
+        self.histeq = do_ahisteq
+        self.image_path_list = sorted(
+            glob.glob(os.path.join(folder, "JPEGImages", "train", "*")))
+        self.label_path_list = sorted(
+            glob.glob(os.path.join(folder, "SegmentationClassAug", "*")))
+
+        x = reference_split(len(self.image_path_list), validation_split, seed,
+                            mode)
+        self.image_path_list = [self.image_path_list[j] for j in x]
+        self.label_path_list = [self.label_path_list[j] for j in x]
+
+        if mode == "test":
+            self.image_path_list = sorted(
+                glob.glob(os.path.join(folder, "JPEGImages", "test", "*")))[:100]
+
+        self.mode = mode
+        self.n_classes = n_classes
+        self.batch_size = batch_size
+        self.resize_shape = resize_shape      # (W, H), the cv2 order
+        self.crop_shape = crop_shape
+        self.horizontal_flip = horizontal_flip
+        self.vertical_flip = vertical_flip
+        self.brightness = brightness
+        self.rotation = rotation
+        self.zoom = zoom
+
+        if self.crop_shape:
+            w, h = crop_shape
+        elif self.resize_shape:
+            w, h = resize_shape
+        else:
+            raise Exception("No image dimensions specified!")
+        n_px = h * w
+        bs = batch_size
+        self.X = np.zeros((bs, h, w, 3), dtype="float32")
+        self.SW = np.zeros((bs, n_px), dtype="float32")
+        self.Y = np.zeros((bs, n_px, 1), dtype="float32")
+        self.F = np.zeros((bs, n_px, 1), dtype="float32")
+        self.F_SW = np.zeros((bs, n_px), dtype="float32")
+
+    def __len__(self):
+        return len(self.image_path_list) // self.batch_size
+
+    def _load_pair(self, image_path: str, label_path: str):
+        return _imread_bgr(image_path), _imread_gray(label_path)
+
+    def __getitem__(self, i):
+        bs = self.batch_size
+        pairs = zip(self.image_path_list[i * bs:(i + 1) * bs],
+                    self.label_path_list[i * bs:(i + 1) * bs])
+        for n, (image_path, label_path) in enumerate(pairs):
+            image, label = self._load_pair(image_path, label_path)
+            labels_present = np.unique(label)
+
+            if self.blur and random.randint(0, 1):
+                image = A.gaussian_blur(image, self.blur)
+
+            if self.resize_shape and not self.crop_shape:
+                image = A.resize_bilinear(image, self.resize_shape)
+                label = A.resize_nearest(label, self.resize_shape)
+
+            if self.crop_shape:
+                image, label = _random_crop(image, label, self.crop_shape)
+
+            if self.horizontal_flip and random.randint(0, 1):
+                image = A.flip_horizontal(image)
+                label = A.flip_horizontal(label)
+            if self.vertical_flip and random.randint(0, 1):
+                image = A.flip_vertical(image)
+                label = A.flip_vertical(label)
+            if self.brightness:
+                factor = 1.0 + random.gauss(mu=0.0, sigma=self.brightness)
+                if random.randint(0, 1):
+                    factor = 1.0 / factor
+                image = A.apply_lut(image, A.gamma_lut(factor))
+            angle = random.gauss(mu=0.0, sigma=self.rotation) if self.rotation \
+                else 0.0
+            scale = random.gauss(mu=1.0, sigma=self.zoom) if self.zoom else 1.0
+            if self.rotation or self.zoom:
+                h_, w_ = image.shape[:2]
+                M = A.rotation_matrix((w_ // 2, h_ // 2), angle, scale)
+                image = A.warp_affine(image, M, (w_, h_))
+                # the reference warps labels with bilinear too (utils.py:353);
+                # interpolation-born ids are voided below.
+                label = A.warp_affine(label, M, (w_, h_))
+
+            if self.histeq:
+                image = A.clahe_bgr(image)
+
+            label = label.astype("int32")
+            # label hygiene (utils.py:360-365): ids not present pre-resize
+            # become void.
+            for j in np.setxor1d(np.unique(label), labels_present):
+                label[label == j] = self.n_classes
+            y = label.flatten()
+            y[y > (self.n_classes - 1)] = self.n_classes
+
+            self.Y[n] = np.expand_dims(y, -1)
+            self.F[n] = (self.Y[n] != 0).astype("float32")
+            self.F_SW[n] = fg_bg_pixel_weights(y, self.n_classes)
+            self.X[n] = image
+            self.SW[n] = adaptive_pixel_weights(y, self.n_classes)
+
+        return self.X, self.Y, {"pred_mask": self.SW}
+
+    def on_epoch_end(self):
+        c = list(zip(self.image_path_list, self.label_path_list))
+        if not c:  # an empty dataset: nothing to shuffle
+            return
+        random.shuffle(c)
+        self.image_path_list, self.label_path_list = zip(*c)
+
+
+def _random_crop(image, label, crop_shape):
+    """Reference utils.py:411-423."""
+    if (image.shape[0] != label.shape[0]) or (image.shape[1] != label.shape[1]):
+        raise Exception("Image and label must have the same dimensions!")
+    if (crop_shape[0] < image.shape[1]) and (crop_shape[1] < image.shape[0]):
+        x = random.randrange(image.shape[1] - crop_shape[0])
+        y = random.randrange(image.shape[0] - crop_shape[1])
+        return (image[y:y + crop_shape[1], x:x + crop_shape[0], :],
+                label[y:y + crop_shape[1], x:x + crop_shape[0]])
+    image = A.resize_bilinear(image, crop_shape)
+    label = A.resize_nearest(label, crop_shape)
+    return image, label
 
 
 class ArrayBatcher:

@@ -46,6 +46,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplab_tpu_torch.kernels import ops as OPS
+
 # Packed per-pixel attribute rows of the (Z, 8, P) f32 attrs planes.
 ATTR_RGB = 0      # rows 0-2: r, g, b in 0-255
 ATTR_GN = 3       # spatial-Gaussian normalization 1/sqrt(ksum)
@@ -446,6 +448,11 @@ def _color_taps_host(ctaps: tuple) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([rg, t]), np.float32)
 
 
+def _floats(taps) -> list:
+    """Taps as the operators' ``float[]`` argument."""
+    return [float(t) for t in taps]
+
+
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -455,9 +462,11 @@ def splat_planes(rgb, values, *, nc: int, L: int, inv_step: float,
     """Same arguments as :func:`splat_planes_reference`.  The kernel takes
     f32 values with an f32 grid (the norm pass) or bf16 values with a bf16
     grid (the iterations)."""
-    if not _on_cuda(rgb, "splat_planes"):
-        return splat_planes_reference(rgb, values, nc=nc, L=L,
-                                      inv_step=inv_step, out_dtype=out_dtype)
+    _on_cuda(rgb, "splat_planes")
+    return _splat_op(rgb, values, nc, L, inv_step, out_dtype)
+
+
+def _splat_cuda(rgb, values, nc, L, inv_step, out_dtype):
     Z, rows, P = rgb.shape
     dev = rgb.device
     _check_grid(nc, inv_step, L)
@@ -486,10 +495,14 @@ def slice_attrs_planes(rgb, grid, gn, labels, *, nc: int, L: int,
                        cs_x: int, h: int, w: int, nx: int, Z: int,
                        gt_prob: float):
     """Same arguments as :func:`slice_attrs_planes_reference`."""
-    kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps, stride=stride,
-              cs_y=cs_y, cs_x=cs_x, h=h, w=w, nx=nx, Z=Z, gt_prob=gt_prob)
-    if not _on_cuda(rgb, "slice_attrs_planes"):
-        return slice_attrs_planes_reference(rgb, grid, gn, labels, **kw)
+    _on_cuda(rgb, "slice_attrs_planes")
+    return tuple(_slice_attrs_op(rgb, grid, gn, labels, nc, L, inv_step,
+                                 _floats(ctaps), stride, cs_y, cs_x, h, w,
+                                 nx, Z, gt_prob))
+
+
+def _slice_attrs_cuda(rgb, grid, gn, labels, nc, L, inv_step, ctaps, stride,
+                      cs_y, cs_x, h, w, nx, Z, gt_prob):
     BZ, _, P = rgb.shape
     dev = rgb.device
     _check_grid(nc, inv_step, L)
@@ -521,8 +534,8 @@ def slice_attrs_planes(rgb, grid, gn, labels, *, nc: int, L: int,
     _ok(lib, rc, "slice_attrs_planes")
     slice_attrs_planes.launches += 1
     if stride == 1:
-        return attrs, q0
-    return attrs, q0, attrs_s, q0_s
+        return [attrs, q0]
+    return [attrs, q0, attrs_s, q0_s]
 
 
 # Launch geometry of the row kernel (csrc/crf_fused.cu ``blur_kernel``),
@@ -990,8 +1003,7 @@ def gaussian_blur_planes(a, gn, *, taps, B: int, ny: int, nx: int,
     (B*Z, 1, P)) :func:`gaussian_blur_y_planes` then
     :func:`gaussian_blur_x_planes`, which compute the same function."""
     kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
-    if not _on_cuda(a, "gaussian_blur_planes"):
-        return gaussian_blur_planes_reference(a, gn, **kw)
+    _on_cuda(a, "gaussian_blur_planes")
     if not row_kernel_fits(taps, cs_x, gn.shape[0] != ny * nx):
         return gaussian_blur_x_planes(gaussian_blur_y_planes(a, gn, **kw),
                                       **kw)
@@ -1004,7 +1016,11 @@ def blur_rows(a, gn, *, taps, B: int, ny: int, nx: int, cs_y: int,
     takes (cells whose width is a multiple of 4, a radius up to 16 within
     one cell, gn (Z, 1, P)), whether or not :func:`row_kernel_fits`; each
     launch counts in ``gaussian_blur_planes.launches``.  Its geometry is
-    :func:`blur_plan`'s."""
+    :func:`blur_plan`'s.  A CPU tensor runs the plain version."""
+    return _blur_rows_op(a, gn, _floats(taps), B, ny, nx, cs_y, cs_x)
+
+
+def _blur_rows_cuda(a, gn, taps, B, ny, nx, cs_y, cs_x):
     if cs_x % 4:
         raise ValueError(f"the row kernel takes cells whose width is a "
                          f"multiple of 4, not {cs_x}")
@@ -1029,9 +1045,11 @@ def gaussian_blur_y_planes(a, gn, *, taps, B: int, ny: int, nx: int,
     """Same arguments as :func:`gaussian_blur_y_planes_reference`; the
     kernel takes bf16 ``a``, any cell geometry and a radius within one cell
     (at most 128)."""
-    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
-    if not _on_cuda(a, "gaussian_blur_y_planes"):
-        return gaussian_blur_y_planes_reference(a, gn, **kw)
+    _on_cuda(a, "gaussian_blur_y_planes")
+    return _blur_y_op(a, gn, _floats(taps), B, ny, nx, cs_y, cs_x)
+
+
+def _blur_y_cuda(a, gn, taps, B, ny, nx, cs_y, cs_x):
     per_image = _blur_geometry(a, gn, taps, B, ny, nx, cs_y, cs_x,
                                MAX_YX_TAPS)
     tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
@@ -1051,9 +1069,11 @@ def gaussian_blur_x_planes(f, *, taps, B: int, ny: int, nx: int, cs_y: int,
                            cs_x: int):
     """Same arguments as :func:`gaussian_blur_x_planes_reference`; the
     kernel takes bf16 ``f``."""
-    kw = dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
-    if not _on_cuda(f, "gaussian_blur_x_planes"):
-        return gaussian_blur_x_planes_reference(f, **kw)
+    _on_cuda(f, "gaussian_blur_x_planes")
+    return _blur_x_op(f, _floats(taps), B, ny, nx, cs_y, cs_x)
+
+
+def _blur_x_cuda(f, taps, B, ny, nx, cs_y, cs_x):
     _blur_geometry(f, None, taps, B, ny, nx, cs_y, cs_x, MAX_YX_TAPS)
     tb = _bf(torch.tensor(taps, dtype=_F32)).numpy()
     out = torch.empty_like(f)
@@ -1074,13 +1094,10 @@ def mf_step_planes(attrs, grid, f_gauss, q, unary=None, *, nc: int, L: int,
                    sub_stride: int = 1, cs_y: int = 0, cs_x: int = 0):
     """Same arguments as :func:`mf_step_planes_reference`.  The kernels'
     form is :func:`step_plan`'s (:func:`mf_step_with_plan`)."""
-    kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps, cg=cg, cb=cb,
-              n_energy=n_energy, p_energy=p_energy, sub_stride=sub_stride,
-              cs_y=cs_y, cs_x=cs_x)
-    if not _on_cuda(attrs, "mf_step_planes"):
-        return mf_step_planes_reference(attrs, grid, f_gauss, q, unary, **kw)
-    plan = step_plan(attrs.shape[0], attrs.shape[2], nc, L)
-    return mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary, **kw)
+    _on_cuda(attrs, "mf_step_planes")
+    return tuple(_mf_step_op(attrs, grid, f_gauss, q, unary, nc, L, inv_step,
+                             _floats(ctaps), cg, cb, n_energy, p_energy,
+                             sub_stride, cs_y, cs_x))
 
 
 def mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary=None, *, nc: int,
@@ -1089,7 +1106,25 @@ def mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary=None, *, nc: int,
                       sub_stride: int = 1, cs_y: int = 0, cs_x: int = 0):
     """Launch the step's kernels on CUDA tensors in the form ``plan`` (a
     :class:`StepPlan`) names, whether or not :func:`step_plan` would choose
-    it; each launch counts in ``mf_step_planes.launches``."""
+    it; each launch counts in ``mf_step_planes.launches``.  A CPU tensor
+    runs the plain version."""
+    return tuple(_mf_step_plan_op(
+        attrs, grid, f_gauss, q, unary, nc, L, inv_step, _floats(ctaps), cg,
+        cb, n_energy, p_energy, sub_stride, cs_y, cs_x, plan.fused, plan.lb,
+        plan.splits, plan.lp, plan.smem))
+
+
+def _mf_step_cuda(attrs, grid, f_gauss, q, unary, nc, L, inv_step, ctaps,
+                  cg, cb, n_energy, p_energy, sub_stride, cs_y, cs_x):
+    plan = step_plan(attrs.shape[0], attrs.shape[2], nc, L)
+    return _mf_step_launch(plan, attrs, grid, f_gauss, q, unary, nc, L,
+                           inv_step, ctaps, cg, cb, n_energy, p_energy,
+                           sub_stride, cs_y, cs_x)
+
+
+def _mf_step_launch(plan, attrs, grid, f_gauss, q, unary, nc, L, inv_step,
+                    ctaps, cg, cb, n_energy, p_energy, sub_stride, cs_y,
+                    cs_x):
     Z, _, P = attrs.shape
     dev = attrs.device
     _check_grid(nc, inv_step, L)
@@ -1125,17 +1160,17 @@ def mf_step_with_plan(plan, attrs, grid, f_gauss, q, unary=None, *, nc: int,
         inv_step, cg, cb, n_energy, p_energy, _stream(attrs))
     _ok(lib, rc, "mf_step_planes")
     mf_step_planes.launches += 1
-    if sub is not None:
-        return out, sub
-    return (out,)
+    return [out] if sub is None else [out, sub]
 
 
 def slice_planes(rgb, grid, *, nc: int, L: int, inv_step: float, ctaps):
     """Same arguments as :func:`slice_planes_reference`; one kernel in
     :func:`slice_plan`'s geometry."""
-    kw = dict(nc=nc, L=L, inv_step=inv_step, ctaps=ctaps)
-    if not _on_cuda(rgb, "slice_planes"):
-        return slice_planes_reference(rgb, grid, **kw)
+    _on_cuda(rgb, "slice_planes")
+    return _slice_op(rgb, grid, nc, L, inv_step, _floats(ctaps))
+
+
+def _slice_cuda(rgb, grid, nc, L, inv_step, ctaps):
     Z, _, P = rgb.shape
     dev = rgb.device
     _check_grid(nc, inv_step, L)
@@ -1162,6 +1197,118 @@ gaussian_blur_y_planes.launches = 0
 gaussian_blur_x_planes.launches = 0
 mf_step_planes.launches = 0
 slice_planes.launches = 0
+
+
+# ------------------------------------------------------------ operators ----
+# Each launch above as a ``deeplab_tpu_torch::`` operator (kernels/ops.py):
+# the CUDA implementation launches, the CPU one runs the plain version, the
+# fake one gives the outputs' shapes and dtypes from the inputs' alone.
+
+def _contiguous(outs):
+    return [t.contiguous() for t in outs]
+
+
+def _slice_attrs_fake(rgb, grid, gn, labels, nc, L, inv_step, ctaps, stride,
+                      cs_y, cs_x, h, w, nx, Z, gt_prob):
+    BZ, _, P = rgb.shape
+    outs = [rgb.new_empty((BZ, ATTR_ROWS, P), dtype=_F32),
+            rgb.new_empty((BZ, L, P), dtype=_BF16)]
+    if stride > 1:
+        Ps = P // (stride * stride)
+        outs += [rgb.new_empty((BZ, ATTR_ROWS, Ps), dtype=_F32),
+                 rgb.new_empty((BZ, L, Ps), dtype=_BF16)]
+    return outs
+
+
+def _mf_step_fake(attrs, grid, f_gauss, q, unary, nc, L, inv_step, ctaps,
+                  cg, cb, n_energy, p_energy, sub_stride, cs_y, cs_x, *plan):
+    Z, _, P = q.shape
+    outs = [torch.empty_like(q)]
+    if sub_stride > 1:
+        outs.append(q.new_empty((Z, L, P // (sub_stride * sub_stride))))
+    return outs
+
+
+def _mf_step_cpu(attrs, grid, f_gauss, q, unary, nc, L, inv_step, ctaps, cg,
+                 cb, n_energy, p_energy, sub_stride, cs_y, cs_x, *plan):
+    return _contiguous(mf_step_planes_reference(
+        attrs, grid, f_gauss, q, unary, nc=nc, L=L, inv_step=inv_step,
+        ctaps=ctaps, cg=cg, cb=cb, n_energy=n_energy, p_energy=p_energy,
+        sub_stride=sub_stride, cs_y=cs_y, cs_x=cs_x))
+
+
+def _mf_step_plan_cuda(attrs, grid, f_gauss, q, unary, nc, L, inv_step,
+                       ctaps, cg, cb, n_energy, p_energy, sub_stride, cs_y,
+                       cs_x, fused, lb, splits, lp, smem):
+    return _mf_step_launch(StepPlan(fused, lb, splits, lp, smem), attrs,
+                           grid, f_gauss, q, unary, nc, L, inv_step, ctaps,
+                           cg, cb, n_energy, p_energy, sub_stride, cs_y, cs_x)
+
+
+_BLUR_ARGS = "float[] taps, SymInt B, int ny, int nx, int cs_y, int cs_x"
+_STEP_ARGS = ("Tensor attrs, Tensor grid, Tensor f_gauss, Tensor q, "
+              "Tensor? unary, int nc, int L, float inv_step, float[] ctaps, "
+              "float cg, float cb, float n_energy, float p_energy, "
+              "int sub_stride, int cs_y, int cs_x")
+
+
+def _blur_kw(taps, B, ny, nx, cs_y, cs_x):
+    return dict(taps=taps, B=B, ny=ny, nx=nx, cs_y=cs_y, cs_x=cs_x)
+
+
+_splat_op = OPS.define(
+    "splat_planes(Tensor rgb, Tensor values, int nc, int L, float inv_step, "
+    "ScalarType out_dtype) -> Tensor",
+    cuda=_splat_cuda,
+    cpu=lambda rgb, values, nc, L, inv_step, out_dtype:
+        splat_planes_reference(rgb, values, nc=nc, L=L, inv_step=inv_step,
+                               out_dtype=out_dtype).contiguous(),
+    fake=lambda rgb, values, nc, L, inv_step, out_dtype: rgb.new_empty(
+        (rgb.shape[0], nc * L, nc * nc), dtype=out_dtype))
+_slice_attrs_op = OPS.define(
+    "slice_attrs_planes(Tensor rgb, Tensor grid, Tensor gn, Tensor labels, "
+    "int nc, int L, float inv_step, float[] ctaps, int stride, int cs_y, "
+    "int cs_x, int h, int w, int nx, int Z, float gt_prob) -> Tensor[]",
+    cuda=_slice_attrs_cuda,
+    cpu=lambda rgb, grid, gn, labels, nc, L, inv_step, ctaps, stride, cs_y,
+    cs_x, h, w, nx, Z, gt_prob: _contiguous(slice_attrs_planes_reference(
+        rgb, grid, gn, labels, nc=nc, L=L, inv_step=inv_step, ctaps=ctaps,
+        stride=stride, cs_y=cs_y, cs_x=cs_x, h=h, w=w, nx=nx, Z=Z,
+        gt_prob=gt_prob)),
+    fake=_slice_attrs_fake)
+_blur_rows_op = OPS.define(
+    f"blur_rows(Tensor a, Tensor gn, {_BLUR_ARGS}) -> Tensor",
+    cuda=_blur_rows_cuda,
+    cpu=lambda a, gn, *geo: gaussian_blur_planes_reference(
+        a, gn, **_blur_kw(*geo)).contiguous(),
+    fake=lambda a, gn, *geo: torch.empty_like(a))
+_blur_y_op = OPS.define(
+    f"gaussian_blur_y_planes(Tensor a, Tensor gn, {_BLUR_ARGS}) -> Tensor",
+    cuda=_blur_y_cuda,
+    cpu=lambda a, gn, *geo: gaussian_blur_y_planes_reference(
+        a, gn, **_blur_kw(*geo)).contiguous(),
+    fake=lambda a, gn, *geo: torch.empty_like(a))
+_blur_x_op = OPS.define(
+    f"gaussian_blur_x_planes(Tensor f, {_BLUR_ARGS}) -> Tensor",
+    cuda=_blur_x_cuda,
+    cpu=lambda f, *geo: gaussian_blur_x_planes_reference(
+        f, **_blur_kw(*geo)).contiguous(),
+    fake=lambda f, *geo: torch.empty_like(f))
+_mf_step_op = OPS.define(
+    f"mf_step_planes({_STEP_ARGS}) -> Tensor[]",
+    cuda=_mf_step_cuda, cpu=_mf_step_cpu, fake=_mf_step_fake)
+_mf_step_plan_op = OPS.define(
+    f"mf_step_with_plan({_STEP_ARGS}, bool fused, int lb, int splits, "
+    f"int lp, int smem) -> Tensor[]",
+    cuda=_mf_step_plan_cuda, cpu=_mf_step_cpu, fake=_mf_step_fake)
+_slice_op = OPS.define(
+    "slice_planes(Tensor rgb, Tensor grid, int nc, int L, float inv_step, "
+    "float[] ctaps) -> Tensor",
+    cuda=_slice_cuda,
+    cpu=lambda rgb, grid, nc, L, inv_step, ctaps: slice_planes_reference(
+        rgb, grid, nc=nc, L=L, inv_step=inv_step, ctaps=ctaps).contiguous(),
+    fake=lambda rgb, grid, nc, L, inv_step, ctaps: rgb.new_empty(
+        (rgb.shape[0], L, rgb.shape[2]), dtype=_F32))
 
 
 # ---------------------------------------- kernels against plain versions ----

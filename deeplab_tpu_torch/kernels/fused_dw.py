@@ -30,6 +30,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from deeplab_tpu_torch.kernels import ops as OPS
+
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 # Launch geometry of csrc/fused_dw.cu, decided here and checked there.
@@ -185,13 +187,16 @@ def fused_dw_bn_relu6_reference(x, dw_kernel, scale, shift, rate: int = 1,
 def fused_dw_bn_relu6(x, dw_kernel, scale, shift, rate: int = 1,
                       relu6: bool = True):
     """Same arguments as :func:`fused_dw_bn_relu6_reference`.  The kernel
-    takes f32 or bf16 x, f32 taps and affine, all contiguous on x's card."""
-    if x.device.type == "cpu":
-        return fused_dw_bn_relu6_reference(x, dw_kernel, scale, shift,
-                                           rate=rate, relu6=relu6)
-    if x.device.type != "cuda":
+    takes f32 or bf16 x, f32 taps and affine, all contiguous on x's card.
+    One call is one ``deeplab_tpu_torch::fused_dw_bn_relu6`` operator."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_dw_bn_relu6 runs on cuda or cpu, not "
                          f"{x.device}")
+    return _fused_dw_op(x, dw_kernel, scale, shift, rate, relu6)
+
+
+def _fused_dw_cuda(x, dw_kernel, scale, shift, rate, relu6):
+    """The operator's CUDA implementation: check, plan and launch."""
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x: want (B, H, W, C) f32 or bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -226,3 +231,11 @@ def fused_dw_bn_relu6(x, dw_kernel, scale, shift, rate: int = 1,
 
 
 fused_dw_bn_relu6.launches = 0
+_fused_dw_op = OPS.define(
+    "fused_dw_bn_relu6(Tensor x, Tensor dw_kernel, Tensor scale, "
+    "Tensor shift, int rate, bool relu6) -> Tensor",
+    cuda=_fused_dw_cuda,
+    cpu=lambda x, dw_kernel, scale, shift, rate, relu6:
+        fused_dw_bn_relu6_reference(x, dw_kernel, scale, shift, rate=rate,
+                                    relu6=relu6).contiguous(),
+    fake=lambda x, dw_kernel, scale, shift, rate, relu6: torch.empty_like(x))

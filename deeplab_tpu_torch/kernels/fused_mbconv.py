@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from deeplab_tpu_torch.kernels import ops as OPS
 from deeplab_tpu_torch.ops.bn import bn_scale_shift
 
 _SIGS = {"fused_mbconv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
@@ -399,12 +400,16 @@ def fused_mbconv_reference(x, w1, b1, wdw, bdw, w2, b2, *, rate: int,
 def fused_mbconv(x, w1, b1, wdw, bdw, w2, b2, *, rate: int, skip: bool,
                  mxu_bf16: bool = False):
     """Same arguments as :func:`fused_mbconv_reference`.  A CUDA tensor runs
-    the kernel (or raises); a CPU tensor runs the plain version."""
-    if x.device.type == "cpu":
-        return fused_mbconv_reference(x, w1, b1, wdw, bdw, w2, b2, rate=rate,
-                                      skip=skip, mxu_bf16=mxu_bf16)
-    if x.device.type != "cuda":
+    the kernel (or raises); a CPU tensor runs the plain version.  One call
+    is one ``deeplab_tpu_torch::fused_mbconv`` operator."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mbconv runs on cuda or cpu, not {x.device}")
+    return _fused_mbconv_op(x, w1, b1, wdw, bdw, w2, b2, rate, skip,
+                            mxu_bf16)
+
+
+def _fused_mbconv_cuda(x, w1, b1, wdw, bdw, w2, b2, rate, skip, mxu_bf16):
+    """The operator's CUDA implementation: check, plan and launch."""
     B, H, W, Cin = x.shape
     Ce, Cout = w1.shape[1], w2.shape[1]
     if x.dtype == torch.float32 and not mxu_bf16:
@@ -444,6 +449,15 @@ def fused_mbconv(x, w1, b1, wdw, bdw, w2, b2, *, rate: int, skip: bool,
 
 
 fused_mbconv.launches = 0
+_fused_mbconv_op = OPS.define(
+    "fused_mbconv(Tensor x, Tensor w1, Tensor b1, Tensor wdw, Tensor bdw, "
+    "Tensor w2, Tensor b2, int rate, bool skip, bool mxu_bf16) -> Tensor",
+    cuda=_fused_mbconv_cuda,
+    cpu=lambda x, w1, b1, wdw, bdw, w2, b2, rate, skip, mxu_bf16:
+        fused_mbconv_reference(x, w1, b1, wdw, bdw, w2, b2, rate=rate,
+                               skip=skip, mxu_bf16=mxu_bf16).contiguous(),
+    fake=lambda x, w1, b1, wdw, bdw, w2, b2, rate, skip, mxu_bf16:
+        x.new_empty(tuple(x.shape[:3]) + (w2.shape[1],)))
 
 
 def fold_block(net, prefix: str, policy):
@@ -506,13 +520,17 @@ def fused_sepconv_reference(x, wdw, bdw, wpw, bpw, *, rate: int,
 def fused_sepconv(x, wdw, bdw, wpw, bpw, *, rate: int, pre_relu: bool,
                   act_mid: bool, act_out: bool, mxu_bf16: bool = False):
     """Same arguments as :func:`fused_sepconv_reference`.  A CUDA tensor
-    runs the kernel (or raises); a CPU tensor runs the plain version."""
-    if x.device.type == "cpu":
-        return fused_sepconv_reference(
-            x, wdw, bdw, wpw, bpw, rate=rate, pre_relu=pre_relu,
-            act_mid=act_mid, act_out=act_out, mxu_bf16=mxu_bf16)
-    if x.device.type != "cuda":
+    runs the kernel (or raises); a CPU tensor runs the plain version.  One
+    call is one ``deeplab_tpu_torch::fused_sepconv`` operator."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_sepconv runs on cuda or cpu, not {x.device}")
+    return _fused_sepconv_op(x, wdw, bdw, wpw, bpw, rate, pre_relu, act_mid,
+                             act_out, mxu_bf16)
+
+
+def _fused_sepconv_cuda(x, wdw, bdw, wpw, bpw, rate, pre_relu, act_mid,
+                        act_out, mxu_bf16):
+    """The operator's CUDA implementation: check, plan and launch."""
     B, H, W, Cin = x.shape
     Cout = wpw.shape[1]
     if x.dtype == torch.float32 and not mxu_bf16:
@@ -552,6 +570,17 @@ def fused_sepconv(x, wdw, bdw, wpw, bpw, *, rate: int, pre_relu: bool,
 
 
 fused_sepconv.launches = 0
+_fused_sepconv_op = OPS.define(
+    "fused_sepconv(Tensor x, Tensor wdw, Tensor bdw, Tensor wpw, Tensor bpw, "
+    "int rate, bool pre_relu, bool act_mid, bool act_out, bool mxu_bf16) "
+    "-> Tensor",
+    cuda=_fused_sepconv_cuda,
+    cpu=lambda x, wdw, bdw, wpw, bpw, rate, pre_relu, act_mid, act_out,
+    mxu_bf16: fused_sepconv_reference(
+        x, wdw, bdw, wpw, bpw, rate=rate, pre_relu=pre_relu,
+        act_mid=act_mid, act_out=act_out, mxu_bf16=mxu_bf16).contiguous(),
+    fake=lambda x, wdw, bdw, wpw, bpw, rate, pre_relu, act_mid, act_out,
+    mxu_bf16: x.new_empty(tuple(x.shape[:3]) + (wpw.shape[1],)))
 
 
 def fold_sepconv(net, prefix: str, policy):

@@ -10,11 +10,15 @@ truncates it (models/deeplabv3p.py), then one of two heads:
 
 Every layer is a submodule named after its Keras layer, so loading weights
 is a walk over names (params.py).
+
+``SegModel`` is the reference's facade around it (JAX ``SegModel``): the
+net, its weight file and the data generators.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
 import torch
 from torch import nn
@@ -135,3 +139,88 @@ class SegNet(nn.Module):
         with core.precision_flags(policy):
             logits = self._logits_nchw(img, policy)
         return torch.argmax(logits, dim=1).to(torch.int32)
+
+
+_A7 = ("is not ported yet: it comes with ROADMAP A7 (train-state "
+       "checkpoints, ModelCheckpoint and the card's weight-file format)")
+
+
+class SegModel:
+    """Reference utils.py:160-254 facade (JAX ``SegModel``): the image size,
+    the dataset folder and the batch settings, ``create_seg_model`` (a
+    :class:`SegNet`, seeded, optionally loading
+    ``weights/{backbone}_{net}.h5``) and ``create_generators`` (a
+    ``SegmentationGenerator``).  Training
+    through the facade (``train_generator``, ``build_callbacks``,
+    ``train``) raises ``NotImplementedError``."""
+
+    epochs = 20
+    batch_size = 16
+
+    def __init__(self, dataset="VOCdevkit/VOC2012", image_size=(320, 320)):
+        self.sz = tuple(image_size)
+        self.mainpath = dataset
+        self.crop = False
+        self.net = None
+        self.model: SegNet = None
+
+    def create_seg_model(self, net, n=21, backbone="mobilenetv2",
+                         load_weights=False, multi_gpu=False, seed=0, OS=16,
+                         alpha=1.0):
+        """Build the truncated trunk and head; returns the :class:`SegNet`
+        (also kept as ``self.model``).  ``seed`` takes the place of the JAX
+        ``rng``."""
+        self.net = net
+        self.modelpath = f"weights/{backbone}_{net}.h5"
+        model = SegNet(self.sz, n, backbone, net, OS=OS, alpha=alpha,
+                       seed=seed)
+        if load_weights:
+            self._load_h5(model, self.modelpath)
+        self.model = model
+        self.multi_gpu = multi_gpu
+        return model
+
+    def _load_h5(self, model, path):
+        from deeplab_tpu_torch.params import load_keras_h5
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        return load_keras_h5(path, model)
+
+    def load_weights(self, model=None):
+        """Load ``self.modelpath`` into ``model`` (by default the facade's
+        net); returns the net."""
+        return self._load_h5(model if model is not None else self.model,
+                             self.modelpath)
+
+    def create_generators(self, crop_shape=False, mode="train",
+                          do_ahisteq=True, n_classes=21, horizontal_flip=True,
+                          vertical_flip=False, blur=False, with_bg=True,
+                          brightness=0.1, rotation=5.0, zoom=0.1,
+                          validation_split=0.2, seed=7):
+        from deeplab_tpu_torch.data.generator import SegmentationGenerator
+        return SegmentationGenerator(
+            folder=self.mainpath, mode=mode, n_classes=n_classes,
+            do_ahisteq=do_ahisteq, batch_size=self.batch_size,
+            resize_shape=self.sz[::-1], crop_shape=crop_shape,
+            horizontal_flip=horizontal_flip, vertical_flip=vertical_flip,
+            blur=blur, brightness=brightness, rotation=rotation, zoom=zoom,
+            validation_split=validation_split, seed=seed)
+
+    def train_generator(self, *args, **kw):
+        raise NotImplementedError(f"SegModel.train_generator (its worker "
+                                  f"pool and callbacks) {_A7}")
+
+    def build_callbacks(self, *args, **kw):
+        raise NotImplementedError(f"SegModel.build_callbacks (TensorBoard, "
+                                  f"ModelCheckpoint) {_A7}")
+
+    def train(self, *args, **kw):
+        raise NotImplementedError(f"SegModel.train {_A7}")
+
+    @classmethod
+    def set_num_epochs(cls, new_epochs):
+        cls.epochs = new_epochs
+
+    @classmethod
+    def set_batch_size(cls, new_batch_size):
+        cls.batch_size = new_batch_size

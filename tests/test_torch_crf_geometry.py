@@ -160,7 +160,7 @@ def _plans(cfg, B, h, w, imgs=None):
         imgs = np.zeros((B, h, w, 3), np.float32)
     jp = JDC._PallasPlan(jnp.asarray(imgs), cfg.sxy_bilateral, cfg.srgb,
                          cfg.color_step, cfg.splat_stride, ctaps=ctaps)
-    tp = TDC.CellPlan(B, h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
+    tp = TDC.CellPlan(h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
                       cfg.splat_stride, ctaps=TDC._cfg_color_taps(cfg))
     return jp, tp
 
@@ -295,7 +295,7 @@ def test_do_crf_at_cell_height_75_matches_jax():
     """150x200 at CrfConfig(): cs_y = 75, the VOC cell height."""
     im, mask = make_scene(150, 200, 5, 13)
     mask = np.where(mask == 3, 17, mask)              # sparse ids
-    plan = TDC.CellPlan(1, 150, 200, 80.0, 13.0, 1.0)
+    plan = TDC.CellPlan(150, 200, 80.0, 13.0, 1.0)
     assert plan.cs_y == 75
     got = TCRF.do_crf(im, mask, zero_unsure=False, cfg=TCRF.CrfConfig(),
                       device="cpu")

@@ -71,7 +71,7 @@ def _plans(cfg, b, h, w, imgs=None):
         imgs = np.zeros((b, h, w, 3), np.float32)
     jp = JDC._PallasPlan(jnp.asarray(imgs), cfg.sxy_bilateral, cfg.srgb,
                          cfg.color_step, cfg.splat_stride, ctaps=ctaps)
-    tp = TDC.CellPlan(b, h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
+    tp = TDC.CellPlan(h, w, cfg.sxy_bilateral, cfg.srgb, cfg.color_step,
                       cfg.splat_stride, ctaps=TDC._cfg_color_taps(cfg))
     return jp, tp
 

@@ -71,3 +71,40 @@ def test_serving_modules_leave_pil_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_package_and_loader_import_no_model_code():
+    """``import deeplab_tpu_torch`` and the artifact loader's imports (the
+    export module and every kernel operator) leave the model, the CRF and
+    the Predictor unimported: ``SegNet`` and ``Predictor`` load when first
+    named."""
+    code = ("import sys, deeplab_tpu_torch, deeplab_tpu_torch.export as E; "
+            "E.OPS.load_all(); print(sorted(m for m in sys.modules if "
+            "m.startswith(('deeplab_tpu_torch.models', "
+            "'deeplab_tpu_torch.crf', 'deeplab_tpu_torch.predictor')))); "
+            "deeplab_tpu_torch.SegNet; print('deeplab_tpu_torch.predictor' "
+            "in sys.modules, 'deeplab_tpu_torch.models.seg_model' in "
+            "sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["[]", "False True"], out.stdout
+    import deeplab_tpu_torch
+    with pytest.raises(AttributeError):
+        deeplab_tpu_torch.NoSuchName
+
+
+def test_every_serving_kernel_is_an_operator():
+    """Each serving launch is a ``deeplab_tpu_torch::`` operator with CPU,
+    CUDA and fake implementations."""
+    from deeplab_tpu_torch.kernels import ops
+    ops.load_all()
+    names = ("fused_mbconv", "fused_sepconv", "fused_dw_bn_relu6",
+             "splat_planes", "slice_attrs_planes", "blur_rows",
+             "gaussian_blur_y_planes", "gaussian_blur_x_planes",
+             "mf_step_planes", "mf_step_with_plan", "slice_planes")
+    for name in names:
+        qual = f"{ops.NAMESPACE}::{name}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(qual, key), \
+                (qual, key)

@@ -189,7 +189,7 @@ def _row_blur_geometries():
         taps = DC._gauss_taps(cfg.sxy_gaussian)
         for h in list(range(128, 1025, 8)) + list(VOC_HEIGHTS):
             for w in (128, 500, 1024):
-                plan = DC.CellPlan(1, h, w, cfg.sxy_bilateral, cfg.srgb,
+                plan = DC.CellPlan(h, w, cfg.sxy_bilateral, cfg.srgb,
                                    cfg.color_step, cfg.splat_stride)
                 if CK.row_kernel_fits(taps, plan.cs_x):
                     out.add((plan.cs_y, plan.cs_x, len(taps)))
@@ -209,7 +209,7 @@ def test_blur_plan_fits_every_cell_height():
     fit whole in one row-kernel block, at every label count of the configs
     and B = 1 and 8; the y pass's windows round a height up to blur_ry rows,
     all of them staged."""
-    heights = {DC.CellPlan(1, h, 500, 80.0, 13.0, 1.5).cs_y
+    heights = {DC.CellPlan(h, 500, 80.0, 13.0, 1.5).cs_y
                for h in range(40, 1200)}
     assert heights == set(range(40, 81))
     for cs_y in sorted(heights):
@@ -496,11 +496,11 @@ def test_crf_geometries_are_the_plans():
             ((512, 512), prod, (64, 128, 2)), ((375, 500), prod, (75, 128, 1)),
             ((500, 375), prod, (50, 128, 2)),
             ((512, 512), CRF.CrfConfig(sxy_bilateral=16.0), (16, 16, 1))):
-        p = DC.CellPlan(8, h, w, cfg.sxy_bilateral, cfg.srgb,
+        p = DC.CellPlan(h, w, cfg.sxy_bilateral, cfg.srgb,
                         cfg.color_step, cfg.splat_stride)
         assert (p.cs_y, p.cs_x, p.stride) == want
         assert (p.P // p.stride ** 2, p.P) in {g[1:] for g in CRF_GEOMETRIES}
-    nc = {DC.CellPlan(1, 512, 512, c.sxy_bilateral, c.srgb, c.color_step).nc
+    nc = {DC.CellPlan(512, 512, c.sxy_bilateral, c.srgb, c.color_step).nc
           for c in (CRF.FAITHFUL_CONFIG, CRF.FAST_FAITHFUL_CONFIG, prod,
                     CRF.THROUGHPUT_CONFIG)}
     assert nc == set(CRF_NC)
