@@ -146,7 +146,29 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``predict --artifact`` against the live ``predict --crf`` (equal masks),
    ``serve --artifact`` for one HTTP round trip, and ``evaluate`` over a
    VOC-layout folder the phase writes with PIL, against the same
-   evaluation in this process.
+   evaluation in this process;
+12. the training surface: a VOC-layout folder of 40 seeded 512x512 scenes
+   (32 to train, 8 to validate); ``SegModel`` and its ``build_callbacks``
+   (``ModelCheckpoint`` to ``.npz``, ``ReduceLROnPlateau``,
+   ``EarlyStopping``) drive ``Trainer(bf16, 4 worker processes,
+   profile_dir=...)``: 2 epochs of 2 steps at B=16, full width, every
+   training phase's count rising by exactly 14 a step and no serving
+   kernel launching (validation is float32), the profiler's trace of steps
+   [1, 3) naming the five phase kernels; a fresh ``Trainer`` resumed from
+   the epoch-1 train-state checkpoint must reproduce the uninterrupted
+   run's epoch-2 logs, weights and BN buffers bit for bit (augmentations
+   off); the checkpoint's and the weight file's MB and write and read
+   seconds; one epoch fed by a thread against 4 processes (host clock and
+   device idle share); the best epoch's ``.npz`` in a fresh ``SegNet``
+   served through ``Predictor(crf=PRODUCTION_CONFIG, "mixed")`` (1 + 14 +
+   6/1/5/5 launches, logits bit for bit the trained net's); one bf16 step
+   with ``remat`` against the same step without (F1-F3 28 launches, B2 and
+   B34 14; loss, gradients and BN buffers within the phases' tolerances;
+   peak memory and step time); ``calibrate_bn`` on the card against the
+   CPU; Xception OS 16 and the subpixel head 3 bf16 steps each at B=8
+   through ``Trainer.fit`` (the loss falls, ``fused_sepconv`` 0); ``python
+   -m deeplab_tpu_torch.cli train`` (float32, 128x128) writing its
+   weights, then ``--resume``.
 
 ``python3 chip_smoke.py --dw`` holds ``fused_dw_bn_relu6`` bit for bit to
 its plain version at phase 8's shapes and times it there (events, device
@@ -336,6 +358,18 @@ DEPLOY_OPS = {"fused_dw_bn_relu6": 1, "fused_mbconv": 14,
               "splat_planes": 6, "slice_attrs_planes": 1, "blur_rows": 5,
               "mf_step_planes": 5}
 DEPLOY_BATCHES, DEPLOY_FIXED, DEPLOY_RAGGED = (8, 3), 8, 5
+# the training surface (phase 12): a VOC folder of seeded scenes, 32 to
+# train and 8 to validate; 2 epochs of 2 steps at B=16 with 4 worker
+# processes, the profiler over steps [1, 3); the A8 nets 3 steps at B=8;
+# calibrate_bn on the card against the CPU at 128x128, each BN buffer
+# within 1e-4 of its scale (f32, TF32 off: summation order only); the CLI
+# at 128x128
+SURF_TRAIN, SURF_VAL, SURF_B, SURF_VAL_B, SURF_WORKERS = 32, 8, 16, 8, 4
+SURF_EPOCHS, SURF_PROFILE, A8_B, A8_STEPS = 2, (1, 3), 8, 3
+CALIB_SIZE, CALIB_REL, CLI_TRAIN_SIZE = 128, 1e-4, 128
+TRAIN_KERNEL_NAMES = {"f1": "f1_kernel", "f2": "f2_kernel",
+                      "f3": "f3_kernel", "b2": "b2_kernel",
+                      "b34": "b34_kernel"}
 DEPLOY_FLOOR, CLI_EVAL_TOL, CLI_TIMEOUT, CLI_IMAGES = 0.9999, 1e-4, 600, 8
 # a process that loads a saved program and serves the .npy batches named
 # on its command line, importing only deeplab_tpu_torch.export; prints
@@ -552,6 +586,27 @@ def scene_batch(B, seed, device):
     pairs = [make_scene(SIZE, SIZE, CLASSES, seed + i) for i in range(B)]
     return (torch.from_numpy(np.stack([p[0] for p in pairs])).to(device),
             torch.from_numpy(np.stack([p[1] for p in pairs])).to(device))
+
+
+def write_voc(ds, imgs, masks):
+    """A VOC-layout folder of seeded scenes: ``JPEGImages/train/*.jpg``
+    (BGR float images as RGB JPEG) and ``SegmentationClassAug/*.png``
+    (labels as L-mode PNG).  Returns the JPEG paths."""
+    import os
+    import numpy as np
+    from PIL import Image
+    jpg_dir = os.path.join(ds, "JPEGImages", "train")
+    lab_dir = os.path.join(ds, "SegmentationClassAug")
+    os.makedirs(jpg_dir)
+    os.makedirs(lab_dir)
+    jpgs = []
+    for i, (im, m) in enumerate(zip(imgs, masks)):
+        jpgs.append(os.path.join(jpg_dir, f"scene{i:02d}.jpg"))
+        Image.fromarray(np.clip(im[..., ::-1], 0, 255).astype(
+            np.uint8)).save(jpgs[-1], quality=95)
+        Image.fromarray(m.astype(np.uint8), mode="L").save(
+            os.path.join(lab_dir, f"scene{i:02d}.png"))
+    return jpgs
 
 
 def tensors(x):
@@ -2964,18 +3019,8 @@ def main() -> int:
         from deeplab_tpu_torch.models.seg_model import SegModel
         # a VOC-layout folder of seeded scenes: JPEG images, PNG labels
         ds = os.path.join(work, "voc")
-        jpg_dir = os.path.join(ds, "JPEGImages", "train")
-        lab_dir = os.path.join(ds, "SegmentationClassAug")
-        os.makedirs(jpg_dir)
-        os.makedirs(lab_dir)
         imgs, masks = scene_batch(CLI_IMAGES, SEED + 980, "cpu")
-        jpgs = []
-        for i, (im, m) in enumerate(zip(imgs.numpy(), masks.numpy())):
-            jpgs.append(os.path.join(jpg_dir, f"scene{i:02d}.jpg"))
-            Image.fromarray(np.clip(im[..., ::-1], 0, 255).astype(
-                np.uint8)).save(jpgs[-1], quality=95)
-            Image.fromarray(m.astype(np.uint8), mode="L").save(
-                os.path.join(lab_dir, f"scene{i:02d}.png"))
+        jpgs = write_voc(ds, imgs.numpy(), masks.numpy())
         cfg = Config()
         cfg.model.image_size = (SIZE, SIZE)
         cfg.model.n_classes = CLASSES
@@ -3689,6 +3734,303 @@ def main() -> int:
         set_counts(saved)
     run.phase("CRF geometry times", geometry_times)
     run.phase("training times", train_times)
+
+    # 12. the training surface -------------------------------------------
+    def profile_busy(fn):
+        """(wall ms, device busy ms) of ``fn()`` under torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy = sum(e.self_device_time_total for e in pr.key_averages()
+                   if e.self_device_time_total > 0
+                   and str(e.device_type).endswith("CUDA")) / 1e3
+        return wall, busy
+
+    def training_surface():
+        import os
+        import random
+        import shutil
+        from deeplab_tpu_torch.crf import PRODUCTION_CONFIG
+        from deeplab_tpu_torch.models.seg_model import SegModel, SegNet
+        from deeplab_tpu_torch.params import load_npz
+        from deeplab_tpu_torch.train import (calibrate_bn,
+                                             restore_train_state,
+                                             save_train_state)
+        t_phase = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        work = os.path.join(root, "build", "train_surface")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        ds = os.path.join(work, "voc")
+        imgs, masks = scene_batch(SURF_TRAIN + SURF_VAL, SEED + 1100, "cpu")
+        write_voc(ds, imgs.numpy(), masks.numpy())
+        tnet = train["net"]
+        seg = SegModel(ds, (SIZE, SIZE))
+        seg.create_seg_model("original", n=CLASSES)
+        print(f"  SegModel's weight file on this machine: {seg.modelpath}")
+        aug_off = dict(n_classes=CLASSES, do_ahisteq=False, blur=0,
+                       horizontal_flip=False, brightness=0.0, rotation=0.0,
+                       zoom=0.0, validation_split=SURF_VAL / (SURF_TRAIN
+                                                              + SURF_VAL))
+
+        def gens():
+            seg.set_batch_size(SURF_B)
+            tg = seg.create_generators(mode="train", **aug_off)
+            seg.set_batch_size(SURF_VAL_B)
+            return tg, seg.create_generators(mode="validation", **aug_off)
+
+        snap = {}
+
+        def fit(tg, vg, epochs, best, state, resume=None, profile_dir=None):
+            """A bf16 fit of the seeded net from its initial weights with
+            the facade's callbacks and the process pool; records the
+            weights each save of the best epoch wrote."""
+            tnet.load_state_dict(train["init"])
+            seg.modelpath = os.path.join(work, best)
+            cbs = seg.build_callbacks()
+            save = cbs[0]._save
+
+            def keep(epoch, value):
+                save(epoch, value)
+                snap[best] = {k: v.clone()
+                              for k, v in tnet.state_dict().items()}
+            cbs[0]._save = keep
+            tr = Trainer(tnet, epochs=epochs, compute_dtype=torch.bfloat16,
+                         callbacks=cbs, workers=SURF_WORKERS,
+                         use_multiprocessing=True, profile_dir=profile_dir,
+                         profile_steps=SURF_PROFILE, seed=SEED, verbose=1)
+            hist = tr.fit(tnet, tg, vg,
+                          state_checkpoint=os.path.join(work, state),
+                          resume_from=resume)
+            return tr, hist
+
+        # the uninterrupted run: kernels, counts, the profiler's window
+        prof_dir = os.path.join(work, "profile")
+        random.seed(SEED)            # the train generator's epoch shuffles
+        tg, vg = gens()
+        assert len(tg) == SURF_TRAIN // SURF_B and len(vg) == 1
+        zero_counts()
+        t0 = time.perf_counter()
+        tr_a, hist_a = fit(tg, vg, SURF_EPOCHS, "best_a.npz", "state_a.npz",
+                           profile_dir=prof_dir)
+        secs_a = time.perf_counter() - t0
+        got = counts()
+        steps = SURF_EPOCHS * len(tg)
+        want = {k: 0 for k in got}
+        want.update({"train_" + n: TRAIN_PER_STEP * steps
+                     for n in FMT.PHASES})
+        print(f"  Trainer(bf16, {SURF_WORKERS} worker processes).fit: "
+              f"{SURF_EPOCHS} epochs of {len(tg)} steps at B={SURF_B}, "
+              f"{secs_a:.1f} s; launches {got} (want {want}: 14 a step "
+              f"each, no serving kernel: validation is float32)")
+        assert got == want, (got, want)
+        assert all(math.isfinite(v) for vs in hist_a.values() for v in vs)
+        final_a = {k: v.clone() for k, v in tnet.state_dict().items()}
+        with open(tr_a.profiler.path) as f:
+            names = " ".join(e.get("name", "") for e in json.load(f)[
+                "traceEvents"] if e.get("cat") == "kernel")
+        found = {n: k in names for n, k in TRAIN_KERNEL_NAMES.items()}
+        print(f"  profiler trace of steps {SURF_PROFILE}: "
+              f"{os.path.relpath(tr_a.profiler.path, root)} "
+              f"({os.path.getsize(tr_a.profiler.path) / 1e6:.2f} MB), phase "
+              f"kernels named {found}")
+        assert all(found.values()), found
+
+        # interrupted after epoch 1, resumed by a fresh Trainer
+        random.seed(SEED)
+        tg_b, vg_b = gens()
+        fit(tg_b, vg_b, 1, "best_b.npz", "state_b.npz")
+        state_b = os.path.join(work, "state_b.npz")
+        _, hist_b = fit(tg_b, vg_b, SURF_EPOCHS, "best_b.npz",
+                        "state_b2.npz", resume=state_b)
+        same_hist = {k: hist_b[k] == hist_a[k][1:] for k in hist_a}
+        diff = [k for k, v in tnet.state_dict().items()
+                if not torch.equal(v, final_a[k])]
+        print(f"  resumed from the epoch-1 checkpoint: epoch-2 logs equal "
+              f"{same_hist} (loss {hist_b['loss']} vs {hist_a['loss'][1:]});"
+              f" {len(diff)} of {len(final_a)} weights and BN buffers "
+              f"differ from the uninterrupted run's")
+        assert all(same_hist.values()) and not diff, diff[:5]
+
+        # the checkpoint files: sizes, write and read seconds
+        w_path = os.path.join(work, "best_a.npz")
+        s_path = os.path.join(work, "state_a.npz")
+        t0 = time.perf_counter()
+        save_train_state(s_path, tnet, tr_a.opt, tr_a.step, tr_a.lr_scale,
+                         generator=tr_a.gen)
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_train_state(s_path, tnet, tr_a.opt, tr_a.gen)
+        torch.cuda.synchronize()
+        r_s = time.perf_counter() - t0
+        print(f"  train-state checkpoint {os.path.getsize(s_path) / 1e6:.2f}"
+              f" MB, written in {w_s:.3f} s, read in {r_s:.3f} s; weight "
+              f"file (npz) {os.path.getsize(w_path) / 1e6:.2f} MB "
+              f"(host clock, warm file cache) [{card}]")
+
+        # thread against process workers: an epoch's time and idle share
+        for what, workers, mp in (("1 thread", 1, False),
+                                  (f"{SURF_WORKERS} processes", SURF_WORKERS,
+                                   True)):
+            tnet.load_state_dict(train["init"])
+            random.seed(SEED)
+            tg_t = gens()[0]
+            tr = Trainer(tnet, epochs=1, compute_dtype=torch.bfloat16,
+                         workers=workers, use_multiprocessing=mp, seed=SEED,
+                         verbose=0)
+            wall, busy = profile_busy(lambda: tr.fit(tnet, tg_t))
+            print(f"  one epoch of {len(tg_t)} steps at B={SURF_B}, {what}:"
+                  f" {wall:.1f} ms (host clock, under torch.profiler, "
+                  f"workers' start included), device busy {busy:.1f} ms, "
+                  f"idle share {1 - busy / wall:.3f} [{card}]")
+
+        # the best weights, from the file, served
+        net_s = load_npz(w_path, SegNet((SIZE, SIZE), CLASSES)).to(dev)
+        ref = SegNet((SIZE, SIZE), CLASSES).to(dev).eval()
+        ref.load_state_dict(snap["best_a.npz"])
+        X, _ = scene_batch(SERVE_B, SEED + 1200, dev)
+        pred = Predictor(net_s, crf=PRODUCTION_CONFIG, compute_dtype="mixed")
+        zero_counts()
+        m = pred(X.cpu().numpy())
+        got = counts()
+        want = {k: 0 for k in got}
+        want.update(DEPLOY_PER_REQUEST)
+        print(f"  the best epoch's npz in a fresh SegNet, served through "
+              f"Predictor(crf=PRODUCTION_CONFIG, mixed): launches {got} "
+              f"(want {want})")
+        assert got == want, (got, want)
+        assert m.shape == (SERVE_B, SIZE, SIZE) and m.dtype == np.int32
+        la, lb = net_s.logits(X, "mixed"), ref.logits(X, "mixed")
+        print(f"  its logits against the trained net's in this process: "
+              f"equal bit for bit {torch.equal(la, lb)}")
+        assert torch.equal(la, lb)
+        same = np.array_equal(m, Predictor(ref, crf=PRODUCTION_CONFIG,
+                                           compute_dtype="mixed")(
+            X.cpu().numpy()))
+        assert same, "masks differ"
+
+        # remat: one step against the same step without
+        Xb, Yb, swb = gens()[0][0]
+        Xb, Yb = torch.from_numpy(Xb).to(dev), torch.from_numpy(Yb).to(dev)
+        SWb = torch.from_numpy(swb["pred_mask"]).to(dev)
+        out = {}
+        for remat in (False, True):
+            tnet.load_state_dict(train["init"])
+            tr = Trainer(tnet, compute_dtype=torch.bfloat16, remat=remat,
+                         seed=SEED, verbose=0)
+            tr.setup(tnet)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            mm = tr.train_step(Xb, Yb, SWb)
+            torch.cuda.synchronize()
+            c = {n: getattr(FMT, n).launches for n in FMT.PHASES}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            grads = {n: p.grad.float().clone()
+                     for n, p in tnet.named_parameters()}
+            bufs = {n: b.clone() for n, b in tnet.named_buffers()}
+            ms = cuda_ms(lambda: tr.train_step(Xb, Yb, SWb), 3, warmup=1)
+            out[remat] = (mm["loss"].item(), grads, bufs)
+            want = {n: TRAIN_PER_STEP * (2 if remat and n in ("f1", "f2",
+                                                             "f3") else 1)
+                    for n in FMT.PHASES}
+            print(f"  bf16 step B={SURF_B}, remat={remat}: launches {c} "
+                  f"(want {want}), peak device memory {peak:.2f} GiB, "
+                  f"{ms:.2f} ms a step (CUDA events) [{card}]")
+            assert c == want, (c, want)
+        (lp, gp, bp), (lr_, gr, br) = out[False], out[True]
+        loss_rel = abs(lr_ - lp) / abs(lp)
+        g_rel = max(((gr[n] - gp[n]).norm()
+                     / gp[n].norm().clamp_min(1e-30)).item() for n in gp)
+        bn_rel = max(((br[n] - bp[n]).abs().max()
+                      / bp[n].abs().max().clamp_min(1e-30)).item()
+                     for n in bp)
+        print(f"  remat vs plain: loss {lr_:.6f} vs {lp:.6f} (rel "
+              f"{loss_rel:.3e}, tol {TRAIN_LOSS_REL}), worst gradient "
+              f"norm-relative error {g_rel:.3e} (tol {TRAIN_LOSS_REL}), BN "
+              f"buffers rel {bn_rel:.3e} (tol {TRAIN_BN_REL}; a second "
+              f"momentum update would move them by ~1e-3 of their value)")
+        assert (loss_rel <= TRAIN_LOSS_REL and g_rel <= TRAIN_LOSS_REL
+                and bn_rel <= TRAIN_BN_REL)
+
+        # calibrate_bn on the card against the CPU
+        cnet = SegNet((CALIB_SIZE, CALIB_SIZE), CLASSES, seed=SEED + 7)
+        cpu_net = SegNet((CALIB_SIZE, CALIB_SIZE), CLASSES, seed=SEED + 7)
+        step = SIZE // CALIB_SIZE
+        batches = [imgs[i:i + 2, ::step, ::step].numpy() for i in (0, 2)]
+        calibrate_bn(cnet.to(dev), batches)
+        calibrate_bn(cpu_net, batches)
+        worst = 0.0
+        for (n, b), c in zip(cnet.named_buffers(), cpu_net.buffers()):
+            layer = n.rsplit(".", 1)[0]
+            var = getattr(cpu_net, layer).moving_variance
+            scale = max(c.abs().max().item(), var.max().sqrt().item())
+            worst = max(worst, (b.cpu() - c).abs().max().item() / scale)
+        print(f"  calibrate_bn at {CALIB_SIZE}x{CALIB_SIZE}, 2 batches of 2,"
+              f" float32: the card against the CPU, worst buffer error "
+              f"{worst:.3e} of its scale (tol {CALIB_REL})")
+        assert worst <= CALIB_REL
+
+        # A8: Xception OS 16 and the subpixel head train through the Trainer
+        for what, kw in (("Xception OS 16", dict(backbone="xception", OS=16)),
+                         ("MobileNetV2 subpixel", dict(net="subpixel"))):
+            anet = SegNet((SIZE, SIZE), CLASSES, seed=SEED + 8, **kw)
+            Xa, Ya, SWa = train_batch(A8_B, SEED + 1300)
+            gen = ArrayBatcher(Xa.cpu().numpy(), Ya.cpu().numpy(), A8_B,
+                               n_classes=CLASSES)
+            tr = Trainer(anet, epochs=A8_STEPS, compute_dtype=torch.bfloat16,
+                         workers=0, verbose=0)
+            zero_counts()
+            t0 = time.perf_counter()
+            hist = tr.fit(anet, gen)
+            secs = time.perf_counter() - t0
+            got = counts()
+            print(f"  {what}: {A8_STEPS} bf16 steps at B={A8_B}, {secs:.1f} "
+                  f"s, loss {[round(v, 5) for v in hist['loss']]}, launches "
+                  f"{ {k: v for k, v in got.items() if v} }")
+            assert got["fused_sepconv"] == 0
+            assert all(math.isfinite(v) for v in hist["loss"])
+            assert hist["loss"][-1] < hist["loss"][0]
+            del anet, tr
+
+        # cli train on the card, then --resume
+        from deeplab_tpu_torch.config import Config
+        cpaths = []
+        for epochs in (1, 2):
+            cfg = Config()
+            cfg.model.image_size = (CLI_TRAIN_SIZE, CLI_TRAIN_SIZE)
+            cfg.model.n_classes = CLASSES
+            cfg.data.dataset = ds
+            cfg.data.validation_split = 0.2
+            cfg.train.epochs = epochs
+            cfg.train.batch_size = 8
+            cfg.train.checkpoint_dir = os.path.join(work, "cli_ckpt")
+            cfg.train.state_checkpoint = os.path.join(work, "cli_state.npz")
+            cpaths.append(os.path.join(work, f"cli{epochs}.json"))
+            cfg.save(cpaths[-1])
+        t0 = time.perf_counter()
+        out1 = cli(["train", "--config", cpaths[0]], root)
+        t1 = time.perf_counter() - t0
+        out2 = cli(["train", "--config", cpaths[1], "--resume"], root)
+        t2 = time.perf_counter() - t0 - t1
+        wline = [ln for ln in out1.splitlines() if ln.startswith("weights:")]
+        print(f"  cli train (float32, {CLI_TRAIN_SIZE}x{CLI_TRAIN_SIZE}, 1 "
+              f"epoch): {t1:.1f} s, {wline}; --resume to 2 epochs: "
+              f"{t2:.1f} s, {[ln for ln in out2.splitlines() if 'resumed' in ln]}")
+        assert wline and os.path.exists(wline[-1].split()[1]), wline
+        assert "resumed from" in out2 and "Epoch 2/2" in out2
+        assert "Epoch 1/2" not in out2
+        print(f"  training surface: {time.perf_counter() - t_phase:.1f} s "
+              f"[{card}]")
+    run.phase("training surface: SegModel, Trainer(bf16) with workers, "
+              "checkpoints and resume, npz weights served, remat, "
+              "calibrate_bn, Xception and subpixel, cli train",
+              training_surface)
 
     if run.failed:
         print(f"FAILED phases: {run.failed}")

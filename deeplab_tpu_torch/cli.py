@@ -13,12 +13,16 @@ caller asks for ``cpu``).
         --images img1.jpg
     python -m deeplab_tpu_torch.cli serve --artifact serving.npz --port 8517
 
-Weights are a Keras h5 file (``--weights``, read by ``params.load_keras_h5``);
-without one the net keeps its seeded initialization, with a warning where
-it would be served or exported.  ``train`` parses the JAX CLI's flags and
-raises ``NotImplementedError``: training from the command line needs the
-train-state checkpoints and the h5 ``ModelCheckpoint``, which are not
-ported yet.
+    python -m deeplab_tpu_torch.cli train --config config.json [--resume]
+
+Weights are a Keras h5 or the port's numpy-only ``.npz`` (``--weights``,
+read by ``params.load_weights`` by suffix); without one the net keeps its
+seeded initialization, with a warning where it would be served or
+exported.  The config's checkpoint, ``{checkpoint_dir}/{backbone}_{net}``,
+is ``.h5`` where ``h5py`` imports and ``.npz`` where it does not: ``train``
+writes its best weights there, and ``--resume-weights`` and the other
+commands read whichever of the two exists.  ``train`` runs in float32, as
+the JAX CLI does; ``--resume`` continues from ``train.state_checkpoint``.
 """
 
 from __future__ import annotations
@@ -37,10 +41,18 @@ def _config(args):
     return Config.load(args.config) if args.config else Config()
 
 
+def _checkpoint_stem(cfg) -> str:
+    return os.path.join(cfg.train.checkpoint_dir,
+                        f"{cfg.model.backbone}_{cfg.model.net}")
+
+
 def _build(cfg, load_weights=False, weights=None):
-    """The ``SegModel`` facade and its net at ``cfg``, with ``weights``
-    (an h5 path) or, with ``load_weights``, the checkpoint the config names
-    where it exists."""
+    """The ``SegModel`` facade and its net at ``cfg``, with ``weights`` (an
+    h5 or npz path) or, with ``load_weights``, the config's checkpoint
+    where it exists.  ``seg.modelpath`` is the checkpoint this machine
+    writes, or the one of the other format that exists."""
+    from deeplab_tpu_torch.params import load_weights as load_file
+    from deeplab_tpu_torch.params import weights_suffix
     from deeplab_tpu_torch.models.seg_model import SegModel
     seg = SegModel(cfg.data.dataset, tuple(cfg.model.image_size))
     seg.set_batch_size(cfg.train.batch_size)
@@ -49,12 +61,13 @@ def _build(cfg, load_weights=False, weights=None):
                                backbone=cfg.model.backbone,
                                load_weights=False,
                                OS=cfg.model.OS, alpha=cfg.model.alpha)
-    seg.modelpath = os.path.join(
-        cfg.train.checkpoint_dir,
-        f"{cfg.model.backbone}_{cfg.model.net}.h5")
+    stem = _checkpoint_stem(cfg)
+    seg.modelpath = stem + weights_suffix()
+    other = stem + (".npz" if seg.modelpath.endswith(".h5") else ".h5")
+    if not os.path.exists(seg.modelpath) and os.path.exists(other):
+        seg.modelpath = other
     if weights:
-        from deeplab_tpu_torch.params import load_keras_h5
-        load_keras_h5(weights, net)
+        load_file(weights, net)
     elif load_weights and os.path.exists(seg.modelpath):
         seg.load_weights(net)
     return seg, net
@@ -90,11 +103,60 @@ def _tta(args):
 
 
 def cmd_train(args):
-    raise NotImplementedError(
-        "deeplab_tpu_torch.cli train is not ported yet: training from the "
-        "command line needs train-state checkpoints and the h5 "
-        "ModelCheckpoint, which come with ROADMAP A7 (use "
-        "deeplab_tpu_torch.train.Trainer directly)")
+    from deeplab_tpu_torch.params import weights_suffix
+    from deeplab_tpu_torch.train.callbacks import (EarlyStopping,
+                                                   ModelCheckpoint,
+                                                   ReduceLROnPlateau)
+    from deeplab_tpu_torch.train.trainer import Trainer
+    cfg = _config(args)
+    seg, net = _build(cfg, load_weights=args.resume_weights,
+                      weights=args.weights)
+    d = cfg.data
+    train_gen = seg.create_generators(
+        blur=d.blur, crop_shape=d.crop_shape, mode="train",
+        n_classes=cfg.model.n_classes, horizontal_flip=d.horizontal_flip,
+        vertical_flip=d.vertical_flip, brightness=d.brightness,
+        rotation=d.rotation, zoom=d.zoom,
+        validation_split=d.validation_split, seed=d.seed,
+        do_ahisteq=d.do_ahisteq)
+    valid_gen = seg.create_generators(
+        blur=0, crop_shape=d.crop_shape, mode="validation",
+        n_classes=cfg.model.n_classes, horizontal_flip=False,
+        vertical_flip=False, brightness=0.0, rotation=0.0, zoom=0.0,
+        validation_split=d.validation_split, seed=d.seed, do_ahisteq=False)
+
+    t = cfg.train
+    # the best weights go where this machine can write them
+    ckpt_path = _checkpoint_stem(cfg) + weights_suffix()
+    callbacks = [
+        ModelCheckpoint(ckpt_path, monitor=t.monitor, mode="max", verbose=1),
+        ReduceLROnPlateau(monitor=t.monitor, factor=t.reduce_lr_factor,
+                          patience=t.reduce_lr_patience, min_lr=t.min_lr),
+        EarlyStopping(monitor=t.monitor, patience=t.early_stop_patience),
+    ]
+    # freeze only when fine-tuning loaded weights (notebook cell 5):
+    # freezing a random trunk would train the head against noise
+    have_weights = bool(args.weights) or (args.resume_weights
+                                          and os.path.exists(seg.modelpath))
+    freeze = t.freeze_before if (args.finetune and have_weights) else None
+    if args.finetune and not have_weights:
+        print("note: no pretrained weights loaded; training full network "
+              "(freeze policy skipped)")
+    trainer = Trainer(net, epochs=t.epochs, callbacks=callbacks, lr=t.lr,
+                      epsilon=t.epsilon, decay=t.decay,
+                      freeze_before=freeze, spatial=t.spatial, ddp=t.ddp,
+                      seed=t.seed, profile_dir=args.profile_dir,
+                      device=args.device)
+    if args.resume and not t.state_checkpoint:
+        print("warning: --resume given but train.state_checkpoint is not "
+              "configured; starting from epoch 0")
+    history = trainer.fit(
+        net, train_gen, valid_gen, state_checkpoint=t.state_checkpoint,
+        resume_from=t.state_checkpoint if args.resume else None)
+    print({k: v[-1] for k, v in history.items() if v})
+    print(f"weights: {ckpt_path}"
+          + ("" if os.path.exists(ckpt_path) else " (not written: no "
+             "epoch improved on " + t.monitor + ")"))
 
 
 def cmd_evaluate(args):
@@ -276,12 +338,12 @@ def _parser():
         sp.set_defaults(fn=fn)
         return sp
 
-    pt = add("train", cmd_train, help="fine-tune or train the model "
-             "(not ported yet)")
+    pt = add("train", cmd_train, help="fine-tune or train the model")
     pt.add_argument("--config")
-    pt.add_argument("--weights", help="initial weights h5")
+    pt.add_argument("--weights", help="initial weights (h5 or npz)")
     pt.add_argument("--resume-weights", action="store_true",
-                    help="load weights/{backbone}_{net}.h5 if present")
+                    help="load {checkpoint_dir}/{backbone}_{net}.h5 (or "
+                         ".npz) if present")
     pt.add_argument("--resume", action="store_true",
                     help="resume full train state from state_checkpoint")
     pt.add_argument("--finetune", action="store_true", default=True)

@@ -1,20 +1,24 @@
 """Data pipeline (deeplab_tpu/data/generator.py): the augmenting
 ``SegmentationGenerator`` over a VOC-layout folder with the reference's
-seeded split, in-memory batches, a background prefetch thread and the image
-readers (PIL is imported by the readers, never with the module).
+seeded split, in-memory batches, a background prefetch thread, an ordered
+pool of worker processes and the image readers (PIL is imported by the
+readers, never with the module).
 
 A batch is ``(X, Y, {"pred_mask": SW})``: X (b, H, W, 3) float BGR 0-255,
 Y (b, H*W, 1) labels (``n_classes`` is void), SW (b, H*W) per-pixel weights.
-The JAX generator's per-host sharding (its multi-host data parallelism) and
-its multi-process prefetcher are not ported.
+The JAX generator's per-host sharding (its multi-host data parallelism)
+comes with the multi-GPU slice.  The module imports numpy and the standard
+library only: the worker processes import it, and never torch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import queue
 import random
+import sys
 import threading
 from typing import Optional
 
@@ -104,6 +108,7 @@ class SegmentationGenerator:
             w, h = resize_shape
         else:
             raise Exception("No image dimensions specified!")
+        self._hw = (h, w)
         n_px = h * w
         bs = batch_size
         self.X = np.zeros((bs, h, w, 3), dtype="float32")
@@ -184,6 +189,26 @@ class SegmentationGenerator:
         random.shuffle(c)
         self.image_path_list, self.label_path_list = zip(*c)
 
+    # The batch buffers are scratch: a worker process receives the
+    # generator by pickle, which leaves them out (tens of MB of zeros at
+    # 512x512) and makes them anew on arrival.
+    _SCRATCH = ("X", "SW", "Y", "F", "F_SW")
+
+    def __getstate__(self):
+        return {k: v for k, v in self.__dict__.items()
+                if k not in self._SCRATCH}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        h, w = self._hw
+        n_px = h * w
+        bs = self.batch_size
+        self.X = np.zeros((bs, h, w, 3), dtype="float32")
+        self.SW = np.zeros((bs, n_px), dtype="float32")
+        self.Y = np.zeros((bs, n_px, 1), dtype="float32")
+        self.F = np.zeros((bs, n_px, 1), dtype="float32")
+        self.F_SW = np.zeros((bs, n_px), dtype="float32")
+
 
 def _random_crop(image, label, crop_shape):
     """Reference utils.py:411-423."""
@@ -200,11 +225,13 @@ def _random_crop(image, label, crop_shape):
 
 
 class ArrayBatcher:
-    """In-memory batcher (reference ``SegModel.train``).  Unweighted unless
-    ``sample_weights`` is given."""
+    """In-memory batcher (reference ``SegModel.train``).  Unweighted, as the
+    reference's ``model.fit(X, y)`` is, unless ``sample_weights`` is given
+    or ``adaptive_weights`` asks for the generator's balanced per-pixel
+    weights of each label map."""
 
     def __init__(self, X, Y, batch_size: int, n_classes: int = 21,
-                 sample_weights=None):
+                 sample_weights=None, adaptive_weights: bool = False):
         self.X = np.asarray(X)
         self.Y = np.asarray(Y)
         if self.Y.ndim == 2:
@@ -213,6 +240,10 @@ class ArrayBatcher:
         self.n_classes = n_classes
         if sample_weights is not None:
             self.SW = np.asarray(sample_weights, "float32")
+        elif adaptive_weights:
+            self.SW = np.stack([adaptive_pixel_weights(y.reshape(-1),
+                                                       n_classes)
+                                for y in self.Y]).astype("float32")
         else:
             self.SW = np.ones((len(self.Y), self.Y.shape[1]), "float32")
 
@@ -296,3 +327,131 @@ class Prefetcher:
 
     def close(self):
         self._stop.set()
+
+
+def _mp_worker(gen, indices, q, seed):
+    """A worker process: reseed ``random`` and numpy (each worker and epoch
+    draws its own augmentations), then put its batches, in order, on its
+    own queue.  A batch is copied before ``q.put``: the queue pickles on a
+    feeder thread, after the generator may have reused its buffers."""
+    np.random.seed(seed)
+    random.seed(seed)
+    try:
+        for i in indices:
+            q.put(Prefetcher._copy_batch(gen[i]))
+    except KeyboardInterrupt:  # pragma: no cover
+        pass
+    except BaseException:  # carried to the consumer
+        import traceback
+        q.put(_PipelineError(RuntimeError(traceback.format_exc())))
+
+
+class MultiprocessPrefetcher:
+    """Ordered pool of worker processes (the reference's
+    ``fit_generator(workers=cpu_count//2, use_multiprocessing=True)``,
+    utils.py:240; JAX ``MultiprocessPrefetcher``).
+
+    Worker ``w`` of ``W`` computes batches ``w, w+W, ...`` into its own
+    bounded queue, and the consumer reads queue ``i % W`` for batch ``i``:
+    the output is in order by construction, back-pressure is per worker,
+    and a worker that died is reported instead of waited on.  Workers start
+    anew at each iteration, so that they see the generator's current epoch
+    (the parent's ``on_epoch_end`` shuffle reaches them by pickle) with the
+    seeds ``seed + 977 * epoch + w``; batches cross the process boundary by
+    pickle, so they are copies.
+
+    Workers come from a forkserver, whose server process starts clean (no
+    CUDA context, no threads of the training process) and imports this
+    module once: forking a process that holds a CUDA context is unsafe,
+    and spawning would import the package afresh in every worker of every
+    epoch.  The workers use numpy and PIL, never torch.  A started worker
+    would also run the imports of the parent's main script (``__main__``
+    is re-imported as ``__mp_main__``, so that what it defines unpickles):
+    for a training script, torch in every worker of every epoch, about 8 s
+    a start on the card's host.  Unless the generator's class is defined
+    in ``__main__``, the script's path is withheld while the workers
+    start, and they import nothing of it."""
+
+    _PRELOAD = ["deeplab_tpu_torch.data.generator"]
+
+    def __init__(self, gen, workers: Optional[int] = None,
+                 max_queue_size: int = 10, seed: int = 0):
+        self.gen = gen
+        self.workers = workers or max((os.cpu_count() or 2) // 2, 1)
+        self.max_queue_size = max_queue_size
+        self.seed = seed
+        self._epoch = 0
+
+    @contextlib.contextmanager
+    def _main_withheld(self):
+        """Hide ``__main__``'s file and spec from the workers' preparation
+        data while they start (see the class docstring)."""
+        main = sys.modules.get("__main__")
+        if main is None or type(self.gen).__module__ == "__main__":
+            yield
+            return
+        saved = {k: main.__dict__[k] for k in ("__file__", "__spec__")
+                 if k in main.__dict__}
+        main.__dict__.pop("__file__", None)
+        main.__spec__ = None
+        try:
+            yield
+        finally:
+            main.__dict__.pop("__spec__", None)
+            main.__dict__.update(saved)
+
+    def _start(self, n: int, w: int):
+        import multiprocessing as mp
+        try:
+            ctx = mp.get_context("forkserver")
+            # before the server's first start: every later worker forks
+            # with this module already imported (a no-op afterwards)
+            ctx.set_forkserver_preload(self._PRELOAD)
+        except ValueError:  # pragma: no cover - no forkserver here
+            ctx = mp.get_context("spawn")
+        per_q = max(1, self.max_queue_size // w)
+        queues, procs = [], []
+        with self._main_withheld():
+            for wi in range(w):
+                q = ctx.Queue(maxsize=per_q)
+                p = ctx.Process(target=_mp_worker,
+                                args=(self.gen, range(wi, n, w), q,
+                                      (self.seed + 977 * self._epoch + wi)
+                                      % (2 ** 31)),
+                                daemon=True)
+                p.start()
+                queues.append(q)
+                procs.append(p)
+        return queues, procs
+
+    def __iter__(self):
+        n = len(self.gen)
+        w = max(1, min(self.workers, n))
+        queues, procs = self._start(n, w)
+        self._epoch += 1
+        try:
+            for i in range(n):
+                q, p = queues[i % w], procs[i % w]
+                while True:
+                    try:
+                        item = q.get(timeout=5.0)
+                        break
+                    except queue.Empty:
+                        # only a timeout: anything else (an unpickling
+                        # error) propagates rather than shifting the order
+                        if not p.is_alive() and q.empty():
+                            raise RuntimeError(
+                                f"data pipeline worker {i % w} died "
+                                f"(exitcode {p.exitcode})") from None
+                if isinstance(item, _PipelineError):
+                    raise RuntimeError(
+                        "data pipeline worker failed") from item.exc
+                yield item
+        finally:
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                p.join(timeout=5)
+
+    def close(self):
+        pass

@@ -77,13 +77,14 @@ def _weight_slots(net):
     """``[(name, key, var, tensor)]`` over the net's layers: every
     parameter (``"p"``) and BN statistic (``"s"``) with its JAX artifact
     key, in a fixed order."""
+    from deeplab_tpu_torch.params import weight_key
     slots = []
     for layer, mod in net.named_children():
         for prefix, items in (("p", mod.named_parameters(recurse=False)),
                               ("s", mod.named_buffers(recurse=False))):
             for var, t in items:
                 slots.append((f"{layer}.{var}",
-                              json.dumps([prefix, layer, var]), var, t))
+                              weight_key(prefix, layer, var), var, t))
     return slots
 
 
@@ -239,12 +240,6 @@ def save_serving(path, net, crf=None, batch: Optional[int] = None,
     return ep
 
 
-def _flat_keys(tree, prefix):
-    """{layer: {var: array}} -> {npz key: array} (JAX ``_flat_keys``)."""
-    return {json.dumps([prefix, layer, var]): arr
-            for layer, vars_ in tree.items() for var, arr in vars_.items()}
-
-
 class ServingArtifact:
     """A loaded serving artifact: ``artifact(images) -> (B, H, W) int32``
     numpy masks, as ``Predictor.__call__`` gives them (a ragged batch is
@@ -284,9 +279,10 @@ class ServingArtifact:
         """The same program with new same-shaped weights: ``params`` (and
         optionally ``state``) as ``{layer: {var: array}}`` trees in the
         Keras layouts (``params.trees_from_net``); no re-export."""
-        new = _flat_keys(params, "p")
+        from deeplab_tpu_torch.params import flat_keys
+        new = flat_keys(params, "p")
         if state is not None:
-            new.update(_flat_keys(state, "s"))
+            new.update(flat_keys(state, "s"))
         missing = [k for k, *_ in self.meta["inputs"]
                    if json.loads(k)[0] == "p" and k not in new]
         if missing:

@@ -905,10 +905,13 @@ def use_fused_train_block(net, x, policy, stride: int, block_id: int,
                           prefix: str) -> bool:
     """The JAX gate (``use_fused_train_block``): training, bf16 policy,
     stride 1, an expand conv (block_id != 0), height divisible by 8, and
-    none of the block's six layers frozen.  (The port has no BN-calibration
-    mode.)  On a CUDA tensor the block then runs the kernels; on a CPU
-    tensor their plain versions."""
+    none of the block's six layers frozen, and no BN calibration running
+    (``net.calibrating``: ``calibrate_bn`` takes the plain composition's
+    statistics, as JAX's gate excludes ``bn_calibrate``).  On a CUDA tensor
+    the block then runs the kernels; on a CPU tensor their plain
+    versions."""
     if not (net.fuse_blocks and block_id and stride == 1 and net.training
+            and not net.calibrating
             and policy.dtype == torch.bfloat16 and x.shape[2] % 8 == 0):
         return False
     names = ("expand", "expand_BN", "depthwise", "depthwise_BN", "project",

@@ -106,7 +106,9 @@ def deeplabv3_forward(net, img, policy, gen=None):
     ``deeplabv3_forward(..., return_features=True)``, i.e. the post-Dropout
     ASPP projection (MobileNetV2, stride 8) or the decoder's output
     (Xception, stride 4), where SegNet truncates the graph.  Dropout acts in
-    training mode only, with ``gen``; in eval mode it is the identity.  The
+    training mode only, with ``gen``; in eval mode and while
+    ``train/bn_calibrate.py`` runs (``net.calibrating``) it is the
+    identity.  The
     21-class ``logits_semantic`` head is not ported."""
     input_hw = (img.shape[1], img.shape[2])
     x = img.to(policy.dtype) / 127.5 - 1.0
@@ -118,7 +120,7 @@ def deeplabv3_forward(net, img, policy, gen=None):
         OS = 8                         # forced for this trunk
         x = mobilenetv2.backbone(net, x, policy)
     x = aspp(net, x, policy, input_hw, OS)
-    if net.training:
+    if net.training and not net.calibrating:
         if gen is None:
             raise ValueError("a training forward needs a torch.Generator "
                              "for dropout")

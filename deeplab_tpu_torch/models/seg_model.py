@@ -41,7 +41,12 @@ class SegNet(nn.Module):
 
     ``fuse_blocks=False`` keeps every fused layer (MBConv block, SepConv_BN)
     on the plain layer composition (the yardstick the kernel path is
-    compared with)."""
+    compared with).
+
+    ``calibrating`` is set by ``train/bn_calibrate.py`` for its forwards:
+    training-mode BN (batch statistics), no dropout, no fused block."""
+
+    calibrating = False
 
     def __init__(self, image_size, n_classes: int, backbone: str = "mobilenetv2",
                  net: str = "original", OS: int = 16, alpha: float = 1.0,
@@ -141,18 +146,17 @@ class SegNet(nn.Module):
         return torch.argmax(logits, dim=1).to(torch.int32)
 
 
-_A7 = ("is not ported yet: it comes with ROADMAP A7 (train-state "
-       "checkpoints, ModelCheckpoint and the card's weight-file format)")
-
-
 class SegModel:
     """Reference utils.py:160-254 facade (JAX ``SegModel``): the image size,
     the dataset folder and the batch settings, ``create_seg_model`` (a
-    :class:`SegNet`, seeded, optionally loading
-    ``weights/{backbone}_{net}.h5``) and ``create_generators`` (a
-    ``SegmentationGenerator``).  Training
-    through the facade (``train_generator``, ``build_callbacks``,
-    ``train``) raises ``NotImplementedError``."""
+    :class:`SegNet`, seeded, optionally loading its weight file),
+    ``create_generators`` (a ``SegmentationGenerator``) and training:
+    ``train_generator`` (the reference's ``fit_generator`` with its worker
+    pool), ``build_callbacks`` (notebook cell 5) and ``train`` (in-memory
+    arrays).  The weight file is ``weights/{backbone}_{net}.h5`` where
+    ``h5py`` imports and ``.npz`` where it does not (the format a training
+    run here can write, ``params.weights_suffix``); either suffix loads.
+    The net trains in place: ``self.model`` holds the trained weights."""
 
     epochs = 20
     batch_size = 16
@@ -170,8 +174,9 @@ class SegModel:
         """Build the truncated trunk and head; returns the :class:`SegNet`
         (also kept as ``self.model``).  ``seed`` takes the place of the JAX
         ``rng``."""
+        from deeplab_tpu_torch.params import weights_suffix
         self.net = net
-        self.modelpath = f"weights/{backbone}_{net}.h5"
+        self.modelpath = f"weights/{backbone}_{net}{weights_suffix()}"
         model = SegNet(self.sz, n, backbone, net, OS=OS, alpha=alpha,
                        seed=seed)
         if load_weights:
@@ -181,10 +186,10 @@ class SegModel:
         return model
 
     def _load_h5(self, model, path):
-        from deeplab_tpu_torch.params import load_keras_h5
+        from deeplab_tpu_torch.params import load_weights
         if not os.path.exists(path):
             raise FileNotFoundError(path)
-        return load_keras_h5(path, model)
+        return load_weights(path, model)
 
     def load_weights(self, model=None):
         """Load ``self.modelpath`` into ``model`` (by default the facade's
@@ -206,16 +211,62 @@ class SegModel:
             blur=blur, brightness=brightness, rotation=rotation, zoom=zoom,
             validation_split=validation_split, seed=seed)
 
-    def train_generator(self, *args, **kw):
-        raise NotImplementedError(f"SegModel.train_generator (its worker "
-                                  f"pool and callbacks) {_A7}")
+    def train_generator(self, model, train_generator, valid_generator,
+                        callbacks=None, mp=True, **train_kw):
+        """Reference utils.py:231-241: train ``model`` on the generators
+        through the ``Trainer``; returns its history.  ``mp=True`` is
+        ``fit_generator``'s worker pool (utils.py:240: ``cpu_count // 2``
+        worker processes); ``train_kw`` goes to the ``Trainer`` (e.g.
+        ``compute_dtype``, ``device``)."""
+        from deeplab_tpu_torch.train.trainer import Trainer
+        if mp:
+            train_kw.setdefault("workers",
+                                max((os.cpu_count() or 2) // 2, 1))
+            train_kw.setdefault("use_multiprocessing", True)
+        trainer = Trainer(model, epochs=self.epochs,
+                          callbacks=callbacks or [], **train_kw)
+        history = trainer.fit(model, train_generator, valid_generator)
+        self.model = model
+        return history
 
-    def build_callbacks(self, *args, **kw):
-        raise NotImplementedError(f"SegModel.build_callbacks (TensorBoard, "
-                                  f"ModelCheckpoint) {_A7}")
+    def build_callbacks(self, tf_board=False, plot_process=False,
+                        monitor="val_Jaccard", mode="max"):
+        """Notebook cell 5's callbacks: ``ModelCheckpoint`` of the best
+        ``monitor`` to ``self.modelpath``, ``EarlyStopping`` (patience 100)
+        and ``ReduceLROnPlateau`` (0.5, patience 5, floor 1e-6); with
+        ``tf_board``, ``TensorBoard`` in place of the checkpoint."""
+        from deeplab_tpu_torch.train.callbacks import (EarlyStopping,
+                                                       ModelCheckpoint,
+                                                       ReduceLROnPlateau,
+                                                       TensorBoard)
+        checkpointer = ModelCheckpoint(self.modelpath, verbose=1,
+                                       save_best_only=True, monitor=monitor,
+                                       mode=mode)
+        stop_train = EarlyStopping(monitor=monitor, patience=100, verbose=1,
+                                   mode=mode)
+        reduce_lr = ReduceLROnPlateau(monitor=monitor, factor=0.5,
+                                      patience=5, min_lr=1e-6)
+        if tf_board:
+            return [reduce_lr, stop_train,
+                    TensorBoard(log_dir="./logs/" + str(self.net))]
+        return [checkpointer, reduce_lr, stop_train]
 
-    def train(self, *args, **kw):
-        raise NotImplementedError(f"SegModel.train {_A7}")
+    def train(self, model, X, y, val_data, tf_board=False,
+              plot_train_process=False, **train_kw):
+        """Reference utils.py:243-254: train on in-memory arrays
+        (``ArrayBatcher``, unweighted) with :meth:`build_callbacks`;
+        returns the history.  ``train_kw`` goes to the ``Trainer``."""
+        from deeplab_tpu_torch.data.generator import ArrayBatcher
+        from deeplab_tpu_torch.train.trainer import Trainer
+        trainer = Trainer(model, epochs=self.epochs,
+                          callbacks=self.build_callbacks(tf_board=tf_board),
+                          **train_kw)
+        gen = ArrayBatcher(X, y, self.batch_size, n_classes=model.n_classes)
+        val_gen = ArrayBatcher(val_data[0], val_data[1], self.batch_size,
+                               n_classes=model.n_classes)
+        history = trainer.fit(model, gen, val_gen)
+        self.model = model
+        return history
 
     @classmethod
     def set_num_epochs(cls, new_epochs):

@@ -13,14 +13,30 @@ shipped ``weights/mobilenetv2_subpixel.h5``): a file layer named
 ``subpixel*`` loads onto the ``subpixel`` layer, whose kernel already has
 the phase shift's channel order.  Keras 3's legacy-h5 writer stores a
 depthwise layer's kernel as ``<layer>/kernel`` (the same file): the h5
-loader reads it as that layer's ``depthwise_kernel``.  ``trees_from_net`` is the way back: the
-net's parameters and buffers (or its gradients) as Keras-layout trees.
+loader reads it as that layer's ``depthwise_kernel``.  The Keras-3
+``.weights.h5`` layout (``layers/.../vars/0..N``, the layer's name an
+attribute of ``vars``) is read positionally, as the JAX loader reads it.
+``trees_from_net`` is the way back: the net's parameters and buffers (or
+its gradients) as Keras-layout trees.
+
+Weights out: ``save_keras_h5`` writes a Keras-2 h5 (needs ``h5py``);
+``save_npz``/``load_npz`` a numpy-only ``.npz`` whose keys are those of the
+serving artifact (``flat_keys``: the JSON of ``[p|s, layer, var]``) and whose
+arrays are in the Keras layouts, which a machine without ``h5py`` can write.
+``load_weights`` reads either, by suffix.
 """
 
 from __future__ import annotations
 
+import io
+import json
+import os
+
 import numpy as np
 import torch
+
+_VAR_ORDER = ("kernel", "depthwise_kernel", "bias", "gamma", "beta",
+              "moving_mean", "moving_variance")
 
 
 def _to_port_layout(var: str, arr: np.ndarray) -> torch.Tensor:
@@ -136,17 +152,79 @@ def _depthwise_names(out: dict, mod) -> dict:
     return out
 
 
+def _is_keras3_layout(f) -> bool:
+    return ("layers" in f and "layer_names" not in f.attrs
+            and "model_weights" not in f)
+
+
+def _keras3_layers(f):
+    """``(layer name, [arrays in save order])`` of a Keras-3 file: every
+    ``vars`` group that carries a ``name`` attribute (JAX
+    ``_iter_keras3_layers``)."""
+    import h5py
+    out = []
+
+    def walk(group):
+        for key in group:
+            item = group[key]
+            if not isinstance(item, h5py.Group):
+                continue
+            if key == "vars":
+                name = item.attrs.get("name", "")
+                if isinstance(name, bytes):
+                    name = name.decode()
+                arrays = [np.asarray(item[k])
+                          for k in sorted(item, key=int)]
+                if arrays and name:
+                    out.append((name, arrays))
+            else:
+                walk(item)
+    walk(f)
+    return out
+
+
+def _keras3_names(mod):
+    """Keras-3 save order of a layer's weights, from the layer's kind: BN
+    (gamma, beta, moving_mean, moving_variance), depthwise
+    (depthwise_kernel, bias), conv (kernel, bias)."""
+    for first, names in (("gamma", ("gamma", "beta", "moving_mean",
+                                    "moving_variance")),
+                         ("depthwise_kernel", ("depthwise_kernel", "bias")),
+                         ("kernel", ("kernel", "bias"))):
+        if isinstance(getattr(mod, first, None), torch.Tensor):
+            return names
+    return ()
+
+
+def _keras3_tree(f, net) -> dict:
+    """The Keras-3 file's weights of the layers ``net`` has, by name; a
+    variable the layer lacks (a conv's bias where it has none) is skipped,
+    as the JAX loader skips it."""
+    tree = {}
+    for lname, arrays in _keras3_layers(f):
+        layer = _canonical_layer(lname, net)
+        mod = getattr(net, layer, None)
+        if not isinstance(mod, torch.nn.Module):
+            continue
+        tree[layer] = {n: a for n, a in zip(_keras3_names(mod), arrays)
+                       if isinstance(getattr(mod, n, None), torch.Tensor)}
+    return tree
+
+
 def load_keras_h5(path: str, net):
-    """Load a legacy Keras-2 weights file into ``net`` by layer name, like
-    Keras ``load_weights(by_name=True)``: file layers the model lacks are
-    skipped.  Returns ``net``.  The Keras-3
-    ``.weights.h5`` layout is not ported."""
+    """Load a Keras weights file into ``net`` by layer name, like Keras
+    ``load_weights(by_name=True)``: file layers the model lacks are
+    skipped.  Both the legacy Keras-2 layout and the Keras-3
+    ``.weights.h5`` layout are detected.  Returns ``net``."""
     import h5py
     tree = {}
     with h5py.File(path, "r") as f:
+        if _is_keras3_layout(f):
+            tree = _keras3_tree(f, net)
+            if _assign(net, (tree,), strict=False) == 0:
+                raise ValueError(f"no weights matched the model in {path}")
+            return net
         g = f["model_weights"] if "model_weights" in f else f
-        if "layers" in g and "layer_names" not in g.attrs:
-            raise NotImplementedError(f"{path}: Keras-3 layout is not ported")
         for lname in _attr_list(g, "layer_names") or list(g.keys()):
             if lname not in g:
                 continue
@@ -167,3 +245,113 @@ def load_keras_h5(path: str, net):
     if _assign(net, (tree,), strict=False) == 0:
         raise ValueError(f"no weights matched the model in {path}")
     return net
+
+
+def save_keras_h5(path: str, net) -> None:
+    """Write ``net``'s weights as a Keras-2 h5 (JAX ``save_keras_h5``): one
+    group per layer with its ``weight_names``, the arrays in the Keras
+    layouts, readable by the reference's ``load_weights``, by the JAX
+    ``load_keras_h5`` and by :func:`load_keras_h5`."""
+    import h5py
+    params, state = trees_from_net(net)
+    layer_names = sorted(set(params) | set(state))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.attrs["layer_names"] = np.array([n.encode() for n in layer_names])
+        # the arrays are in the Keras (TensorFlow) layouts
+        f.attrs["backend"] = b"tensorflow"
+        for lname in layer_names:
+            grp = f.create_group(lname)
+            merged = {**params.get(lname, {}), **state.get(lname, {})}
+            names = []
+            for var in sorted(merged, key=lambda v: _VAR_ORDER.index(v)
+                              if v in _VAR_ORDER else len(_VAR_ORDER)):
+                full = f"{lname}/{var}:0"
+                grp.create_dataset(full, data=merged[var])
+                names.append(full.encode())
+            grp.attrs["weight_names"] = np.array(names)
+
+
+def weight_key(prefix: str, layer: str, var: str) -> str:
+    """The npz key of one weight: the JSON of ``[prefix, layer, var]``,
+    ``"p"`` for a parameter, ``"s"`` for a BN statistic (the JAX serving
+    artifact's key)."""
+    return json.dumps([prefix, layer, var])
+
+
+def flat_keys(tree, prefix: str) -> dict:
+    """``{layer: {var: array}}`` -> ``{npz key: array}`` under
+    :func:`weight_key` (JAX ``export._flat_keys``)."""
+    return {weight_key(prefix, layer, var): arr
+            for layer, vars_ in tree.items() for var, arr in vars_.items()}
+
+
+def unflatten(arrays):
+    """The inverse of :func:`flat_keys` over a mapping of npz keys (keys
+    starting ``__`` are skipped): ``(params, state)`` trees."""
+    params, state = {}, {}
+    for key in arrays:
+        if key.startswith("__"):
+            continue
+        prefix, layer, var = json.loads(key)
+        (params if prefix == "p" else state).setdefault(layer, {})[var] = \
+            arrays[key]
+    return params, state
+
+
+def atomic_savez(path: str, arrays: dict) -> None:
+    """``np.savez`` of ``arrays`` to ``path``: written beside it as
+    ``path + ".tmp"`` and moved into place, so that a reader never sees a
+    half-written file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)
+
+
+def save_npz(path: str, net) -> None:
+    """Write ``net``'s weights as one numpy-only ``.npz`` (no ``h5py``):
+    every parameter and BN statistic in the Keras layout under the serving
+    artifact's key, :func:`flat_keys`."""
+    params, state = trees_from_net(net)
+    arrays = flat_keys(params, "p")
+    arrays.update(flat_keys(state, "s"))
+    atomic_savez(path, arrays)
+
+
+def load_npz(path: str, net, strict: bool = True):
+    """Load a :func:`save_npz` file into ``net``.  ``strict`` demands that
+    the file and the net hold the same layers and variables; otherwise the
+    file's layers the net lacks are skipped, as :func:`load_keras_h5` skips
+    them.  Returns ``net``."""
+    with np.load(path, allow_pickle=False) as npz:
+        params, state = unflatten({k: npz[k] for k in npz.files})
+    if _assign(net, (params, state), strict=strict) == 0:
+        raise ValueError(f"no weights matched the model in {path}")
+    return net
+
+
+def load_weights(path: str, net):
+    """Load a weight file by its suffix: ``.npz`` through :func:`load_npz`
+    (by name), anything else as Keras h5 through :func:`load_keras_h5`.
+    Returns ``net``."""
+    if path.endswith(".npz"):
+        return load_npz(path, net, strict=False)
+    return load_keras_h5(path, net)
+
+
+def h5_available() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def weights_suffix() -> str:
+    """``".h5"`` where ``h5py`` imports, else ``".npz"``: the weight file a
+    training run on this machine can write."""
+    return ".h5" if h5_available() else ".npz"

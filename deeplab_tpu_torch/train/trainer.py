@@ -3,29 +3,41 @@
 One train step: forward in training mode (batch-statistic BN, dropout 0.1
 after ASPP), the void-masked, sample-weighted CE on the head logits,
 backward, a Keras-Adam update, and the step metrics.  Under the bf16 policy
-the 14 stride-1 expand blocks run forward and backward through
-``kernels/fused_mbconv_train``; params, grads and the optimizer stay f32.
-Step metrics accumulate on the device and are read once per epoch, so no
-step waits for the host.
+the 14 stride-1 expand blocks of a MobileNetV2 net run forward and backward
+through ``kernels/fused_mbconv_train``; params, grads and the optimizer stay
+f32.  Xception nets and the subpixel head train through the plain layer
+composition (``fused_sepconv`` is eval-only, as in JAX).  Step metrics
+accumulate on the device and are read once per epoch, so no step waits for
+the host.
 
-Meshes, spatial sharding, DDP, remat, profiling, train-state checkpoints,
-multiprocess workers and training an Xception or subpixel net raise
-``NotImplementedError`` and name their slice.
+``fit`` also writes and restores whole train-state checkpoints
+(``train/checkpoint.py``, with the callbacks' state), traces a window of
+steps (``profile_dir``, ``train/profiling.py``), feeds the steps from a
+thread or an ordered pool of worker processes (``workers``,
+``use_multiprocessing``) and can rematerialize the forward in the backward
+(``remat``, ``torch.utils.checkpoint``).  Under remat the recompute
+replays the forward with the step's dropout draws and no BN momentum
+update, so a remat step equals a plain one; the training blocks' forward
+phases F1-F3 then launch twice a step (28 each) and B2 and B34 once (14).
+
+Meshes, spatial sharding and DDP raise ``NotImplementedError``: they come
+with the multi-GPU slice (A10).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Iterable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from deeplab_tpu_torch import core
 from deeplab_tpu_torch.losses import masked_sparse_ce_logits
 from deeplab_tpu_torch.metrics import accuracy_from_ids, jaccard_from_ids
+from deeplab_tpu_torch.ops.bn import moving_statistics
 from deeplab_tpu_torch.train.optimizer import KerasAdam, freeze_set
-
-_LATER = "is not ported yet: it comes with {}"
 
 
 class Trainer:
@@ -35,26 +47,14 @@ class Trainer:
                  verbose: int = 1, spatial: bool = False, compute_dtype=None,
                  eval_dtype=None, remat: bool = False, workers: int = 1,
                  use_multiprocessing: bool = False, ddp: bool = False,
-                 profile_dir: Optional[str] = None, device=None):
-        later = {"mesh": (mesh is not None, "the multi-GPU slice (A10)"),
-                 "spatial": (spatial, "the multi-GPU slice (A10)"),
-                 "ddp": (ddp, "the multi-GPU slice (A10)"),
-                 "remat": (remat, "the rest of the training slice (A7)"),
-                 "profile_dir": (profile_dir is not None,
-                                 "the rest of the training slice (A7)"),
-                 "multiprocess workers": (workers > 1 or use_multiprocessing,
-                                          "the data slice "
-                                          "(SegmentationGenerator, A7)"),
-                 "for an Xception or subpixel net": (
-                     (getattr(model, "backbone", "mobilenetv2"),
-                      getattr(model, "net", "original"))
-                     != ("mobilenetv2", "original"),
-                     "the training half of the Xception and subpixel "
-                     "slice (A8)")}
-        for name, (asked, where) in later.items():
+                 profile_dir: Optional[str] = None,
+                 profile_steps: tuple = (2, 5), device=None):
+        for name, asked in (("mesh", mesh is not None), ("spatial", spatial),
+                            ("ddp", ddp)):
             if asked:
-                raise NotImplementedError(f"Trainer {name} "
-                                          + _LATER.format(where))
+                raise NotImplementedError(
+                    f"Trainer {name} is not ported yet: it comes with the "
+                    f"multi-GPU slice (A10)")
         self.model = model
         self.epochs = epochs
         self.callbacks = list(callbacks)
@@ -69,12 +69,21 @@ class Trainer:
                                                  or torch.float32)
         self.eval_policy = core.resolve_compute_dtype(eval_dtype
                                                       or torch.float32)
+        self.remat = remat
+        # the host pipeline (reference fit_generator, utils.py:240): 0 loads
+        # in the step loop, 1 (or more without use_multiprocessing) on a
+        # thread, more with use_multiprocessing on an ordered process pool
         self.workers = workers
+        self.use_multiprocessing = use_multiprocessing
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
         self.device = core.resolve_device(device)
         self.stop_training = False
         self.opt = None
         self.gen = None
+        self.step = 0
         self.frozen = frozenset()
+        self.profiler = None
         for cb in self.callbacks:
             cb.set_trainer(self)
 
@@ -122,17 +131,40 @@ class Trainer:
 
     # ------------------------------------------------------------- steps ----
 
+    def _forward(self, X):
+        """The training forward; under ``remat`` one checkpointed region.
+        Its recompute (inside ``backward``) restarts the dropout generator
+        where the forward started it and holds the BN moving statistics,
+        so it replays the forward's values without a second update."""
+        net, gen, policy = self.model, self.gen, self.policy
+        if not self.remat:
+            return net.apply_logits(X, policy, gen)
+        start = gen.get_state()
+        calls = [0]
+
+        def forward(x):
+            calls[0] += 1
+            gen.set_state(start)
+            if calls[0] == 1:
+                return net.apply_logits(x, policy, gen)
+            with moving_statistics(net, "hold"):
+                return net.apply_logits(x, policy, gen)
+        return torch.utils.checkpoint.checkpoint(forward, X,
+                                                 use_reentrant=False)
+
     def train_step(self, X, Y, SW):
         """One step on a host or device batch; returns the step metrics as
         device tensors.  The gradients stay in ``p.grad`` until the next
         step."""
-        net = self.model
         X, Y, SW = self._put(X, Y, SW)
         with core.precision_flags(self.policy):
-            out = net.apply_logits(X, self.policy, self.gen)
+            out = self._forward(X)
+            after = self.gen.get_state() if self.remat else None
             loss, metrics = self._loss_and_metrics(out, Y, SW)
             self.opt.zero_grad()
             loss.backward()
+            if after is not None:        # where the plain step leaves it
+                self.gen.set_state(after)
             self.opt.step(self.lr_scale)
         return {"loss": loss.detach(), **metrics}
 
@@ -153,8 +185,14 @@ class Trainer:
     # --------------------------------------------------------------- fit ----
 
     def _pipeline(self, gen):
+        """The host pipeline over ``gen``, built once a fit so that the
+        process pool's per-epoch reseed advances."""
+        from deeplab_tpu_torch.data.generator import (MultiprocessPrefetcher,
+                                                      Prefetcher)
+        if self.workers > 1 and self.use_multiprocessing:
+            return MultiprocessPrefetcher(gen, workers=self.workers,
+                                          seed=self.seed)
         if self.workers >= 1:
-            from deeplab_tpu_torch.data.generator import Prefetcher
             return Prefetcher(gen)
 
         class _Sync:
@@ -163,18 +201,53 @@ class Trainer:
                     yield gen[i]
         return _Sync()
 
+    def _resume(self, path: str, initial_epoch: int) -> int:
+        """Restore the train state and the callbacks' state from ``path``;
+        returns the epoch to start at.  Callback states are matched by
+        class name, each to the first unmatched callback of that class, so
+        that a changed callback list cannot apply one's counters to
+        another."""
+        from deeplab_tpu_torch.train.checkpoint import restore_train_state
+        self.step, self.lr_scale, extra = restore_train_state(
+            path, self.model, self.opt, self.gen)
+        initial_epoch = max(initial_epoch, extra.get("epoch", 0))
+        unmatched = list(self.callbacks)
+        for name, cb_state in extra.get("callbacks", []):
+            for cb in unmatched:
+                if type(cb).__name__ == name:
+                    cb.set_state(cb_state)
+                    unmatched.remove(cb)
+                    break
+        if self.verbose:
+            print(f"resumed from {path} (epoch {initial_epoch}, step "
+                  f"{self.step})")
+        return initial_epoch
+
+    def _save_state(self, path: str, epoch: int):
+        from deeplab_tpu_torch.train.checkpoint import save_train_state
+        save_train_state(
+            path, self.model, self.opt, self.step, self.lr_scale,
+            extra={"epoch": epoch + 1,
+                   "callbacks": [[type(cb).__name__, cb.get_state()]
+                                 for cb in self.callbacks]},
+            generator=self.gen)
+
     def fit(self, net, train_gen, valid_gen=None, initial_epoch: int = 0,
             state_checkpoint: Optional[str] = None,
             resume_from: Optional[str] = None):
         """Train ``net`` in place on ``train_gen``; returns the history
         (loss, Jaccard, sparse_accuracy and, with ``valid_gen``, their
-        ``val_`` twins, one value per epoch)."""
-        if state_checkpoint is not None or resume_from is not None:
-            raise NotImplementedError(
-                "train-state checkpoints " + _LATER.format(
-                    "the rest of the training slice (train/checkpoint.py)"))
+        ``val_`` twins, one value per epoch).  ``state_checkpoint``: write
+        the whole train state there after each epoch's callbacks.
+        ``resume_from``: where that file exists, continue from it (its
+        epoch, optimizer, dropout generator and callbacks' state)."""
+        from deeplab_tpu_torch.train.profiling import (StepTimer,
+                                                       StepWindowProfiler)
         self.stop_training = False
         self.setup(net)
+        self.step = 0
+        if resume_from is not None and os.path.exists(resume_from):
+            initial_epoch = self._resume(resume_from, initial_epoch)
         history = {"loss": [], "Jaccard": [], "sparse_accuracy": []}
         if valid_gen is not None:
             history.update({"val_loss": [], "val_Jaccard": [],
@@ -182,10 +255,14 @@ class Trainer:
         pipes = [self._pipeline(train_gen)]
         if valid_gen is not None:
             pipes.append(self._pipeline(valid_gen))
+        self.profiler = (StepWindowProfiler(self.profile_dir,
+                                            *self.profile_steps)
+                         if self.profile_dir is not None else None)
+        timer = StepTimer()
         try:
             for epoch in range(initial_epoch, self.epochs):
                 t0 = time.time()
-                logs = self._epoch(pipes[0], self.train_step)
+                logs = self._epoch(pipes[0], self.train_step, timer)
                 if valid_gen is not None:
                     logs.update({f"val_{k}": v for k, v in
                                  self._epoch(pipes[1], self.eval_step).items()})
@@ -194,26 +271,41 @@ class Trainer:
                 if self.verbose:
                     msg = " - ".join(f"{k}: {v:.4f}" for k, v in logs.items())
                     print(f"Epoch {epoch + 1}/{self.epochs} "
-                          f"({time.time() - t0:.1f}s) - {msg}")
+                          f"({time.time() - t0:.1f}s, {timer.summary()}) - "
+                          f"{msg}")
                 train_gen.on_epoch_end()
                 for cb in self.callbacks:
                     cb.on_epoch_end(epoch, logs)
+                if state_checkpoint is not None:
+                    self._save_state(state_checkpoint, epoch)
                 if self.stop_training:
                     break
         finally:
             for pipe in pipes:
                 if hasattr(pipe, "close"):
                     pipe.close()
+            if self.profiler is not None:
+                self.profiler.close()
         return history
 
-    @staticmethod
-    def _epoch(pipe, step):
+    def _epoch(self, pipe, step, timer=None):
         """Run ``step`` over one pass of ``pipe``; mean of each metric (one
-        host read per metric per epoch)."""
+        host read per metric per epoch).  Train steps (with ``timer``) are
+        timed and counted, and open and close the profiler's window."""
         sums, n = {}, 0
+        prof = self.profiler if timer is not None else None
         for X, Y, sw in pipe:
             SW = sw["pred_mask"] if isinstance(sw, dict) else sw
+            if prof is not None:
+                prof.before_step(self.step)
+            if timer is not None:
+                timer.start()
             for k, v in step(X, Y, SW).items():
                 sums[k] = sums.get(k, 0.0) + v
+            if timer is not None:
+                timer.stop(len(X))
+                if prof is not None:
+                    prof.after_step(self.step)
+                self.step += 1
             n += 1
         return {k: float(v) / max(n, 1) for k, v in sums.items()}

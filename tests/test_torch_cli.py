@@ -1,9 +1,9 @@
 """The port's command line (deeplab_tpu_torch/cli.py) on the CPU, mirroring
 tests/test_cli.py: predict (against the JAX CLI's masks, the port's
 Predictor, the notebook CRF), export-serving then predict --artifact, serve
---artifact over HTTP, evaluate (against the JAX CLI's mean IoU),
-export-config, and train, which is not ported.  Every command runs with
-``--device cpu``: without it the port asks for the card."""
+--artifact over HTTP, evaluate (against the JAX CLI's mean IoU) and
+export-config; train is in tests/test_torch_train_surface.py.  Every command
+runs with ``--device cpu``: without it the port asks for the card."""
 
 import io
 import os
@@ -185,9 +185,3 @@ def test_export_config_equals_jax(capsys):
     jcli.main(["export-config"])
     assert mine == capsys.readouterr().out
     assert Config.from_json(mine).to_json() + "\n" == mine
-
-
-def test_train_is_not_ported(setup):
-    cfg_path = setup[0]
-    with pytest.raises(NotImplementedError, match="A7"):
-        cli.main(["train", "--config", cfg_path, "--no-finetune"] + CPU)

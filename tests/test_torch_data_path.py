@@ -189,9 +189,6 @@ def test_seg_model_facade(no_native):
                                   n_classes=3, validation_split=0.2)
     assert gen.image_path_list == jgen.image_path_list
     assert gen.resize_shape == jgen.resize_shape == (64, 64)
-    for method in (seg.train_generator, seg.build_callbacks, seg.train):
-        with pytest.raises(NotImplementedError, match="A7"):
-            method(net)
     seg.modelpath = os.path.join(VOC, "no_such_weights.h5")
     with pytest.raises(FileNotFoundError):
         seg.load_weights()

@@ -36,7 +36,6 @@ from deeplab_tpu_torch.kernels import fused_mbconv as FM
 from deeplab_tpu_torch.models.seg_model import SegNet
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.params import params_from_jax, trees_from_net
-from deeplab_tpu_torch.train import Trainer
 
 SZ, N_CLS = 32, 5
 CASES = [(16, "original"), (16, "subpixel"), (8, "original"), (8, "subpixel")]
@@ -219,15 +218,6 @@ def test_predictor_with_crf_serves_xception_unchanged():
     assert raw.shape == refined.shape == (1, 128, 128)
     for m in (raw, refined):
         assert m.dtype == np.int32 and m.min() >= 0 and m.max() < 3
-
-
-@pytest.mark.parametrize("backbone,head", [("xception", "original"),
-                                           ("mobilenetv2", "subpixel")])
-def test_trainer_refuses_xception_and_subpixel(port, backbone, head):
-    net = (port[16, "original"] if backbone == "xception"
-           else SegNet((32, 32), 3, backbone, head, alpha=0.35))
-    with pytest.raises(NotImplementedError, match="A8"):
-        Trainer(net, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(backbone="resnet"), dict(net="deconv"),
