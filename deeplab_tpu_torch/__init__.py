@@ -30,18 +30,37 @@ runs it without the model code; ``config.Config`` and the command line
 (``python -m deeplab_tpu_torch.cli``, with the ``SegModel`` facade and the
 augmenting ``SegmentationGenerator`` behind ``evaluate``).
 
-``SegNet`` and ``Predictor`` are imported when first used, so that loading a
-serving artifact imports no model code.
+And the rest of the JAX package: the reference's ``Deeplabv3`` entry point
+(probabilities, ``weights="pascal_voc"`` from a local file), the
+probability-form losses, the numpy CRF oracle (``crf/brute.py``), the
+native host image library (``data/native.py`` over
+``data/csrc/imgops.cpp``, built with ``g++`` at first use) and data-parallel
+training and serving over ``torch.distributed`` (``parallel/mesh.py``,
+``Trainer(mesh=..., ddp=...)``, ``Predictor(mesh=...)``).
+
+The public names mirror the JAX package's (``Deeplabv3``, ``SegModel``,
+``losses``, ``metrics``) beside ``SegNet`` and ``Predictor``.  Each is
+imported when first named, so that loading a serving artifact imports no
+model code.
 """
 
-__all__ = ["SegNet", "Predictor"]
+import importlib
+
+__all__ = ["SegNet", "Predictor", "Deeplabv3", "SegModel", "losses",
+           "metrics"]
+
+_LAZY = {"SegNet": ("deeplab_tpu_torch.models.seg_model", "SegNet"),
+         "SegModel": ("deeplab_tpu_torch.models.seg_model", "SegModel"),
+         "Deeplabv3": ("deeplab_tpu_torch.models.deeplabv3p", "Deeplabv3"),
+         "Predictor": ("deeplab_tpu_torch.predictor", "Predictor"),
+         "losses": ("deeplab_tpu_torch.losses", None),
+         "metrics": ("deeplab_tpu_torch.metrics", None)}
 
 
 def __getattr__(name):
-    if name == "SegNet":
-        from deeplab_tpu_torch.models.seg_model import SegNet
-        return SegNet
-    if name == "Predictor":
-        from deeplab_tpu_torch.predictor import Predictor
-        return Predictor
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    module, attr = _LAZY[name]
+    mod = importlib.import_module(module)
+    return mod if attr is None else getattr(mod, attr)

@@ -14,6 +14,8 @@ caller asks for ``cpu``).
     python -m deeplab_tpu_torch.cli serve --artifact serving.npz --port 8517
 
     python -m deeplab_tpu_torch.cli train --config config.json [--resume]
+    torchrun --nproc-per-node 4 -m deeplab_tpu_torch.cli train \
+        --config config.json --ddp
 
 Weights are a Keras h5 or the port's numpy-only ``.npz`` (``--weights``,
 read by ``params.load_weights`` by suffix); without one the net keeps its
@@ -23,6 +25,12 @@ is ``.h5`` where ``h5py`` imports and ``.npz`` where it does not: ``train``
 writes its best weights there, and ``--resume-weights`` and the other
 commands read whichever of the two exists.  ``train`` runs in float32, as
 the JAX CLI does; ``--resume`` continues from ``train.state_checkpoint``.
+Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set) ``train`` starts the process group itself (NCCL on
+``cuda``, one device a process by ``LOCAL_RANK``; gloo with ``--device
+cpu``) and trains data-parallel: each process reads its shard of the files,
+``--ddp`` (or the config's ``train.ddp``) picks JAX's ``ddp`` step over its
+SPMD step, and rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -102,7 +110,39 @@ def _tta(args):
     return tuple(args.tta_scales) if args.tta_scales else None
 
 
+def _torchrun_mesh(args):
+    """Under ``torchrun``: start the process group where it is not yet
+    (the caller's backend: NCCL on cuda, gloo on the CPU) and return its
+    mesh and whether this call started it; else ``(None, False)``."""
+    need = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    if not all(k in os.environ for k in need):
+        return None, False
+    import torch
+    import torch.distributed as dist
+    from deeplab_tpu_torch.parallel.mesh import get_mesh, warmup_collectives
+    cpu = torch.device(args.device).type == "cpu"
+    started = not dist.is_initialized()
+    if started:
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                init_method="env://")
+    mesh = get_mesh(device="cpu" if cpu else None)
+    warmup_collectives(mesh)
+    return mesh, started
+
+
 def cmd_train(args):
+    mesh, started = _torchrun_mesh(args)
+    try:
+        _train(args, mesh)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, mesh):
     from deeplab_tpu_torch.params import weights_suffix
     from deeplab_tpu_torch.train.callbacks import (EarlyStopping,
                                                    ModelCheckpoint,
@@ -142,11 +182,17 @@ def cmd_train(args):
     if args.finetune and not have_weights:
         print("note: no pretrained weights loaded; training full network "
               "(freeze policy skipped)")
+    ddp = t.ddp or args.ddp
+    if mesh is not None:
+        print(f"data-parallel: rank {mesh.rank} of {mesh.world} on "
+              f"{mesh.device}, " + ("ddp (per-process BN statistics)" if ddp
+                                    else "BN over the global batch"))
     trainer = Trainer(net, epochs=t.epochs, callbacks=callbacks, lr=t.lr,
                       epsilon=t.epsilon, decay=t.decay,
-                      freeze_before=freeze, spatial=t.spatial, ddp=t.ddp,
-                      seed=t.seed, profile_dir=args.profile_dir,
-                      device=args.device)
+                      freeze_before=freeze, spatial=t.spatial,
+                      ddp=ddp, mesh=mesh, seed=t.seed,
+                      profile_dir=args.profile_dir,
+                      device=None if mesh is not None else args.device)
     if args.resume and not t.state_checkpoint:
         print("warning: --resume given but train.state_checkpoint is not "
               "configured; starting from epoch 0")
@@ -348,6 +394,11 @@ def _parser():
                     help="resume full train state from state_checkpoint")
     pt.add_argument("--finetune", action="store_true", default=True)
     pt.add_argument("--no-finetune", dest="finetune", action="store_false")
+    pt.add_argument("--ddp", action="store_true",
+                    help="data-parallel with per-process BN statistics "
+                         "and the kernels per process (JAX's ddp step; "
+                         "the config's train.ddp); under torchrun without "
+                         "it, BN over the global batch")
     pt.add_argument("--profile-dir", default=None,
                     help="capture a profiler trace of train steps 2-4 into "
                          "this directory")

@@ -1,17 +1,19 @@
-"""Host-side image ops in numpy (the port's copy of
-deeplab_tpu/data/augment.py, its numpy path).
+"""Host-side image ops (the port's copy of deeplab_tpu/data/augment.py).
 
 Each op reproduces the cv2 call the reference generator makes
 (utils.py:315-358): bilinear/nearest resize (``cv2.resize`` with
 ``INTER_LINEAR``, half-pixel centers, and ``INTER_NEAREST``), flips, gamma
 LUT, fused rotation+zoom affine warp, Gaussian blur, CLAHE on the Y channel
-of YUV.  The JAX package may route uint8 images through its optional
-native library; the port keeps the numpy path only.
+of YUV.  As in the JAX package, uint8 images go through the native
+library (``data/native.py``) where it is available, and through the numpy
+code below otherwise: the same conditions, op by op.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from deeplab_tpu_torch.data import native as _native
 
 
 def resize_bilinear(img: np.ndarray, size_wh) -> np.ndarray:
@@ -21,6 +23,8 @@ def resize_bilinear(img: np.ndarray, size_wh) -> np.ndarray:
     in_h, in_w = img.shape[:2]
     if (in_h, in_w) == (out_h, out_w):
         return img.copy()
+    if img.dtype == np.uint8 and _native.available():
+        return _native.resize_bilinear(img, size_wh)
 
     def axis_weights(in_size, out_size):
         scale = in_size / out_size
@@ -53,6 +57,8 @@ def resize_nearest(img: np.ndarray, size_wh) -> np.ndarray:
     """cv2.resize INTER_NEAREST semantics (src = floor(dst * scale))."""
     out_w, out_h = int(size_wh[0]), int(size_wh[1])
     in_h, in_w = img.shape[:2]
+    if img.dtype == np.uint8 and _native.available():
+        return _native.resize_nearest(img, size_wh)
     ys = np.minimum(np.floor(np.arange(out_h) * (in_h / out_h))
                     .astype(np.int64), in_h - 1)
     xs = np.minimum(np.floor(np.arange(out_w) * (in_w / out_w))
@@ -63,10 +69,14 @@ def resize_nearest(img: np.ndarray, size_wh) -> np.ndarray:
 # ----------------------------------------------------------------- flips ----
 
 def flip_horizontal(img: np.ndarray) -> np.ndarray:   # cv2.flip(img, 1)
+    if img.dtype == np.uint8 and _native.available():
+        return _native.flip(img, 1)
     return img[:, ::-1].copy()
 
 
 def flip_vertical(img: np.ndarray) -> np.ndarray:     # cv2.flip(img, 0)
+    if img.dtype == np.uint8 and _native.available():
+        return _native.flip(img, 0)
     return img[::-1].copy()
 
 
@@ -79,6 +89,8 @@ def gamma_lut(factor: float) -> np.ndarray:
 
 
 def apply_lut(img: np.ndarray, table: np.ndarray) -> np.ndarray:
+    if img.dtype == np.uint8 and _native.available():
+        return _native.apply_lut(img, table)
     return table[img]
 
 
@@ -99,6 +111,8 @@ def warp_affine(img: np.ndarray, M: np.ndarray, size_wh, nearest: bool = False
     bilinear (default, as the reference uses for images AND labels) or
     nearest, constant-0 border."""
     out_w, out_h = int(size_wh[0]), int(size_wh[1])
+    if img.dtype == np.uint8 and _native.available():
+        return _native.warp_affine(img, M, size_wh, nearest)
     Mi = np.linalg.inv(np.vstack([M, [0, 0, 1]]))[:2]
     xs, ys = np.meshgrid(np.arange(out_w), np.arange(out_h))
     sx = Mi[0, 0] * xs + Mi[0, 1] * ys + Mi[0, 2]
@@ -163,6 +177,8 @@ def gaussian_kernel_1d(ksize: int, sigma: float = 0.0) -> np.ndarray:
 
 def gaussian_blur(img: np.ndarray, ksize: int) -> np.ndarray:
     """cv2.GaussianBlur(img, (k,k), 0) with BORDER_REFLECT_101."""
+    if img.dtype == np.uint8 and _native.available():
+        return _native.gaussian_blur(img, ksize)
     k = gaussian_kernel_1d(ksize)
     pad = ksize // 2
     im = img.astype(np.float64)
@@ -180,6 +196,8 @@ def gaussian_blur(img: np.ndarray, ksize: int) -> np.ndarray:
 
 def bgr_to_yuv(img: np.ndarray) -> np.ndarray:
     """cv2.COLOR_BGR2YUV (uint8, delta=128)."""
+    if img.dtype == np.uint8 and _native.available():
+        return _native.bgr_to_yuv(img)
     b, g, r = img[..., 0].astype(np.float64), img[..., 1].astype(np.float64), \
         img[..., 2].astype(np.float64)
     y = 0.299 * r + 0.587 * g + 0.114 * b
@@ -190,6 +208,8 @@ def bgr_to_yuv(img: np.ndarray) -> np.ndarray:
 
 def yuv_to_bgr(img: np.ndarray) -> np.ndarray:
     """cv2.COLOR_YUV2BGR."""
+    if img.dtype == np.uint8 and _native.available():
+        return _native.yuv_to_bgr(img)
     y = img[..., 0].astype(np.float64)
     u = img[..., 1].astype(np.float64) - 128.0
     v = img[..., 2].astype(np.float64) - 128.0
@@ -209,6 +229,8 @@ def clahe(channel: np.ndarray, clip_limit: float = 2.0, tiles=(8, 8)
     interpolation between the four surrounding tile mappings.
     """
     h, w = channel.shape
+    if channel.dtype == np.uint8 and _native.available():
+        return _native.clahe(channel, clip_limit, tiles)
     th, tw = tiles
     # cv2 pads the image so tiles divide evenly (border reflect 101)
     ph = (th - h % th) % th

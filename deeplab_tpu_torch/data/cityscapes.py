@@ -16,6 +16,7 @@ import os
 import numpy as np
 
 from deeplab_tpu_torch.data.generator import (SegmentationGenerator,
+                                              _resolve_host_shard,
                                               _imread_bgr, _imread_gray,
                                               reference_split)
 
@@ -41,10 +42,12 @@ class CityscapesGenerator(SegmentationGenerator):
     """``SegmentationGenerator`` over the Cityscapes layout with trainId
     labels.  ``mode`` 'train' | 'validation' | 'test' reads the dataset's
     own train / val / test split, unless ``validation_split`` > 0: then the
-    reference's seeded split of the train set (the VOC workflow's)."""
+    reference's seeded split of the train set (the VOC workflow's).
+    ``host_id``/``num_hosts``: the per-host shard, as the parent's."""
 
     def __init__(self, folder, mode="train", n_classes=N_CLASSES,
-                 validation_split=0.0, seed=7, **kw):
+                 validation_split=0.0, seed=7, host_id=None,
+                 num_hosts=None, **kw):
         split_dir = "train" if (mode in ("train", "validation")
                                 and validation_split > 0) else \
             {"train": "train", "validation": "val", "test": "test"}[mode]
@@ -63,6 +66,10 @@ class CityscapesGenerator(SegmentationGenerator):
             idx = reference_split(len(images), validation_split, seed, mode)
             images = [images[j] for j in idx]
             labels = [labels[j] for j in idx]
+        host_id, num_hosts = _resolve_host_shard(host_id, num_hosts)
+        if num_hosts > 1:
+            images = images[host_id::num_hosts]
+            labels = labels[host_id::num_hosts]
         self.image_path_list = images
         self.label_path_list = labels
 

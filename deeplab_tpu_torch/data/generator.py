@@ -6,9 +6,11 @@ readers, never with the module).
 
 A batch is ``(X, Y, {"pred_mask": SW})``: X (b, H, W, 3) float BGR 0-255,
 Y (b, H*W, 1) labels (``n_classes`` is void), SW (b, H*W) per-pixel weights.
-The JAX generator's per-host sharding (its multi-host data parallelism)
-comes with the multi-GPU slice.  The module imports numpy and the standard
-library only: the worker processes import it, and never torch.
+With data parallelism each process's generator keeps every
+``num_hosts``-th file from ``host_id`` (JAX's per-host shard; ``None``
+means this process of an initialized ``torch.distributed`` group).  The
+module imports numpy and the standard library only: the worker processes
+import it, and never torch.
 """
 
 from __future__ import annotations
@@ -60,6 +62,22 @@ def reference_split(n_images: int, validation_split: float, seed: int,
     return x
 
 
+def _resolve_host_shard(host_id, num_hosts):
+    """(host_id, num_hosts) with None meaning this process: its rank and
+    the world size of an initialized ``torch.distributed`` group, else the
+    single-host identity.  ``torch.distributed`` is read only where the
+    caller has imported it (the worker processes never import torch)."""
+    if host_id is not None and num_hosts is not None:
+        return host_id, num_hosts
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        auto_id, auto_n = dist.get_rank(), dist.get_world_size()
+    else:
+        auto_id, auto_n = 0, 1
+    return (auto_id if host_id is None else host_id,
+            auto_n if num_hosts is None else num_hosts)
+
+
 class SegmentationGenerator:
     """Reference utils.py:257-423: batch generator with augmentation (JAX
     ``SegmentationGenerator`` on one host).  ``__getitem__`` returns
@@ -74,7 +92,8 @@ class SegmentationGenerator:
                  n_classes=21, batch_size=1, resize_shape=None,
                  validation_split=0.1, seed=7, crop_shape=(640, 320),
                  horizontal_flip=True, blur=0, vertical_flip=0,
-                 brightness=0.1, rotation=5.0, zoom=0.1, do_ahisteq=True):
+                 brightness=0.1, rotation=5.0, zoom=0.1, do_ahisteq=True,
+                 host_id=None, num_hosts=None):
         self.blur = blur
         self.histeq = do_ahisteq
         self.image_path_list = sorted(
@@ -90,6 +109,11 @@ class SegmentationGenerator:
         if mode == "test":
             self.image_path_list = sorted(
                 glob.glob(os.path.join(folder, "JPEGImages", "test", "*")))[:100]
+
+        host_id, num_hosts = _resolve_host_shard(host_id, num_hosts)
+        if num_hosts > 1:
+            self.image_path_list = self.image_path_list[host_id::num_hosts]
+            self.label_path_list = self.label_path_list[host_id::num_hosts]
 
         self.mode = mode
         self.n_classes = n_classes

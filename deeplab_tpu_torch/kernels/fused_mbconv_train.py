@@ -744,6 +744,112 @@ def max_err_vs_plain(got, want):
     return worst_abs, worst_rel, ok
 
 
+def boundary_ulps(e64: torch.Tensor) -> torch.Tensor:
+    """Distance of each float64 value from its nearest bf16 rounding
+    boundary (a value halfway between two neighbouring bf16 values), in f32
+    ulps of that boundary."""
+    base = e64.float().abs().view(torch.int32) & ~0xFFFF
+    best = None
+    for step in (-0x10000, 0, 0x10000):
+        mb = (base + step) | 0x8000
+        m = mb.view(torch.float32).double()
+        ulp = (mb + 1).view(torch.float32).double() - m
+        d = (e64.abs() - m).abs() / ulp
+        best = d if best is None else torch.minimum(best, d)
+    return best
+
+
+def _flipped(name, args, kw, cand):
+    """The plain version of halo phase ``name`` with the one eq value at
+    ``cand`` (b, y, x, c) rounded to its other bf16 neighbour, the one
+    towards its float64 expand."""
+    mod = sys.modules[__name__]
+    orig = mod._expand
+
+    def expand(x, w1, a1, c1):
+        _, eq, _ = orig(x, w1, a1, c1)
+        e = (x[cand[:3]].double() @ w1.double()[:, cand[3]]).item()
+        q = eq[cand].item()
+        bits = torch.tensor([q]).bfloat16().view(torch.int16).item()
+        step = 1 if (e > q) == (q >= 0) else -1
+        eq = eq.clone()
+        eq[cand] = torch.tensor([bits + step], dtype=torch.int16).view(
+            torch.bfloat16).item()
+        v1 = _q(x.dtype)(_q(x.dtype)(eq * a1) + c1)
+        return _relu6(v1), eq, v1
+    mod._expand = expand
+    try:
+        with torch.no_grad():
+            return getattr(mod, name + "_reference")(*args, **kw)
+    finally:
+        mod._expand = orig
+
+
+def unexplained(name, args, kw, got, want, log=print):
+    """C3's rule for the halo phases F2 and B34 (``name`` "f2" or "b34"):
+    the elements of their outputs over tolerance (as in
+    :func:`max_err_vs_plain`) that no single eq value at a bf16 rounding
+    boundary explains; returns ``(unexplained, explained count)``.
+
+    No plain f32 order reproduces the tensor cores' sums (PERF.md, C3), so
+    the kernel's eq = q(x @ w1) and the plain version's may round the same
+    expand to neighbouring bf16 values where it lies near a boundary.  How
+    near is not known from a model: the eqs the card showed lie 3.75 and
+    2.24 f32 ulps from one (Cin 160, ten k-steps), so the window is one f32
+    ulp a 16-deep k-step, ceil(Cin / 16) ulps, an assumption rather than a
+    bound.  An element is explained when rounding one eq within the window
+    and in its reach (the sums and weight gradients of its channel, dq's
+    taps, dx's pixel) the other way in the plain version brings it within
+    tolerance; each such trace goes to ``log``.  No element may pass
+    ``FLIP_REL`` of its output's largest magnitude."""
+    x, w1 = args[0], (args[1] if name == "f2" else args[3])
+    B, H, W, Cin = x.shape
+    Ce, r = w1.shape[1], kw["rate"]
+    e64 = (x.double().reshape(-1, Cin) @ w1.double()).reshape(B, H, W, Ce)
+    dist = boundary_ulps(e64)
+    near = -(-Cin // 16)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    bad, explained = [], 0
+    for o, (g, w) in enumerate(zip(got, want)):
+        diff = (g.float() - w.float()).abs()
+        scale = max(w.float().abs().max().item(), 1e-30)
+        tol = PLAIN_BF16_REL if w.dtype == torch.bfloat16 else PLAIN_F32_REL
+        if diff.max().item() > FLIP_REL * scale:
+            bad.append((name, o, "over FLIP_REL"))
+        for idx in torch.nonzero(diff > tol * scale).tolist():
+            if w.dim() == 4 and w.shape[-1] == Cin and name == "b34":
+                cands = [tuple(idx[:3]) + (c,) for c in range(Ce)]  # dx
+            elif w.dim() == 4:                                   # dq's taps
+                b, y, xx, c = idx
+                cands = [(b, y + dy * r, xx + dx * r, c)
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                         if 0 <= y + dy * r < H and 0 <= xx + dx * r < W]
+            else:                                  # sums, dWdw, dW1^T
+                c = idx[0] if w.shape == (Ce, Cin) else idx[-1]
+                d, flat = torch.topk(dist[..., c].reshape(-1), 4,
+                                     largest=False)
+                cands = [tuple(torch.unravel_index(torch.tensor(i),
+                                                   (B, H, W))) + (c,)
+                         for i in flat.tolist()]
+                cands = [tuple(int(v) for v in cd) for cd in cands]
+            cands = sorted((dist[cd].item(), cd) for cd in cands)
+            k, p = g.float()[tuple(idx)].item(), w.float()[tuple(idx)].item()
+            for d, cd in [c for c in cands[:4] if c[0] <= near]:
+                f = _flipped(name, args, kw, cd)[o].float()[tuple(idx)].item()
+                if abs(f - k) <= tol * scale:
+                    log(f"C3: {name} output {o} at {idx}: kernel {k:.6g}, "
+                        f"plain {p:.6g} (rel {abs(k - p) / scale:.2e}, tol "
+                        f"{tol}); eq at {list(cd)} lies {d:.2f} f32 ulps "
+                        f"from a bf16 boundary, and rounded the other way "
+                        f"brings the plain version to {f:.6g}")
+                    explained += 1
+                    break
+            else:
+                bad.append((name, o, idx))
+    return bad, explained
+
+
 # ---------------------------------------------------------------------------
 # the block: glue between the phases, and its autograd Function
 # ---------------------------------------------------------------------------
@@ -907,7 +1013,10 @@ def use_fused_train_block(net, x, policy, stride: int, block_id: int,
     stride 1, an expand conv (block_id != 0), height divisible by 8, and
     none of the block's six layers frozen, and no BN calibration running
     (``net.calibrating``: ``calibrate_bn`` takes the plain composition's
-    statistics, as JAX's gate excludes ``bn_calibrate``).  On a CUDA tensor
+    statistics, as JAX's gate excludes ``bn_calibrate``), and no BN
+    statistics shared across processes (the Trainer's SPMD mode over more
+    than one process runs the composition, as JAX's multi-device SPMD step
+    does).  On a CUDA tensor
     the block then runs the kernels; on a CPU tensor their plain
     versions."""
     if not (net.fuse_blocks and block_id and stride == 1 and net.training
@@ -916,4 +1025,6 @@ def use_fused_train_block(net, x, policy, stride: int, block_id: int,
         return False
     names = ("expand", "expand_BN", "depthwise", "depthwise_BN", "project",
              "project_BN")
+    if getattr(net, prefix + "expand_BN").group is not None:
+        return False
     return not any(getattr(net, prefix + n).frozen for n in names)

@@ -6,14 +6,24 @@ branches; Xception runs at output stride 16 or 8, its ASPP adds three atrous
 SepConv branches, and the decoder fuses the stride-4 skip.  In training,
 dropout 0.1 follows ASPP, drawn from an explicit ``torch.Generator`` on the
 device.
+
+``Deeplabv3`` is the reference's public entry point (reference
+deeplabv3p.py:209, JAX ``Deeplabv3``): the whole graph with its
+``logits_semantic`` head and the softmax.  ``SegNet`` (seg_model.py) is the
+same graph truncated before that head, with its own.  Both share
+:class:`DeepLabNet`: their layers, the forward of the trunk, ASPP and
+decoder, and so every kernel on that path.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
+from torch import nn
 
+from deeplab_tpu_torch import core
 from deeplab_tpu_torch.models import mobilenetv2, xception
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.conv import (Conv2D, build_sep_conv_bn, relu,
@@ -108,8 +118,8 @@ def deeplabv3_forward(net, img, policy, gen=None):
     (Xception, stride 4), where SegNet truncates the graph.  Dropout acts in
     training mode only, with ``gen``; in eval mode and while
     ``train/bn_calibrate.py`` runs (``net.calibrating``) it is the
-    identity.  The
-    21-class ``logits_semantic`` head is not ported."""
+    identity.  The heads are the caller's: ``SegNet``'s or
+    ``Deeplabv3``'s ``logits_semantic``."""
     input_hw = (img.shape[1], img.shape[2])
     x = img.to(policy.dtype) / 127.5 - 1.0
     x = x.permute(0, 3, 1, 2)          # NCHW view, channels-last memory
@@ -128,3 +138,133 @@ def deeplabv3_forward(net, img, policy, gen=None):
     if net.backbone == "xception":
         x = decoder(net, x, skip1, policy, input_hw)
     return x
+
+
+class DeepLabNet(nn.Module):
+    """What ``SegNet`` and ``Deeplabv3`` share: the layers in Keras graph
+    order (``layer_order``, which the freeze policy counts from), twins at
+    other input sizes, and eval-mode logits and labels.  A subclass builds
+    its head and defines ``_logits_nchw(img, policy, gen)``.
+
+    ``fuse_blocks=False`` keeps every fused layer (MBConv block, SepConv_BN)
+    on the plain layer composition.  ``calibrating`` is set by
+    ``train/bn_calibrate.py`` for its forwards: training-mode BN (batch
+    statistics), no dropout, no fused block."""
+
+    calibrating = False
+
+    def _build_trunk(self, backbone: str, OS: int, alpha: float, seed: int,
+                     fuse_blocks: bool):
+        if backbone not in ("mobilenetv2", "xception"):
+            raise ValueError(f"unknown backbone {backbone!r}")
+        self.backbone, self.OS, self.alpha = backbone, OS, alpha
+        self.fuse_blocks = fuse_blocks
+        gen = torch.Generator().manual_seed(seed)
+        return build(self.add_module, gen, backbone, OS, alpha), gen
+
+    @property
+    def layer_order(self):
+        """Layer names in Keras graph order (JAX ``layer_order``)."""
+        return tuple(name for name, _ in self.named_children())
+
+    def at_size(self, image_size):
+        """A twin of this network at another input size (JAX ``at_size``)
+        that shares its submodules, so the same parameter and buffer
+        tensors, with no copy.  The graph is fully convolutional: the ASPP
+        image pool and the decoder take their geometry from the input.
+        Used by the Predictor's multi-scale test-time augmentation."""
+        twin = copy.copy(self)                  # its own attribute dict
+        twin._modules = dict(self._modules)     # holding the same modules
+        twin.sz = tuple(image_size)
+        return twin
+
+    @torch.inference_mode()
+    def logits(self, img: torch.Tensor, compute_dtype="float32"):
+        """(B, H, W, 3) BGR 0-255 -> (B, H, W, n) head logits in the compute
+        dtype (JAX ``apply_logits``, eval mode)."""
+        policy = core.resolve_compute_dtype(compute_dtype)
+        with core.precision_flags(policy):
+            return self._logits_nchw(img, policy).permute(0, 2, 3, 1)
+
+    @torch.inference_mode()
+    def predict_ids(self, img: torch.Tensor, compute_dtype="float32"):
+        """(B, H, W, 3) -> (B, H, W) int32 argmax of the head logits (the
+        softmax is per-pixel monotone, so it is skipped)."""
+        policy = core.resolve_compute_dtype(compute_dtype)
+        with core.precision_flags(policy):
+            logits = self._logits_nchw(img, policy)
+        return torch.argmax(logits, dim=1).to(torch.int32)
+
+
+class Deeplabv3(DeepLabNet):
+    """``Deeplabv3(weights=None | "pascal_voc", input_tensor=None,
+    infer=False, input_shape=(512, 512, 3), classes=21,
+    backbone="mobilenetv2" | "xception", OS=16, alpha=1.0)``, the reference's
+    entry point (JAX ``Deeplabv3``): the full graph, ending in the 1x1
+    ``logits_semantic`` conv (``custom_logits_semantic`` when ``classes`` is
+    not 21), a TF1 bilinear resize to the input size and the softmax.
+
+    :meth:`apply` returns probabilities, (B, H, W, C) with ``infer`` and
+    (B, H*W, C) without.  ``weights="pascal_voc"`` loads the release
+    weights from a local file (``params.load_pretrained_pascal_voc``; no
+    download).  Weights are otherwise glorot from ``seed``, BN at identity
+    statistics.  It has no ``apply_logits``: the Trainer trains it on its
+    probabilities with ``losses.masked_sparse_ce``, as JAX does.
+    ``input_tensor`` is accepted for the reference's signature and
+    ignored."""
+
+    def __init__(self, weights=None, input_tensor=None, infer: bool = False,
+                 input_shape=(512, 512, 3), classes: int = 21,
+                 backbone: str = "mobilenetv2", OS: int = 16,
+                 alpha: float = 1.0, seed: int = 0,
+                 fuse_blocks: bool = True):
+        if weights not in {"pascal_voc", None}:
+            raise ValueError("weights must be 'pascal_voc' or None")
+        if backbone not in {"xception", "mobilenetv2"}:
+            raise ValueError("backbone must be 'xception' or 'mobilenetv2'")
+        super().__init__()
+        self.input_shape = tuple(input_shape)
+        self.sz = self.input_shape[:2]
+        self.infer = infer
+        self.classes = self.n_classes = classes
+        self.weights = weights
+        c, gen = self._build_trunk(backbone, OS, alpha, seed, fuse_blocks)
+        self.head_name = ("logits_semantic" if classes == 21
+                          else "custom_logits_semantic")
+        self.add_module(self.head_name, Conv2D(c, classes, 1, use_bias=True,
+                                               gen=gen))
+        self.to(memory_format=torch.channels_last)
+        if weights == "pascal_voc":
+            from deeplab_tpu_torch.params import load_pretrained_pascal_voc
+            load_pretrained_pascal_voc(self, backbone)
+
+    def _logits_nchw(self, img, policy, gen=None):
+        feats = deeplabv3_forward(self, img, policy, gen)
+        x = getattr(self, self.head_name)(feats, policy)
+        return resize_bilinear_tf1(x, (img.shape[1], img.shape[2]))
+
+    def apply(self, img, compute_dtype="float32", training: bool = False,
+              gen=None, infer=None):
+        """(B, H, W, 3) BGR 0-255 -> float32 softmax probabilities (JAX
+        ``Deeplabv3.apply``).  ``training=False``: the eval-mode forward
+        (moving statistics, no dropout) without autograd.  ``training=
+        True``: the training forward under autograd (batch-statistic BN
+        that updates its moving statistics, dropout from ``gen``).  A
+        callable argument keeps ``nn.Module.apply``: ``fn`` on every
+        submodule."""
+        if callable(img):
+            return super().apply(img)
+        policy = core.resolve_compute_dtype(compute_dtype)
+        was = self.training
+        self.train(training)
+        try:
+            with torch.inference_mode(not training), \
+                    core.precision_flags(policy):
+                x = self._logits_nchw(img, policy, gen)
+        finally:
+            self.train(was)
+        probs = torch.softmax(x.float().permute(0, 2, 3, 1), dim=-1)
+        if self.infer if infer is None else infer:
+            return probs
+        B, H, W, C = probs.shape
+        return probs.reshape(B, H * W, C)

@@ -20,6 +20,12 @@ momentum twice) or ``"collect"`` (sum them into ``collected`` for
 because autograd may replay a forward on its own device thread.  Every
 update, the training MBConv block's too, goes through
 :meth:`BatchNorm.update_moving`.
+
+A BN whose ``group`` is a data-parallel mesh (``parallel/mesh.py``, set by
+the Trainer's SPMD mode over more than one process) normalizes a training
+batch with the statistics of the global batch: the sums over every
+process's rows, all-reduced under autograd, so the gradient reaches every
+process's inputs, as JAX's SPMD step computes BN over its sharded batch.
 """
 
 from __future__ import annotations
@@ -51,6 +57,21 @@ def moving_statistics(net: nn.Module, mode: str):
             m.moving = mode_
 
 
+class _AllSum(torch.autograd.Function):
+    """``t`` summed over the mesh's processes, under autograd: the
+    gradient of every process's copy of the sum is summed back the same
+    way (each process's loss part depends on every process's inputs)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_sum(t.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_sum(grad.clone()), None
+
+
 def bn_scale_shift(bn: "BatchNorm"):
     """Folded eval affine ``(scale, shift)`` in float32."""
     scale = bn.gamma.float() * torch.rsqrt(bn.moving_variance.float() + bn.eps)
@@ -71,6 +92,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("moving_variance", torch.ones(channels))
 
     collected = None     # (sum of means, sum of variances, batches)
+    group = None         # the mesh whose batch this BN's statistics cover
+
+    def batch_statistics(self, xf: torch.Tensor):
+        """(mean, biased variance) per channel of the f32 NCHW ``xf``; over
+        the global batch when ``group`` is set (two all-reduces: the sums
+        with the count, then the squared deviations from the global
+        mean)."""
+        dims = (0, 2, 3)
+        if self.group is None or self.group.world == 1:
+            return xf.mean(dim=dims), xf.var(dim=dims, unbiased=False)
+        C = xf.shape[1]
+        count = xf.new_full((1,), float(xf.numel() // C))
+        sums = _AllSum.apply(torch.cat([xf.sum(dim=dims), count]),
+                             self.group)
+        mean = sums[:C] / sums[C]
+        sq = _AllSum.apply((xf - mean[:, None, None]).square().sum(dim=dims),
+                           self.group)
+        return mean, sq / sums[C]
 
     @torch.no_grad()
     def update_moving(self, mean, var):
@@ -88,9 +127,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW."""
         if self.training and not self.frozen:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            mean, var = self.batch_statistics(x.float())
             self.update_moving(mean.detach(), var.detach())
             scale = self.gamma * torch.rsqrt(var + self.eps)
             shift = self.beta - mean * scale

@@ -355,3 +355,26 @@ def weights_suffix() -> str:
     """``".h5"`` where ``h5py`` imports, else ``".npz"``: the weight file a
     training run on this machine can write."""
     return ".h5" if h5_available() else ".npz"
+
+
+PASCAL_VOC_FILES = {
+    "xception": "deeplabv3_xception_tf_dim_ordering_tf_kernels.h5",
+    "mobilenetv2": "deeplabv3_mobilenetv2_tf_dim_ordering_tf_kernels.h5"}
+
+
+def load_pretrained_pascal_voc(net, backbone: str):
+    """The reference's release weights for ``backbone`` (reference
+    deeplabv3p.py:456-465, JAX ``load_pretrained_pascal_voc``), loaded into
+    ``net`` by layer name from a local file: ``$DEEPLAB_TPU_WEIGHTS_DIR``,
+    then ``weights/``, then ``~/.keras/models``.  Nothing is downloaded; a
+    missing file raises ``FileNotFoundError``.  Returns ``net``."""
+    fname = PASCAL_VOC_FILES["xception" if backbone == "xception"
+                             else "mobilenetv2"]
+    for root in (os.environ.get("DEEPLAB_TPU_WEIGHTS_DIR", ""), "weights",
+                 os.path.expanduser("~/.keras/models")):
+        if root and os.path.exists(os.path.join(root, fname)):
+            return load_keras_h5(os.path.join(root, fname), net)
+    raise FileNotFoundError(
+        f"pretrained weights {fname} not found locally; nothing is "
+        "downloaded. Place the file in ./weights or set "
+        "DEEPLAB_TPU_WEIGHTS_DIR.")

@@ -1,9 +1,12 @@
 """Serving API: images -> model -> argmax -> dense CRF
-(deeplab_tpu/predictor.py, no mesh), with multi-scale and flip test-time
+(deeplab_tpu/predictor.py), with multi-scale and flip test-time
 augmentation and streamed file serving (``predict_files``).
 
-Meshes and spatial sharding are the multi-GPU slice and raise
-``NotImplementedError`` here rather than run something else.
+With a ``mesh`` (``parallel/mesh.py``: the process group, one process per
+device) each process serves its own images on its own device and returns
+its own masks; JAX's data-parallel serving shards one batch the same way.
+Spatial sharding raises ``NotImplementedError`` (ROADMAP A10s, spatial
+sharding).
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ class Predictor:
     None.  ``n_classes`` defaults to the net's.  ``return_raw`` (with a
     CRF) returns ``(raw, refined)`` from one model forward.
 
+    ``mesh``: a ``parallel.mesh.Mesh``; the net runs on its device (this
+    process's), on this process's images.
+
     ``tta_scales`` / ``tta_flip``: multi-scale and horizontal-flip
     test-time augmentation (the upstream DeepLab evaluation protocol): the
     float32 softmax is averaged over every (scale, flip) before the argmax
@@ -51,16 +57,21 @@ class Predictor:
             raise ValueError("TTA is incompatible with spatial sharding "
                              "(per-scale resizes would cross the sharded "
                              "height axis)")
-        for name, asked in (("mesh", mesh is not None),
-                            ("spatial", spatial)):
-            if asked:
-                raise NotImplementedError(
-                    f"Predictor {name} is not ported yet: it comes with the "
-                    f"multi-GPU slice")
+        from deeplab_tpu_torch.parallel.mesh import Mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a deeplab_tpu_torch.parallel.mesh"
+                            ".Mesh (get_mesh())")
+        if spatial:
+            raise NotImplementedError(
+                "spatial=True (height sharding) is not ported: it needs "
+                "convolution halos exchanged between processes (ROADMAP "
+                "A10s, spatial sharding)")
         self.crf = crf
+        self.mesh = mesh
         self.return_raw = return_raw and crf is not None
         self.n_classes = n_classes or getattr(net, "n_classes", 21)
-        self.device = core.resolve_device(device)
+        self.device = (mesh.device if mesh is not None and device is None
+                       else core.resolve_device(device))
         self.policy = core.resolve_compute_dtype(compute_dtype)
         self.net = net.to(self.device).eval()
         self.twins = None

@@ -1,7 +1,9 @@
 """Training-control callbacks (deeplab_tpu/train/callbacks.py): best-weights
 checkpointing, LR-on-plateau halving, early stopping, a JSONL epoch log and
 TensorBoard scalars.  Host-side epoch-boundary logic; the step sees them
-only through the Trainer's ``lr_scale`` and ``stop_training``.  The
+only through the Trainer's ``lr_scale`` and ``stop_training``.  Over a
+data-parallel mesh every process runs them and only the coordinator
+(rank 0) writes files.  The
 monitoring callbacks carry their best value and wait count across a resume
 (``get_state``/``set_state``, saved in the train-state checkpoint).
 """
@@ -75,6 +77,11 @@ class ModelCheckpoint(_MonitorCallback):
         self.verbose = verbose
 
     def _save(self, epoch, value):
+        # every process runs the monitor (the metrics are all-reduced, so
+        # they decide alike) but only the coordinator writes
+        from deeplab_tpu_torch.parallel.mesh import is_coordinator
+        if not is_coordinator():
+            return
         from deeplab_tpu_torch import params as P
         net = self.trainer.model
         if self.filepath.endswith(".npz"):
@@ -162,6 +169,9 @@ class JSONLLogger(Callback):
         self.path = path
 
     def on_epoch_end(self, epoch: int, logs: dict):
+        from deeplab_tpu_torch.parallel.mesh import is_coordinator
+        if not is_coordinator():
+            return     # one writer a job
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         with open(self.path, "a") as f:
             f.write(json.dumps({"epoch": epoch,
@@ -190,6 +200,9 @@ class TensorBoard(Callback):
         return self._writer
 
     def on_epoch_end(self, epoch: int, logs: dict):
+        from deeplab_tpu_torch.parallel.mesh import is_coordinator
+        if not is_coordinator():
+            return     # one event file a job
         writer = self._get_writer()
         if not writer:
             return

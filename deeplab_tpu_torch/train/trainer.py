@@ -1,8 +1,10 @@
-"""Single-GPU trainer (deeplab_tpu/train/trainer.py without the mesh).
+"""Trainer (deeplab_tpu/train/trainer.py).
 
 One train step: forward in training mode (batch-statistic BN, dropout 0.1
-after ASPP), the void-masked, sample-weighted CE on the head logits,
-backward, a Keras-Adam update, and the step metrics.  Under the bf16 policy
+after ASPP), the void-masked, sample-weighted CE on the head logits (on
+the softmax probabilities, ``losses.masked_sparse_ce``, for a net without
+``apply_logits``: the reference's ``Deeplabv3``), backward, a Keras-Adam
+update, and the step metrics.  Under the bf16 policy
 the 14 stride-1 expand blocks of a MobileNetV2 net run forward and backward
 through ``kernels/fused_mbconv_train``; params, grads and the optimizer stay
 f32.  Xception nets and the subpixel head train through the plain layer
@@ -20,8 +22,23 @@ replays the forward with the step's dropout draws and no BN momentum
 update, so a remat step equals a plain one; the training blocks' forward
 phases F1-F3 then launch twice a step (28 each) and B2 and B34 once (14).
 
-Meshes, spatial sharding and DDP raise ``NotImplementedError``: they come
-with the multi-GPU slice (A10).
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh``: the process group,
+one process per device, each fed its local rows as JAX's processes are):
+
+- ``Trainer(mesh=...)`` is JAX's SPMD step.  BN normalizes with the global
+  batch's statistics (all-reduced under autograd); the loss is the global
+  Keras-weighted mean and the gradients, the loss and the metrics' sums
+  are all-reduced.  Over more than one process the MBConv blocks take the
+  plain composition, as JAX's multi-device SPMD step does; over one, the
+  kernels.
+- ``Trainer(mesh=..., ddp=True)`` is JAX's ``ddp_train_step``: BN on each
+  process's local statistics, the kernels per process, the same global
+  loss and all-reduces, and the moving statistics averaged.
+
+In both, dropout comes from a generator seeded with the rank folded in
+(JAX's SPMD step draws one mask over the global batch: the same
+distribution, other draws).  Spatial sharding raises
+``NotImplementedError`` (ROADMAP A10s, spatial sharding).
 """
 
 from __future__ import annotations
@@ -30,14 +47,46 @@ import os
 import time
 from typing import Iterable, Optional
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
 from deeplab_tpu_torch import core
-from deeplab_tpu_torch.losses import masked_sparse_ce_logits
-from deeplab_tpu_torch.metrics import accuracy_from_ids, jaccard_from_ids
-from deeplab_tpu_torch.ops.bn import moving_statistics
+from deeplab_tpu_torch.losses import (
+    sparse_crossentropy_ignoring_last_label,
+    sparse_logits_crossentropy_ignoring_last_label)
+from deeplab_tpu_torch.metrics import (accuracy_sums_from_ids,
+                                       jaccard_from_sums,
+                                       jaccard_sums_from_ids)
+from deeplab_tpu_torch.ops.bn import BatchNorm, moving_statistics
+from deeplab_tpu_torch.parallel.mesh import Mesh, get_mesh, is_coordinator
 from deeplab_tpu_torch.train.optimizer import KerasAdam, freeze_set
+
+
+def fold_seed(seed: int, rank: int) -> int:
+    """The dropout seed of process ``rank``: ``seed`` itself on rank 0 (so
+    a one-process mesh draws as the plain Trainer does), a distinct 63-bit
+    value on the others."""
+    if rank == 0:
+        return seed
+    return (seed * 6364136223846793005 + rank * 1442695040888963407) % (
+        1 << 63)
+
+
+def _served_batch_sizes(gen):
+    """The distinct batch sizes ``gen`` serves this epoch, from its
+    metadata where it has them (JAX ``_served_batch_sizes``): both
+    generators slice ``[i*bs:(i+1)*bs]`` out of n samples."""
+    bs = getattr(gen, "batch_size", None)
+    n = None
+    for attr in ("image_path_list", "X"):
+        src = getattr(gen, attr, None)
+        if src is not None:
+            n = len(src)
+            break
+    if bs is not None and n is not None and len(gen) > 0:
+        return sorted({min(bs, n), min(bs, n - (len(gen) - 1) * bs)})
+    return [len(gen[0][0])] if len(gen) else []
 
 
 class Trainer:
@@ -49,12 +98,21 @@ class Trainer:
                  use_multiprocessing: bool = False, ddp: bool = False,
                  profile_dir: Optional[str] = None,
                  profile_steps: tuple = (2, 5), device=None):
-        for name, asked in (("mesh", mesh is not None), ("spatial", spatial),
-                            ("ddp", ddp)):
-            if asked:
-                raise NotImplementedError(
-                    f"Trainer {name} is not ported yet: it comes with the "
-                    f"multi-GPU slice (A10)")
+        if ddp and spatial:
+            raise ValueError("ddp=True is data-parallel only; it cannot be "
+                             "combined with spatial=True")
+        if spatial:
+            raise NotImplementedError(
+                "spatial=True (height sharding) is not ported: it needs "
+                "convolution halos exchanged between processes (ROADMAP "
+                "A10s, spatial sharding)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a deeplab_tpu_torch.parallel.mesh"
+                            ".Mesh (get_mesh())")
+        if ddp and mesh is None:           # the default group, or one process
+            mesh = get_mesh(device=device)
+        self.mesh = mesh
+        self.ddp = ddp
         self.model = model
         self.epochs = epochs
         self.callbacks = list(callbacks)
@@ -77,13 +135,15 @@ class Trainer:
         self.use_multiprocessing = use_multiprocessing
         self.profile_dir = profile_dir
         self.profile_steps = tuple(profile_steps)
-        self.device = core.resolve_device(device)
+        self.device = (mesh.device if mesh is not None and device is None
+                       else core.resolve_device(device))
         self.stop_training = False
         self.opt = None
         self.gen = None
         self.step = 0
         self.frozen = frozenset()
         self.profiler = None
+        self._sizes = None
         for cb in self.callbacks:
             cb.set_trainer(self)
 
@@ -99,6 +159,7 @@ class Trainer:
         generator.  ``fit`` calls it; a caller that drives
         :meth:`train_step` itself calls it once first."""
         self.model = net.to(self.device)
+        self.fused = hasattr(net, "apply_logits")
         self.frozen = freeze_set(net.layer_order, self.freeze_before,
                                  order=net.layer_order)
         for name, mod in net.named_children():
@@ -109,7 +170,16 @@ class Trainer:
         self.opt = KerasAdam(
             [p for p in net.parameters() if p.requires_grad],
             self.base_lr, self.epsilon, self.decay)
-        self.gen = torch.Generator(self.device).manual_seed(self.seed)
+        mesh = self.mesh
+        rank = mesh.rank if mesh is not None else 0
+        self.gen = torch.Generator(self.device).manual_seed(
+            fold_seed(self.seed, rank))
+        # the SPMD mode over several processes: BN over the global batch
+        sync = mesh if (mesh is not None and not self.ddp
+                        and mesh.world > 1) else None
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.group = sync
         net.train()
 
     def _put(self, X, Y, SW):
@@ -117,17 +187,68 @@ class Trainer:
         return (torch.as_tensor(X).to(dev, torch.float32),
                 torch.as_tensor(Y).to(dev), torch.as_tensor(SW).to(dev))
 
-    @staticmethod
-    def _loss_and_metrics(out, Y, SW):
-        b, h, w, n = out.shape
-        labels = Y[..., 0].reshape(b, h, w)
-        loss = masked_sparse_ce_logits(labels, out, SW.reshape(b, h, w))
+    def _all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_sum(t) if self.mesh is not None else t
+
+    def _loss_and_metrics(self, out, Y, SW):
+        """The loss part of this process, ``sum(ce * sw) / count`` with the
+        nonzero-weight count over every process (the Keras temporal-weight
+        mean of the global batch once the parts are summed; one process:
+        ``losses.weighted_loss``), and the step metrics from the sums over
+        every process.  ``out``: (B, H, W, n) logits, or probabilities of
+        any shape (B, ..., n) for a net without ``apply_logits``."""
+        b, n = out.shape[0], out.shape[-1]
+        labels = Y[..., 0].reshape(b, -1)
+        sw = SW.reshape(b, -1)
+        out = out.reshape(b, -1, n)
+        if self.fused:
+            per_px = sparse_logits_crossentropy_ignoring_last_label(labels,
+                                                                    out)
+        else:
+            per_px = sparse_crossentropy_ignoring_last_label(labels[..., None],
+                                                             out)
+        num = torch.sum(per_px * sw)
         with torch.no_grad():
-            preds = out.argmax(-1).reshape(b, h * w)
-            labels = labels.reshape(b, h * w)
-            metrics = {"Jaccard": jaccard_from_ids(labels, preds, n),
-                       "sparse_accuracy": accuracy_from_ids(labels, preds, n)}
-        return loss, metrics
+            den = self._all_sum(torch.sum((sw != 0).to(per_px.dtype)))
+            preds = out.argmax(-1)
+            iou_sum, n_legal = jaccard_sums_from_ids(labels, preds, n)
+            correct, legal = accuracy_sums_from_ids(labels, preds, n)
+            if self.mesh is not None:
+                flat = self._all_sum(torch.cat([iou_sum, n_legal,
+                                                correct[None], legal[None]]))
+                iou_sum, n_legal = flat[:n], flat[n:2 * n]
+                correct, legal = flat[2 * n], flat[2 * n + 1]
+            metrics = {"Jaccard": jaccard_from_sums(iou_sum, n_legal),
+                       "sparse_accuracy": correct / torch.clamp(legal,
+                                                                min=1.0)}
+        return num / torch.clamp(den, min=1.0), metrics
+
+    def _reduce_grads(self):
+        """Sum every trainable gradient over the processes (one
+        all-reduce of their concatenation)."""
+        if self.mesh is None:
+            return
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        if not grads:
+            return
+        flat = self._all_sum(torch.cat([g.reshape(-1) for g in grads]))
+        i = 0
+        for g in grads:
+            g.copy_(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
+
+    def _average_moving_statistics(self):
+        """The ddp mode's moving statistics: each process's update
+        averaged over the processes (JAX ``pmean`` of the state)."""
+        bufs = list(self.model.buffers())
+        flat = self._all_sum(torch.cat([b.reshape(-1) for b in bufs]))
+        flat /= self.mesh.world
+        i = 0
+        with torch.no_grad():
+            for b in bufs:
+                b.copy_(flat[i:i + b.numel()].view_as(b))
+                i += b.numel()
 
     # ------------------------------------------------------------- steps ----
 
@@ -137,8 +258,12 @@ class Trainer:
         where the forward started it and holds the BN moving statistics,
         so it replays the forward's values without a second update."""
         net, gen, policy = self.model, self.gen, self.policy
+        if self.fused:
+            apply = lambda x: net.apply_logits(x, policy, gen)
+        else:
+            apply = lambda x: net.apply(x, policy, training=True, gen=gen)
         if not self.remat:
-            return net.apply_logits(X, policy, gen)
+            return apply(X)
         start = gen.get_state()
         calls = [0]
 
@@ -146,9 +271,9 @@ class Trainer:
             calls[0] += 1
             gen.set_state(start)
             if calls[0] == 1:
-                return net.apply_logits(x, policy, gen)
+                return apply(x)
             with moving_statistics(net, "hold"):
-                return net.apply_logits(x, policy, gen)
+                return apply(x)
         return torch.utils.checkpoint.checkpoint(forward, X,
                                                  use_reentrant=False)
 
@@ -165,8 +290,11 @@ class Trainer:
             loss.backward()
             if after is not None:        # where the plain step leaves it
                 self.gen.set_state(after)
+            self._reduce_grads()
             self.opt.step(self.lr_scale)
-        return {"loss": loss.detach(), **metrics}
+        if self.ddp and self.mesh is not None:
+            self._average_moving_statistics()
+        return {"loss": self._all_sum(loss.detach()), **metrics}
 
     def eval_step(self, X, Y, SW):
         """Validation at ``eval_dtype`` (f32 by default: val_Jaccard drives
@@ -176,11 +304,12 @@ class Trainer:
         net.eval()
         try:
             with torch.no_grad():
-                out = net.logits(X, self.eval_policy)
+                out = (net.logits(X, self.eval_policy) if self.fused
+                       else net.apply(X, self.eval_policy))
                 loss, metrics = self._loss_and_metrics(out, Y, SW)
         finally:
             net.train()
-        return {"loss": loss, **metrics}
+        return {"loss": self._all_sum(loss), **metrics}
 
     # --------------------------------------------------------------- fit ----
 
@@ -245,6 +374,7 @@ class Trainer:
                                                        StepWindowProfiler)
         self.stop_training = False
         self.setup(net)
+        self._agree_batch_sizes(train_gen, valid_gen)
         self.step = 0
         if resume_from is not None and os.path.exists(resume_from):
             initial_epoch = self._resume(resume_from, initial_epoch)
@@ -276,11 +406,14 @@ class Trainer:
                 train_gen.on_epoch_end()
                 for cb in self.callbacks:
                     cb.on_epoch_end(epoch, logs)
-                if state_checkpoint is not None:
+                if state_checkpoint is not None and is_coordinator():
                     self._save_state(state_checkpoint, epoch)
                 if self.stop_training:
                     break
         finally:
+            for m in net.modules():
+                if isinstance(m, BatchNorm):
+                    m.group = None
             for pipe in pipes:
                 if hasattr(pipe, "close"):
                     pipe.close()
@@ -296,6 +429,7 @@ class Trainer:
         prof = self.profiler if timer is not None else None
         for X, Y, sw in pipe:
             SW = sw["pred_mask"] if isinstance(sw, dict) else sw
+            self._check_batch_divides(X)
             if prof is not None:
                 prof.before_step(self.step)
             if timer is not None:
@@ -309,3 +443,55 @@ class Trainer:
                 self.step += 1
             n += 1
         return {k: float(v) / max(n, 1) for k, v in sums.items()}
+
+    # ------------------------------------------------- data parallelism ----
+
+    def _agree_batch_sizes(self, train_gen, valid_gen):
+        """Over a mesh of several processes, every process must serve the
+        same number of batches of the same sizes, or the collectives of
+        the steps would pair up the wrong calls (JAX's global batch is
+        the local rows times the process count).  Checked once a fit
+        from each generator's metadata; raises ``ValueError``."""
+        self._sizes = None
+        if self.mesh is None or self.mesh.world == 1:
+            return
+        import torch.distributed as dist
+        mine = [(len(g), _served_batch_sizes(g)) if g is not None else None
+                for g in (train_gen, valid_gen)]
+        every = [None] * self.mesh.world
+        dist.all_gather_object(every, mine, group=self.mesh.group)
+        if any(o != mine for o in every):
+            raise ValueError(
+                f"the processes serve different batches (batches, sizes) "
+                f"per (train, validation) generator: {every}; give every "
+                f"process the same number of rows (generator host_id/"
+                f"num_hosts shards, a batch size that divides them)")
+        self._sizes = {s for m in mine if m for s in m[1]}
+
+    def _check_batch_divides(self, X):
+        """JAX ``_check_batch_divides``: each process's batch must divide
+        its share of the mesh (one device a process here, so a nonempty
+        batch) and, over several processes, be one of the sizes every
+        process agreed on (:meth:`_agree_batch_sizes`)."""
+        n = len(X)
+        if n == 0 or (self._sizes is not None and n not in self._sizes):
+            world = self.mesh.world if self.mesh is not None else 1
+            raise ValueError(
+                f"local batch of {n} rows does not match this process's "
+                f"share of the mesh ({world} processes, one device each; "
+                f"agreed sizes {sorted(self._sizes or [])}): make every "
+                f"process's batches, the final one included, the same "
+                f"nonempty size")
+
+    @torch.no_grad()
+    def predict(self, X, batch_size: int = 16):
+        """Batched float32 inference (JAX ``Trainer.predict``): the eval-
+        mode probabilities of ``X`` (this process's rows; each process runs
+        its own on its own device), (N, H*W, n) as a numpy array."""
+        net = self.model.to(self.device)
+        outs = []
+        for i in range(0, len(X), batch_size):
+            xb = torch.as_tensor(X[i:i + batch_size]).to(self.device,
+                                                          torch.float32)
+            outs.append(net.apply(xb).cpu().numpy())
+        return np.concatenate(outs, axis=0)

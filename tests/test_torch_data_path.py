@@ -4,11 +4,12 @@ augmentation on, ``random`` and ``np.random`` seeded alike on both sides),
 the numpy augmentations one by one, the class weights, the VOC catalogue and
 the ``SegModel`` facade.
 
-The JAX package routes uint8 images through its native library where it is
-built; the port keeps the numpy path.  With the JAX native path switched
-off the two generators give the same batches exactly; with it on, the
-stated tolerances hold (the native ops round the same formulas in another
-order).
+Both packages route uint8 images through their native libraries where
+they are built.  With both native paths switched off the two generators
+give the same batches exactly; with both on, the stated tolerances hold
+(the two libraries compute the same functions from two builds with other
+flags: JAX's with ``-march=native``, whose FMA contraction rounds some
+float paths otherwise; tests/test_torch_native.py measures it op by op).
 """
 
 import os
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 
 import deeplab_tpu.data.native as JN
+import deeplab_tpu_torch.data.native as TN
 from deeplab_tpu.data import augment as JA
 from deeplab_tpu.data import class_weights as JW
 from deeplab_tpu.data import generator as JG
@@ -31,7 +33,7 @@ from deeplab_tpu_torch.data import voc as TV
 from deeplab_tpu_torch.models.seg_model import SegModel, SegNet
 
 VOC = os.path.join(os.path.dirname(__file__), "data", "mini_voc")
-# with the JAX native path on: image values (0-255) within 2 on >= 99% of
+# with both native paths on: image values (0-255) within 2 on >= 99% of
 # entries, labels equal on >= 97% of pixels, weights where labels agree
 NATIVE_X_ATOL, NATIVE_X_SHARE, NATIVE_Y_SHARE = 2.0, 0.99, 0.97
 AUG = dict(blur=5, horizontal_flip=True, vertical_flip=True,
@@ -41,6 +43,7 @@ AUG = dict(blur=5, horizontal_flip=True, vertical_flip=True,
 @pytest.fixture
 def no_native(monkeypatch):
     monkeypatch.setattr(JN, "available", lambda: False)
+    monkeypatch.setattr(TN, "available", lambda: False)
 
 
 @pytest.mark.parametrize("n,split,seed,mode", [
@@ -88,6 +91,7 @@ def test_generator_batches_equal_jax_without_native(no_native, shape):
 def test_generator_batches_near_jax_with_native():
     if not JN.available():
         pytest.skip("the JAX package's native library is not built here")
+    assert TN.available(), TN.BUILD_LOG
     tgen, jgen = _pair(resize_shape=(96, 80), crop_shape=None)
     seeds = [21, 22, 23]
     shares = []

@@ -1,9 +1,12 @@
-"""The port stands alone: no jax and no deeplab_tpu in its imports, no silent
+"""The port stands alone: no jax and no deeplab_tpu in its imports, no path
+of the JAX package or its native library named in its code (Python or C++)
+and no source compiled from outside its own ``csrc`` folders, no silent
 CPU fallback, no kernel launch counted on the CPU, and no PIL until an image
 is decoded or encoded (the card's machine may lack it)."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -40,6 +43,94 @@ def test_no_jax_or_reference_imports(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+# a path under the JAX package or its native library: deeplab_tpu/..., or
+# native/... as a path's first component
+_FOREIGN = re.compile(r"(?<![\w])deeplab_tpu/|(^|[\s\"'(=:]|\.\./)native/"
+                      r"|libimgops\.so|DEEPLAB_TPU_IMGOPS")
+
+
+def _code_strings(path):
+    """The string constants of a Python source that are not docstrings."""
+    tree = ast.parse(open(path).read(), path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                docs.add(id(first.value))
+    return [(n.lineno, n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def _native_sources():
+    out = []
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files
+                if f.endswith((".cpp", ".cu", ".cuh", ".h"))]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", [p for p in _sources() if p.startswith(PKG)],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_path_of_the_jax_package_in_code(path):
+    bad = [(line, v) for line, v in _code_strings(path) if _FOREIGN.search(v)]
+    assert not bad, f"{path} names {bad}"
+
+
+@pytest.mark.parametrize("path", _native_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_path_of_the_jax_package_in_native_sources(path):
+    """C++ and CUDA: no include, and no string, names a JAX-package path
+    (comments may cite the file a function mirrors)."""
+    for i, line in enumerate(open(path), 1):
+        code = line.split("//")[0]
+        includes = re.findall(r'#\s*include\s*[<"]([^>"]+)[>"]', code)
+        strings = re.findall(r'"([^"]*)"', code)
+        bad = [v for v in includes + strings
+               if _FOREIGN.search(v) or ".." in v]
+        assert not bad, f"{path}:{i} names {bad}"
+
+
+def test_builds_compile_only_the_ports_sources(tmp_path, monkeypatch):
+    """The native library's build and the kernels' builds hand their
+    compilers sources under ``deeplab_tpu_torch/data/csrc`` and
+    ``deeplab_tpu_torch/kernels/csrc`` only."""
+    from deeplab_tpu_torch.data import native
+    from deeplab_tpu_torch.kernels import build
+    seen = []
+    real_run = subprocess.run
+
+    def run(cmd, *a, **kw):
+        seen.append(list(cmd))
+        return real_run(cmd, *a, **kw)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "native"))
+    monkeypatch.setattr(native.subprocess, "run", run)
+    assert native.build().startswith(str(tmp_path))
+
+    class Popen:
+        def __init__(self, cmd, **kw):
+            seen.append(list(cmd))
+
+        def wait(self):
+            return 1
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", Popen)
+    names = sorted(f[:-3] for f in os.listdir(build.CSRC)
+                   if f.endswith(".cu"))
+    with pytest.raises(RuntimeError):
+        build.build(names)
+    allowed = (os.path.join(PKG, "data", "csrc") + os.sep,
+               os.path.join(PKG, "kernels", "csrc") + os.sep)
+    srcs = [a for cmd in seen for a in cmd
+            if a.endswith((".cpp", ".cu", ".c", ".cc"))]
+    assert len(srcs) == 1 + len(names), seen
+    assert all(os.path.abspath(a).startswith(allowed) for a in srcs), srcs
 
 
 def test_predictor_defaults_to_the_card():

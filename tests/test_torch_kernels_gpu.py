@@ -777,108 +777,12 @@ TRAIN_BLOCKS = [(24, 144, 24, 1, True, 128), (32, 192, 32, 1, True, 64),
                 (160, 960, 320, 4, False, 64)]
 
 
-def _boundary_ulps(e64):
-    """Distance of each float64 value from its nearest bf16 rounding
-    boundary (a value halfway between two neighbouring bf16 values), in f32
-    ulps of that boundary."""
-    base = e64.float().abs().view(torch.int32) & ~0xFFFF
-    best = None
-    for step in (-0x10000, 0, 0x10000):
-        mb = (base + step) | 0x8000
-        m = mb.view(torch.float32).double()
-        ulp = (mb + 1).view(torch.float32).double() - m
-        d = (e64.abs() - m).abs() / ulp
-        best = d if best is None else torch.minimum(best, d)
-    return best
-
-
-def _flipped(FMT, name, args, kw, cand):
-    """The plain version of phase ``name`` with the one eq value at ``cand``
-    (b, y, x, c) rounded to its other bf16 neighbour, the one towards its
-    float64 expand."""
-    orig = FMT._expand
-
-    def expand(x, w1, a1, c1):
-        _, eq, _ = orig(x, w1, a1, c1)
-        e = (x[cand[:3]].double() @ w1.double()[:, cand[3]]).item()
-        q = eq[cand].item()
-        bits = torch.tensor([q]).bfloat16().view(torch.int16).item()
-        step = 1 if (e > q) == (q >= 0) else -1
-        eq = eq.clone()
-        eq[cand] = torch.tensor([bits + step], dtype=torch.int16).view(
-            torch.bfloat16).item()
-        v1 = FMT._q(x.dtype)(FMT._q(x.dtype)(eq * a1) + c1)
-        return FMT._relu6(v1), eq, v1
-    FMT._expand = expand
-    try:
-        with torch.no_grad():
-            return getattr(FMT, name + "_reference")(*args, **kw)
-    finally:
-        FMT._expand = orig
-
-
-def _unexplained(name, args, kw, got, want):
-    """The elements of a halo phase's outputs over tolerance (as in
-    ``max_err_vs_plain``) that no single eq value at a bf16 rounding
-    boundary explains.  No plain f32 order reproduces the tensor cores'
-    sums (PERF.md, C3), so the kernel's eq and the plain version's may
-    round the same expand to neighbouring bf16 values where it lies near
-    a boundary.  How near is not known from a model: the eqs the card
-    showed lie 3.75 and 2.24 f32 ulps from one (Cin 160, ten k-steps), so
-    the window is one f32 ulp a 16-deep k-step, ceil(Cin / 16) ulps, an
-    assumption the test states rather than a bound.  An element is
-    explained when rounding one eq within the window and in its reach
-    (the sums and weight gradients of its channel, dq's taps, dx's pixel)
-    the other way in the plain version brings it within tolerance."""
-    x, w1 = args[0], (args[1] if name == "f2" else args[3])
-    B, H, W, Cin = x.shape
-    Ce, r = w1.shape[1], kw["rate"]
-    e64 = (x.double().reshape(-1, Cin) @ w1.double()).reshape(B, H, W, Ce)
-    dist = _boundary_ulps(e64)
-    near = -(-Cin // 16)
-    bad = []
-    for o, (g, w) in enumerate(zip(got, want)):
-        diff = (g.float() - w.float()).abs()
-        scale = max(w.float().abs().max().item(), 1e-30)
-        tol = (FMT.PLAIN_BF16_REL if w.dtype == torch.bfloat16
-               else FMT.PLAIN_F32_REL)
-        if diff.max().item() > FMT.FLIP_REL * scale:
-            bad.append((name, o, "over FLIP_REL"))
-        for idx in torch.nonzero(diff > tol * scale).tolist():
-            if w.dim() == 4 and w.shape[-1] == Cin and name == "b34":
-                cands = [tuple(idx[:3]) + (c,) for c in range(Ce)]  # dx
-            elif w.dim() == 4:                                   # dq's taps
-                b, y, xx, c = idx
-                cands = [(b, y + dy * r, xx + dx * r, c)
-                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)
-                         if 0 <= y + dy * r < H and 0 <= xx + dx * r < W]
-            else:                                  # sums, dWdw, dW1^T
-                c = idx[0] if w.shape == (Ce, Cin) else idx[-1]
-                cands = [(b, y, xx, c) for b in range(B) for y in range(H)
-                         for xx in range(W)]
-            cands = sorted((dist[cd].item(), cd) for cd in cands)
-            k, p = g.float()[tuple(idx)].item(), w.float()[tuple(idx)].item()
-            for d, cd in [c for c in cands[:4] if c[0] <= near]:
-                f = _flipped(FMT, name, args, kw, cd)[o].float()[
-                    tuple(idx)].item()
-                if abs(f - k) <= tol * scale:
-                    # the trace, shown with pytest -s
-                    print(f"C3: {name} output {o} at {idx}: kernel {k:.6g}"
-                          f", plain {p:.6g} (rel {abs(k - p) / scale:.2e}, "
-                          f"tol {tol}); eq at {list(cd)} lies {d:.2f} f32 "
-                          f"ulps from a bf16 boundary, and rounded the "
-                          f"other way brings the plain version to {f:.6g}")
-                    break
-            else:
-                bad.append((name, o, idx))
-    return bad
-
-
 def _halo_phases_match(dev, rate, skip, Cin, Ce, Cout, H, W,
                        explain=False):
     """F2 and B34 against their plain versions; with ``explain``, elements
     over tolerance pass where an eq at a bf16 rounding boundary explains
-    each of them (``_unexplained``)."""
+    each of them (``FMT.unexplained``, the rule chip_smoke.py's training
+    check applies too)."""
     calls = _train_block_calls(dev, rate, skip, Cin, Ce, Cout, H, W)
     for name in ("f2", "b34"):
         args, kw, want = calls[name][0]
@@ -889,8 +793,8 @@ def _halo_phases_match(dev, rate, skip, Cin, Ce, Cout, H, W,
         assert kernel.launches == before + 1
         err, rel, ok = FMT.max_err_vs_plain(got, want)
         if explain and not ok:
-            assert not _unexplained(name, args, kw, got, want), (name, err,
-                                                                 rel)
+            bad, _ = FMT.unexplained(name, args, kw, got, want)
+            assert not bad, (name, err, rel, bad)
         else:
             assert ok, (name, err, rel)
 
@@ -906,7 +810,7 @@ def test_halo_phases_at_every_block_shape(cuda, block, H, W):
     16 products in their own way, which no plain f32 order reproduces
     (PERF.md, C3).  There every element over tolerance must trace to one
     eq near a bf16 rounding boundary whose other rounding, in the plain
-    version, reproduces the kernel's element (``_unexplained``), and none
+    version, reproduces the kernel's element (``FMT.unexplained``), and none
     may pass FLIP_REL; FLIP_* stay as they are."""
     Cin, Ce, Cout, rate, skip, side = block
     H, W = (side, side) if H is None else (H, W)

@@ -64,12 +64,14 @@ def test_predictor_masks_match_jax(tiles, jax_masks, policy, floor):
     dict(tta_scales=(0.5, 1.0), spatial=True),
     dict(tta_flip=True, spatial=True)])
 def test_later_slices_raise(kw):
-    """Meshes and spatial sharding wait for the multi-GPU slice; test-time
+    """A mesh must be a ``parallel.mesh.Mesh`` (TypeError); spatial
+    sharding is not ported and names its ROADMAP item; test-time
     augmentation is served, but with spatial sharding it raises ValueError
     as in JAX."""
-    err = ValueError if "tta_scales" in kw or "tta_flip" in kw \
-        else NotImplementedError
-    with pytest.raises(err):
+    err, match = ((ValueError, "TTA") if "tta_scales" in kw
+                  or "tta_flip" in kw else (TypeError, "Mesh")
+                  if "mesh" in kw else (NotImplementedError, "A10"))
+    with pytest.raises(err, match=match):
         Predictor(SegNet((16, 16), 3), device="cpu", **kw)
 
 
