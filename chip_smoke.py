@@ -189,7 +189,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    written by the coordinator, ``Predictor(mesh)`` masks equal to
    ``Predictor``'s; (d) ``mean_field_batched`` at ``FAST_FAITHFUL_CONFIG``
    on the card against the port's ``crf/brute.py`` oracle on one seeded
-   48x64 scene, agreement >= 0.993.
+   48x64 scene, agreement >= 0.993;
+14. spatial sharding: first two processes try a NCCL group of two ranks on
+   ``cuda:0`` (NCCL refuses it; what it says is printed); then two
+   processes on the card in a gloo group, data 1 x space 2, the mesh moving
+   the collectives' tensors through host memory, each running one band of
+   every image's rows with the weights of rank 0: ``Predictor(mesh,
+   spatial=True, crf=PRODUCTION_CONFIG, "mixed", return_raw=True)`` serves
+   B=8 seeded scenes (per process 14 ``fused_mbconv`` + 1
+   ``fused_dw_bn_relu6`` on its halo-extended band and the CRF's 6/1/5/5 on
+   its 4 of the images), the raw labels and masks equal on both processes
+   and against the one-process Predictor's (floors 0.999 and 0.99); the
+   Xception net (OS 16) at B=2 (65 ``fused_sepconv`` a band forward,
+   ASPP's rate 18 on 16-row bands; argmax floor 0.999); one float32
+   ``Trainer(mesh, spatial=True)`` step at B=4 against the one-process
+   composition step (loss within 1e-4 relative; the worst tensor's
+   gradient within 5e-2 of its norm, and the images' gradient on the 64
+   rows about the seam within 5e-2 of its norm there: on an H100, sound
+   runs read ~1e-2 and 7e-3, a halo gradient dropped at every exchange
+   0.5 and 0.77, at the stem's alone 1e-2 and 0.11), then 2 bf16 steps
+   whose loss falls (no kernel launches: BN over the mesh keeps the
+   composition); the band forward's ms and its exchanges' ms (CUDA
+   events) beside one process's forward, and the steps' ms.
 
 In phase 6 an element of F2's or B34's outputs over tolerance passes only
 where C3's rule (``fused_mbconv_train.unexplained``, shared with
@@ -224,7 +245,8 @@ at B=8, output stride 16 and 8, beside its bound and the cuDNN composition,
 with the build's registers and spills (public API only, so a copy run from
 a parent checkout times the parent's kernel); ``--sepconv-plan-sweep``
 times every chunk and pass width that ``sepconv_plan`` may choose at those
-shapes.  ``--train-step`` times only the bf16 train step at B=16 (img/s,
+shapes.  ``--spatial`` runs the build and phase 14 alone.  ``--train-step``
+times only the bf16 train step at B=16 (img/s,
 peak memory, device busy share), public API only, for parent and change in
 turns.  ``--crf-fallbacks`` times ``slice_planes`` (per launch and per
 512x512 XLA-engine image at ``FAITHFUL_CONFIG``), the y and x passes (at
@@ -502,6 +524,268 @@ BLUR_PASS_SHAPES = ((SERVE_B, 5, 4, 75, 128, 21, 3.0, False),
                     (SERVE_B, 8, 4, 64, 128, 21, 8.0, False),
                     (SERVE_B, 8, 4, 64, 128, 21, 12.5, True),
                     (2, 5, 4, 75, 128, 7, 3.0, True))
+
+# phase 14, spatial sharding: two processes share the card in a gloo group
+# (data 1 x space 2), each running one band of every image's rows; the
+# production pipeline at B=8 and the Xception net (OS 16) at B=2 against
+# the one-process Predictor (argmax: the same kernels on other tiles,
+# measured equal; CRF masks: the card's CRF-mask floor), one float32 step
+# at B=4 against the one-process composition step (the loss relative to
+# it; the gradient's worst tensor relative to its norm; the images'
+# gradient on the rows within SPATIAL_SEAM of the bands' seam relative to
+# its norm there: summation order moves them, and a halo gradient dropped
+# at the seam moves them by far more, both measured on the card), then 2
+# bf16 steps with the loss falling
+SPATIAL_B, SPATIAL_XC_B, SPATIAL_TRAIN_B, SPATIAL_SPACE = 8, 2, 4, 2
+SPATIAL_ARGMAX_FLOOR, SPATIAL_MASK_FLOOR, SPATIAL_LOSS_REL = 0.999, 0.99, 1e-4
+SPATIAL_SEAM, SPATIAL_TENSOR_REL, SPATIAL_SEAM_REL = 32, 5e-2, 5e-2
+SPATIAL_TIMEOUT, SPATIAL_TIMES = 300, 2
+SPATIAL_PER_FORWARD = {"fused_mbconv": FUSED_PER_FORWARD,
+                       "fused_dw_bn_relu6": 1}
+# two NCCL ranks on one device: what NCCL says (it refuses them)
+NCCL_PROBE = r"""
+import sys, datetime, torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + sys.argv[2],
+                        rank=int(sys.argv[1]), world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.ones(1, device="cuda:0")
+try:
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("RESULT accepted", t.item())
+except Exception as e:
+    print("RESULT refused", type(e).__name__, " | ".join(
+        l for l in str(e).splitlines() if l.strip())[:600])
+"""
+
+
+def launch_counts():
+    """Every kernel wrapper by name (``train_`` before a training phase);
+    each counts its launches in ``.launches``."""
+    from deeplab_tpu_torch.kernels import crf_fused as CK
+    from deeplab_tpu_torch.kernels import fused_dw as FDW
+    from deeplab_tpu_torch.kernels import fused_mbconv as FM
+    from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
+    out = {"fused_mbconv": FM.fused_mbconv, "fused_sepconv":
+           FM.fused_sepconv, "fused_dw_bn_relu6": FDW.fused_dw_bn_relu6}
+    out.update({n: getattr(CK, n) for n in CK.KERNELS + CK.BLUR_PASSES
+                + ("slice_planes",)})
+    out.update({"train_" + n: getattr(FMT, n) for n in FMT.PHASES})
+    return out
+
+
+def grad_errors(grads, grads1, xgrad, xgrad1, seam):
+    """Phase 14's gradients against one process's: the whole gradient's
+    error relative to its norm; the worst tensor's, relative to its norm
+    (at least 1e-3 of the largest element anywhere); the images'
+    gradient's on the rows within ``SPATIAL_SEAM`` of the bands' seam, and
+    elsewhere, each relative to its norm there."""
+    def rel(a, b, floor=0.0):
+        return ((a - b).norm() / max(b.norm().item(), floor)).item()
+    whole = torch.cat([g.reshape(-1) for g in grads.values()])
+    whole1 = torch.cat([grads1[n].reshape(-1) for n in grads])
+    floor = 1e-3 * whole1.abs().max().item()
+    worst = max((rel(g, grads1[n], floor), n) for n, g in grads.items())
+    near = torch.zeros(xgrad.shape[1], dtype=torch.bool)
+    near[seam - SPATIAL_SEAM:seam + SPATIAL_SEAM] = True
+    return {"grad_rel": rel(whole, whole1), "tensor_rel": worst[0],
+            "tensor": worst[1],
+            "seam_rel": rel(xgrad[:, near], xgrad1[:, near]),
+            "far_rel": rel(xgrad[:, ~near], xgrad1[:, ~near])}
+
+
+def spatial_worker(rank, world, store, out_dir):
+    """Phase 14's process ``rank``: the checks of the module docstring on
+    its band; rank 0 also runs the one-process references.  Writes what it
+    measured to ``out_dir/result_<rank>.json``."""
+    import datetime
+    import hashlib
+    import numpy as np
+    import torch.distributed as dist
+    from deeplab_tpu_torch import Predictor
+    from deeplab_tpu_torch.crf import PRODUCTION_CONFIG
+    from deeplab_tpu_torch.data.generator import ArrayBatcher
+    from deeplab_tpu_torch.kernels import build
+    from deeplab_tpu_torch.parallel import spatial as SP
+    from deeplab_tpu_torch.parallel.mesh import get_mesh
+    from deeplab_tpu_torch.train import Trainer
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    res = {"stages": {}}
+    t_start = time.perf_counter()
+
+    def stage(name):
+        res["stages"][name] = round(time.perf_counter() - t_start, 2)
+
+    def zero():
+        for fn in launch_counts().values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in launch_counts().items()
+                if fn.launches}
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def same_weights(net):
+        """Rank 0's weights and buffers on both processes."""
+        with torch.no_grad():
+            for t in net.state_dict().values():
+                host = t.cpu()
+                dist.broadcast(host, src=0)
+                t.copy_(host)
+
+    def event_ms(fn, iters=SPATIAL_TIMES):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    try:
+        build.build(["fused_mbconv", "crf_fused", "fused_mbconv_train",
+                     "fused_sepconv", "fused_dw"])   # built: loads them
+        mesh = get_mesh(device=dev, space=world)
+        assert (mesh.data, mesh.space, mesh.space_index) == (1, world, rank)
+        assert mesh.host_transport
+        res["bounds"] = SP.band_bounds(SIZE, 8, world)
+
+        stage("group and build")
+        # serving: the production pipeline at B=8
+        net = seeded_net((SIZE, SIZE), SEED + 1700, dev)
+        same_weights(net)
+        X, masks = scene_batch(SPATIAL_B, SEED + 1710, "cpu")
+        X = X.numpy()
+        pred = Predictor(net, mesh=mesh, spatial=True, compute_dtype="mixed",
+                         crf=PRODUCTION_CONFIG, return_raw=True)
+        pred(X)
+        zero()
+        raw, refined = pred(X)
+        res["serve_launches"] = counts()
+        res["serve_digest"] = (digest(raw), digest(refined))
+        img = torch.from_numpy(X).to(dev)
+        res["band_ms"] = event_ms(lambda: pred._band_preds(img))
+        fetches = []
+        fetch = SP._fetch
+
+        def timed_fetch(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fetch(*args)
+            ev[1].record()
+            fetches.append(ev)
+            return out
+        SP._fetch = timed_fetch
+        try:
+            pred._band_preds(img)
+        finally:
+            SP._fetch = fetch
+        torch.cuda.synchronize()
+        res["exchanges"] = len(fetches)
+        res["exchange_ms"] = sum(a.elapsed_time(b) for a, b in fetches)
+        dist.barrier()
+        if rank == 0:
+            one = Predictor(net, compute_dtype="mixed", crf=PRODUCTION_CONFIG,
+                            return_raw=True, device=dev)
+            raw1, ref1 = one(X)
+            res["serve_argmax"] = float((raw == raw1).mean())
+            res["serve_masks"] = float((refined == ref1).mean())
+            res["one_ms"] = event_ms(lambda: net.predict_ids(img, "mixed"))
+        dist.barrier()
+        init = {k: v.clone() for k, v in net.state_dict().items()}
+        del pred, img
+
+        stage("serving")
+        # the Xception net, OS 16: ASPP's rate 18 on 16-row bands
+        xnet = seeded_net((SIZE, SIZE), SEED + 1720, dev, "xception",
+                          OS=XCEPTION_OS, var_floor=0.1)
+        same_weights(xnet)
+        Xx = X[:SPATIAL_XC_B]
+        xpred = Predictor(xnet, mesh=mesh, spatial=True, compute_dtype="mixed")
+        xpred(Xx)
+        zero()
+        xm = xpred(Xx)
+        res["xc_launches"] = counts()
+        res["xc_digest"] = digest(xm)
+        ximg = torch.from_numpy(Xx).to(dev)
+        res["xc_band_ms"] = event_ms(lambda: xpred._band_preds(ximg))
+        dist.barrier()
+        if rank == 0:
+            x1 = Predictor(xnet, compute_dtype="mixed", device=dev)(Xx)
+            res["xc_argmax"] = float((xm == x1).mean())
+            res["xc_one_ms"] = event_ms(lambda: xnet.predict_ids(ximg,
+                                                                 "mixed"))
+        dist.barrier()
+        del xpred, xnet, ximg
+        torch.cuda.empty_cache()
+
+        stage("xception")
+        # training (the serving net's weights): one float32 step, then 2
+        # bf16 steps
+        tnet = net
+        Xt = X[:SPATIAL_TRAIN_B]
+        Yt = masks[:SPATIAL_TRAIN_B].reshape(SPATIAL_TRAIN_B, -1, 1).to(
+            torch.int32).numpy()
+        SWt = np.ones((SPATIAL_TRAIN_B, SIZE * SIZE), np.float32)
+
+        def step(**kw):
+            """One step's loss, the weights' gradients by name, the
+            images' gradient, the launches; then a second step's ms."""
+            tnet.load_state_dict(init)
+            tnet.fuse_blocks = False
+            tr = Trainer(tnet, seed=SEED, verbose=0, **kw)
+            tr.setup(tnet)
+            zero()
+            Xg = torch.from_numpy(Xt).to(dev).requires_grad_()
+            loss = tr.train_step(Xg, Yt, SWt)["loss"].item()
+            grads = {n: p.grad.clone() for n, p in tnet.named_parameters()
+                     if p.grad is not None}
+            launched = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(Xt, Yt, SWt)
+            torch.cuda.synchronize()
+            return (loss, grads, Xg.grad, launched,
+                    1e3 * (time.perf_counter() - t0))
+        loss, grads, xgrad, launched, ms = step(mesh=mesh, spatial=True)
+        # each process holds its band's rows of the images' gradient (its
+        # neighbour's halo gradient added there): the whole one over both
+        xgrad = mesh.space_sum(xgrad)
+        res["train"] = {"loss": loss, "launches": launched, "ms": ms,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        stage("f32 spatial steps")
+        dist.barrier()
+        if rank == 0:
+            loss1, grads1, xgrad1, launched1, ms1 = step(device=dev)
+            res["train"].update(
+                {"one_loss": loss1, "one_ms": ms1,
+                 "loss_rel": abs(loss - loss1) / abs(loss1)},
+                **grad_errors(grads, grads1, xgrad, xgrad1,
+                              res["bounds"][0][1]))
+        dist.barrier()
+        stage("f32 one-process steps")
+        tnet.load_state_dict(init)
+        tnet.fuse_blocks = True
+        gen = ArrayBatcher(Xt, Yt, SPATIAL_TRAIN_B, n_classes=CLASSES)
+        tr = Trainer(tnet, epochs=2, mesh=mesh, spatial=True, seed=SEED,
+                     compute_dtype=torch.bfloat16, workers=0, verbose=0)
+        zero()
+        hist = tr.fit(tnet, gen)
+        res["bf16"] = {"loss": hist["loss"], "launches": counts()}
+        stage("bf16 fit")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"result_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -1716,10 +2000,11 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
     # --last-modules: the build, the training-kernel check (C3) and phase
-    # 13 alone
+    # 13 alone; --spatial: the build and phase 14
     run = Run(("build", "seeded 512x512 net", "training kernels vs plain",
                "the last modules") if "--last-modules" in sys.argv[1:]
-              else None)
+              else ("build", "seeded 512x512 net", "spatial sharding")
+              if "--spatial" in sys.argv[1:] else None)
     kernel_report = {}
     CRF_KERNELS = CK.KERNELS + CK.BLUR_PASSES + ("slice_planes",)
     crf_report = {n: {"max_abs_err": 0.0} for n in CRF_KERNELS}
@@ -1738,31 +2023,15 @@ def main() -> int:
     root_dir = os.path.dirname(os.path.abspath(__file__))
 
     def zero_counts():
-        FM.fused_mbconv.launches = 0
-        FM.fused_sepconv.launches = 0
-        FDW.fused_dw_bn_relu6.launches = 0
-        for n in CRF_KERNELS:
-            getattr(CK, n).launches = 0
-        for n in FMT.PHASES:
-            getattr(FMT, n).launches = 0
+        for fn in launch_counts().values():
+            fn.launches = 0
 
     def counts():
-        out = {"fused_mbconv": FM.fused_mbconv.launches,
-               "fused_sepconv": FM.fused_sepconv.launches,
-               "fused_dw_bn_relu6": FDW.fused_dw_bn_relu6.launches}
-        out.update({n: getattr(CK, n).launches for n in CRF_KERNELS})
-        out.update({"train_" + n: getattr(FMT, n).launches
-                    for n in FMT.PHASES})
-        return out
+        return {k: fn.launches for k, fn in launch_counts().items()}
 
     def set_counts(saved):
-        FM.fused_mbconv.launches = saved["fused_mbconv"]
-        FM.fused_sepconv.launches = saved["fused_sepconv"]
-        FDW.fused_dw_bn_relu6.launches = saved["fused_dw_bn_relu6"]
-        for n in CRF_KERNELS:
-            getattr(CK, n).launches = saved[n]
-        for n in FMT.PHASES:
-            getattr(FMT, n).launches = saved["train_" + n]
+        for k, fn in launch_counts().items():
+            fn.launches = saved[k]
 
     # 1. build --------------------------------------------------------------
     def do_build():
@@ -4392,6 +4661,116 @@ def main() -> int:
         print(f"  the last modules: {secs:.1f} s [{card}]")
     run.phase("the last modules: native library, Deeplabv3, a process "
               "group, the CRF oracle", last_modules)
+
+    # 14. spatial sharding -----------------------------------------------
+    def spatial_sharding():
+        """Two processes on the one card in a gloo group (NCCL refuses two
+        ranks on one device: the probe prints what it says), data 1 x space
+        2: serving and training on bands against one process."""
+        import shutil
+        import torch.multiprocessing as tmp_mp
+        t_phase = time.perf_counter()
+        work = os.path.join(root_dir, "build", "spatial")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        torch.cuda.empty_cache()
+        # the NCCL probe runs beside the gloo processes
+        probes = [subprocess.Popen(
+            [sys.executable, "-c", NCCL_PROBE, str(r),
+             os.path.join(work, "nccl_store")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        ctx = tmp_mp.start_processes(
+            spatial_worker, args=(SPATIAL_SPACE, os.path.join(work, "store"),
+                                  work),
+            nprocs=SPATIAL_SPACE, join=False, start_method="spawn")
+        deadline = time.perf_counter() + SPATIAL_TIMEOUT
+        said = []
+        try:
+            for pr in probes:
+                try:
+                    out, _ = pr.communicate(timeout=120)
+                except subprocess.TimeoutExpired:
+                    pr.kill()
+                    out = pr.communicate()[0] + " [killed after 120 s]"
+                said.append(next((ln for ln in out.splitlines()
+                                  if ln.startswith("RESULT")), out[-400:]))
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"phase 14's processes still ran "
+                                       f"after {SPATIAL_TIMEOUT} s")
+        finally:
+            for pr in probes:
+                if pr.poll() is None:
+                    pr.kill()
+            for pr in ctx.processes:
+                if pr.is_alive():
+                    pr.kill()
+        print(f"  NCCL, two ranks on cuda:0: {said}", flush=True)
+        res = []
+        for r in range(SPATIAL_SPACE):
+            with open(os.path.join(work, f"result_{r}.json")) as f:
+                res.append(json.load(f))
+        a, b = res
+        want = dict(SPATIAL_PER_FORWARD, **CRF_PER_REQUEST)
+        print(f"  bands of 512 rows: {a['bounds']}; per process and request "
+              f"(B={SPATIAL_B}, its band forward and the CRF on "
+              f"{SPATIAL_B // SPATIAL_SPACE} of the images): launches "
+              f"{a['serve_launches']} and {b['serve_launches']} (want "
+              f"{want})", flush=True)
+        print(f"  Predictor(mesh, spatial=True, crf=PRODUCTION_CONFIG, mixed)"
+              f" against one process: argmax {a['serve_argmax']:.6f} (floor "
+              f"{SPATIAL_ARGMAX_FLOOR}), masks {a['serve_masks']:.6f} (floor "
+              f"{SPATIAL_MASK_FLOOR}); both "
+              f"processes' masks equal: "
+              f"{a['serve_digest'] == b['serve_digest']}", flush=True)
+        print(f"  band forward (B={SPATIAL_B}, mixed, the labels gathered; "
+              f"both processes on the card at once) {a['band_ms']:.3f} / "
+              f"{b['band_ms']:.3f} ms against one process's forward "
+              f"{a['one_ms']:.3f} ms; its {a['exchanges']} exchanges "
+              f"{a['exchange_ms']:.3f} / {b['exchange_ms']:.3f} ms (CUDA "
+              f"events, gloo through host memory) [{card}]", flush=True)
+        print(f"  Xception OS {XCEPTION_OS}, B={SPATIAL_XC_B}: launches "
+              f"{a['xc_launches']} / {b['xc_launches']}, argmax against one "
+              f"process {a['xc_argmax']:.6f}; band forward "
+              f"{a['xc_band_ms']:.3f} ms against {a['xc_one_ms']:.3f} ms "
+              f"[{card}]", flush=True)
+        tr = a["train"]
+        print(f"  f32 Trainer(mesh, spatial=True) step at B="
+              f"{SPATIAL_TRAIN_B}: loss {tr['loss']:.7f} / "
+              f"{b['train']['loss']:.7f} against one process's composition "
+              f"{tr['one_loss']:.7f} (rel {tr['loss_rel']:.2e}, tol "
+              f"{SPATIAL_LOSS_REL}); gradient against one process's, "
+              f"relative: the whole {tr['grad_rel']:.3e}, the worst tensor "
+              f"{tr['tensor_rel']:.3e} ({tr['tensor']}, tol "
+              f"{SPATIAL_TENSOR_REL}), the images' within {SPATIAL_SEAM} "
+              f"rows of the seam {tr['seam_rel']:.3e} (tol "
+              f"{SPATIAL_SEAM_REL}) and elsewhere {tr['far_rel']:.3e}; "
+              f"step {tr['ms']:.1f} / "
+              f"{b['train']['ms']:.1f} ms against {tr['one_ms']:.1f} ms, "
+              f"peak {tr['peak_gb']:.2f} GB a process [{card}]", flush=True)
+        print(f"  bf16 spatial fit, 2 steps: loss {a['bf16']['loss']}, "
+              f"launches {a['bf16']['launches']} (the composition: BN over "
+              f"the mesh); rank 0's seconds from its start to the end of "
+              f"each stage: {a['stages']}", flush=True)
+        for r in res:
+            assert r["serve_launches"] == want, r["serve_launches"]
+            assert r["xc_launches"] == {"fused_sepconv": SEPCONV_PER_FORWARD}
+            assert r["train"]["launches"] == {} == r["bf16"]["launches"]
+            assert r["bf16"]["loss"] == a["bf16"]["loss"]
+            assert r["train"]["loss"] == tr["loss"]
+        assert a["serve_digest"] == b["serve_digest"]
+        assert a["xc_digest"] == b["xc_digest"]
+        assert min(a["serve_argmax"], a["xc_argmax"]) >= \
+            SPATIAL_ARGMAX_FLOOR
+        assert a["serve_masks"] >= SPATIAL_MASK_FLOOR
+        assert tr["loss_rel"] <= SPATIAL_LOSS_REL
+        assert tr["tensor_rel"] <= SPATIAL_TENSOR_REL
+        assert tr["seam_rel"] <= SPATIAL_SEAM_REL
+        assert a["bf16"]["loss"][1] < a["bf16"]["loss"][0]
+        print(f"  spatial sharding: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    run.phase("spatial sharding: two processes on the card, data 1 x "
+              "space 2", spatial_sharding)
 
     if run.failed:
         print(f"FAILED phases: {run.failed}")

@@ -49,9 +49,10 @@ def accuracy_from_ids(labels, pred, nb_classes: int):
     return correct / torch.clamp(legal, min=1.0)
 
 
-def jaccard_sums_from_ids(labels, pred, nb_classes: int):
-    """Per-class (iou_sum, legal_count) over batch items; labels and pred
-    are (B, N) ids."""
+def jaccard_counts_from_ids(labels, pred, nb_classes: int):
+    """Per item and class (B, C): intersection, union and the labelled
+    pixel count, as float32; labels and pred are (B, N) ids.  Counts of an
+    item's parts (bands of its rows) add up to the item's."""
     labels = labels.long()
     pred = pred.long()
     class_ids = torch.arange(nb_classes, device=labels.device)
@@ -59,10 +60,23 @@ def jaccard_sums_from_ids(labels, pred, nb_classes: int):
     pred_oh = pred[..., None] == class_ids
     inter = torch.sum(true_oh & pred_oh, dim=1).float()   # (B, C)
     union = torch.sum(true_oh | pred_oh, dim=1).float()
-    legal = torch.sum(true_oh, dim=1) > 0
+    return inter, union, torch.sum(true_oh, dim=1).float()
+
+
+def jaccard_sums_from_counts(inter, union, present):
+    """Per-class (iou_sum, legal_count) over batch items from their
+    :func:`jaccard_counts_from_ids`."""
+    legal = present > 0
     ious = inter / torch.clamp(union, min=1.0)
     n_legal = torch.sum(legal.float(), dim=0)
     return torch.sum(torch.where(legal, ious, 0.0), dim=0), n_legal
+
+
+def jaccard_sums_from_ids(labels, pred, nb_classes: int):
+    """Per-class (iou_sum, legal_count) over batch items; labels and pred
+    are (B, N) ids."""
+    return jaccard_sums_from_counts(*jaccard_counts_from_ids(labels, pred,
+                                                             nb_classes))
 
 
 def jaccard_from_sums(iou_sum, n_legal):

@@ -29,6 +29,7 @@ from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.conv import (Conv2D, build_sep_conv_bn, relu,
                                         sep_conv_bn)
 from deeplab_tpu_torch.ops.resize import resize_bilinear_tf1
+from deeplab_tpu_torch.parallel import spatial
 
 DECODER_SKIP = 256  # entry block 2's channels, the decoder's stride-4 skip
 
@@ -54,10 +55,16 @@ def aspp(net, x, policy, input_hw, OS: int):
     broadcast back over the feature grid, which is what TF1 resize_bilinear
     from 1x1 does), the 1x1 ``aspp0`` branch and, for Xception, the three
     atrous SepConvs ``aspp1-3`` (ReLU after each BN, eps 1e-5),
-    concatenated, then ``concat_projection`` + BN + ReLU."""
+    concatenated, then ``concat_projection`` + BN + ReLU.  Under a band
+    the pool is the whole image's (a sum over the space group) and is
+    broadcast over the band's rows."""
     feat_h = int(math.ceil(input_hw[0] / OS))
     feat_w = int(math.ceil(input_hw[1] / OS))
-    b4 = x.mean(dim=(2, 3), keepdim=True)
+    if net.band is None:
+        b4 = x.mean(dim=(2, 3), keepdim=True)
+    else:
+        b4 = spatial.image_mean(x, net.band)
+        feat_h = x.shape[2]
     b4 = relu(net.image_pooling_BN(net.image_pooling(b4, policy)))
     b4 = b4.expand(b4.shape[0], b4.shape[1], feat_h, feat_w)
     b0 = relu(net.aspp0_BN(net.aspp0(x, policy)))
@@ -82,7 +89,7 @@ def decoder(net, x, skip1, policy, input_hw):
     projection of the skip (BN 1e-5, ReLU), concatenated after ``x`` (304
     channels), then two SepConvs with ReLU after each BN."""
     dec_hw = (int(math.ceil(input_hw[0] / 4)), int(math.ceil(input_hw[1] / 4)))
-    x = resize_bilinear_tf1(x, dec_hw)
+    x = resize_bilinear_tf1(x, dec_hw, net.band)
     s = relu(net.feature_projection0_BN(net.feature_projection0(skip1,
                                                                 policy)))
     x = torch.cat([x, s], dim=1)
@@ -103,12 +110,27 @@ def build(add, gen, backbone: str, OS: int, alpha: float) -> int:
     return c
 
 
-def dropout(x, rate: float, gen):
+def dropout(x, rate: float, gen, band=None):
     """Training-mode dropout (JAX ``deeplabv3p.dropout``): keep each value
-    with probability ``1 - rate`` and scale it by ``1/(1 - rate)``."""
+    with probability ``1 - rate`` and scale it by ``1/(1 - rate)``.  Under
+    ``band`` the mask is drawn over the whole map (the draws of the data
+    slot's one-process forward) and the band keeps its rows."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape = x.shape
+    if band is not None:
+        a, b = band.rows(band.level(x.shape[2]))
+        shape = (x.shape[0], x.shape[1], spatial.map_height(x, band),
+                 x.shape[3])
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if band is not None:
+        mask = mask[:, :, a:b]
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def image_hw(net, img):
+    """The (H, W) of the NHWC images ``img`` holds (under a band, of which
+    it holds some rows)."""
+    return (img.shape[1] if net.band is None else net.band.H, img.shape[2])
 
 
 def deeplabv3_forward(net, img, policy, gen=None):
@@ -119,8 +141,10 @@ def deeplabv3_forward(net, img, policy, gen=None):
     training mode only, with ``gen``; in eval mode and while
     ``train/bn_calibrate.py`` runs (``net.calibrating``) it is the
     identity.  The heads are the caller's: ``SegNet``'s or
-    ``Deeplabv3``'s ``logits_semantic``."""
-    input_hw = (img.shape[1], img.shape[2])
+    ``Deeplabv3``'s ``logits_semantic``.  Under a band (``net.band``,
+    ``parallel/spatial.py``) ``img`` holds the band's rows of the
+    image."""
+    input_hw = image_hw(net, img)
     x = img.to(policy.dtype) / 127.5 - 1.0
     x = x.permute(0, 3, 1, 2)          # NCHW view, channels-last memory
     if net.backbone == "xception":
@@ -134,7 +158,7 @@ def deeplabv3_forward(net, img, policy, gen=None):
         if gen is None:
             raise ValueError("a training forward needs a torch.Generator "
                              "for dropout")
-        x = dropout(x, 0.1, gen)
+        x = dropout(x, 0.1, gen, band=net.band)
     if net.backbone == "xception":
         x = decoder(net, x, skip1, policy, input_hw)
     return x
@@ -152,6 +176,7 @@ class DeepLabNet(nn.Module):
     statistics), no dropout, no fused block."""
 
     calibrating = False
+    band = None          # set by parallel/spatial.py's ``banded``
 
     def _build_trunk(self, backbone: str, OS: int, alpha: float, seed: int,
                      fuse_blocks: bool):
@@ -241,7 +266,7 @@ class Deeplabv3(DeepLabNet):
     def _logits_nchw(self, img, policy, gen=None):
         feats = deeplabv3_forward(self, img, policy, gen)
         x = getattr(self, self.head_name)(feats, policy)
-        return resize_bilinear_tf1(x, (img.shape[1], img.shape[2]))
+        return resize_bilinear_tf1(x, image_hw(self, img), self.band)
 
     def apply(self, img, compute_dtype="float32", training: bool = False,
               gen=None, infer=None):

@@ -11,6 +11,10 @@ training (each behind the JAX package's gate).  Block 0 (expansion 1, no
 expand conv) runs its depthwise -> BN -> relu6 through ``fused_dw_bn_relu6``
 in eval mode under the same policies; its project conv and BN stay the
 composition.  The JAX package leaves that kernel unwired.
+
+Under a band of the image's rows (``parallel/spatial.py``) the serving
+kernels run on the band extended by the block's halo, the gate reading the
+whole map's height, and the extra rows are cropped.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from deeplab_tpu_torch.kernels import fused_mbconv as FM
 from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 from deeplab_tpu_torch.ops.bn import BatchNorm, bn_scale_shift
 from deeplab_tpu_torch.ops.conv import Conv2D, DepthwiseConv2D, relu6
+from deeplab_tpu_torch.parallel import spatial
 
 
 def make_divisible(v, divisor, min_value=None):
@@ -91,7 +96,8 @@ def _use_fused_block(net, x, policy, stride: int, block_id: int) -> bool:
                 and not net.training
                 and (policy.dtype == torch.bfloat16
                      or (policy.dtype == torch.float32 and policy.mxu_bf16))
-                and x.shape[2] % 8 == 0)
+                and spatial.map_height(x, getattr(net, "band", None))
+                % 8 == 0)
 
 
 def _use_fused_dw(net, policy, stride: int, block_id: int) -> bool:
@@ -122,12 +128,16 @@ def fused_dw_apply(net, x, prefix: str, rate: int, policy):
 def inverted_res_block(net, x, policy, stride: int, block_id: int,
                        skip: bool, rate: int = 1):
     p = _prefix(block_id)
+    band = getattr(net, "band", None)
     if _use_fused_dw(net, policy, stride, block_id):
-        x = fused_dw_apply(net, x, p, rate, policy)
+        x = spatial.on_halo(lambda t: fused_dw_apply(net, t, p, rate,
+                                                     policy), x, band, rate)
         return getattr(net, p + "project_BN")(
             getattr(net, p + "project")(x, policy))
     if _use_fused_block(net, x, policy, stride, block_id):
-        return FM.fused_block_apply(net, x, p, rate, skip, policy)
+        # the kernel's rows a multiple of 8, as the gate asks of the map
+        return spatial.on_halo(lambda t: FM.fused_block_apply(
+            net, t, p, rate, skip, policy), x, band, rate, 8)
     if FMT.use_fused_train_block(net, x, policy, stride, block_id, p):
         return FMT.fused_train_block_apply(net, x, p, rate, skip, policy)
     inputs = x

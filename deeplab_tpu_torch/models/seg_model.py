@@ -83,7 +83,7 @@ class SegNet(deeplabv3p.DeepLabNet):
         if self.net == "subpixel":
             return phase_shift(self.subpixel(feats, policy), self.scale)
         x = self.conv_upsample(feats, policy)
-        return resize_bilinear_tf1(x, self.sz)
+        return resize_bilinear_tf1(x, self.sz, self.band)
 
     def apply_logits(self, img: torch.Tensor, compute_dtype="float32",
                      gen=None):

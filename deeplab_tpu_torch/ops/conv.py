@@ -30,6 +30,7 @@ from deeplab_tpu_torch.kernels import fused_mbconv as FM
 from deeplab_tpu_torch.ops import init as inits
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.padding import manual_pads, same_pads
+from deeplab_tpu_torch.parallel import spatial
 
 
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -37,8 +38,15 @@ def _round_bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(x, kernel, stride: int, rate: int, pads_hw, groups: int,
-          policy: Policy):
+          policy: Policy, band=None):
+    """A VALID conv after the pads ``pads_hw``; under ``band``
+    (``parallel/spatial.py``) the row pads are the whole map's, and the
+    rows they and the kernel reach come from the band's neighbours."""
     (ph0, ph1), (pw0, pw1) = pads_hw
+    if band is not None:
+        x = spatial.conv_rows(x, band, kernel.shape[-2], stride, rate,
+                              (ph0, ph1))
+        ph0 = ph1 = 0
     if ph0 or ph1 or pw0 or pw1:
         x = F.pad(x, (pw0, pw1, ph0, ph1))
     if x.dtype == torch.float32:
@@ -51,32 +59,36 @@ def _conv(x, kernel, stride: int, rate: int, pads_hw, groups: int,
 
 
 def conv2d(x, kernel, policy: Policy, stride: int = 1, rate: int = 1,
-           bias=None, padding: str = "same"):
-    """Keras Conv2D.  ``kernel``: (out, in, k, k)."""
+           bias=None, padding: str = "same", band=None):
+    """Keras Conv2D.  ``kernel``: (out, in, k, k).  ``band``: ``x`` is a
+    band of the map (a 1x1 conv at stride 1 is local to it)."""
     k = kernel.shape[-1]
+    if k == 1 and stride == 1:
+        band = None
     if padding == "same":
-        pads = (same_pads(x.shape[2], k, stride, rate),
+        pads = (same_pads(spatial.map_height(x, band), k, stride, rate),
                 same_pads(x.shape[3], k, stride, rate))
     else:
         pads = ((0, 0), (0, 0))
-    y = _conv(x, kernel, stride, rate, pads, 1, policy)
+    y = _conv(x, kernel, stride, rate, pads, 1, policy, band)
     if bias is not None:
         y = y + bias.to(y.dtype)[:, None, None]
     return y
 
 
-def conv2d_fixed(x, kernel, policy: Policy, stride: int = 1, rate: int = 1):
+def conv2d_fixed(x, kernel, policy: Policy, stride: int = 1, rate: int = 1,
+                 band=None):
     """Reference ``_conv2d_same`` (JAX ``conv2d_fixed``): SAME at stride 1;
     at a larger stride the input-size independent ``manual_pads`` and a
     VALID conv."""
     if stride == 1:
-        return conv2d(x, kernel, policy, rate=rate)
+        return conv2d(x, kernel, policy, rate=rate, band=band)
     p = manual_pads(kernel.shape[-1], rate)
-    return _conv(x, kernel, stride, rate, (p, p), 1, policy)
+    return _conv(x, kernel, stride, rate, (p, p), 1, policy, band)
 
 
 def depthwise_conv2d(x, kernel, policy: Policy, stride: int = 1,
-                     rate: int = 1, explicit_pads=None):
+                     rate: int = 1, explicit_pads=None, band=None):
     """Keras DepthwiseConv2D (depth_multiplier 1, no bias): SAME, or
     ``explicit_pads`` (lo, hi) on both axes and VALID.  ``kernel``: (C, 1,
     k, k)."""
@@ -84,9 +96,9 @@ def depthwise_conv2d(x, kernel, policy: Policy, stride: int = 1,
     if explicit_pads is not None:
         pads = (tuple(explicit_pads), tuple(explicit_pads))
     else:
-        pads = (same_pads(x.shape[2], k, stride, rate),
+        pads = (same_pads(spatial.map_height(x, band), k, stride, rate),
                 same_pads(x.shape[3], k, stride, rate))
-    return _conv(x, kernel, stride, rate, pads, x.shape[1], policy)
+    return _conv(x, kernel, stride, rate, pads, x.shape[1], policy, band)
 
 
 def relu(x):
@@ -108,6 +120,7 @@ class Conv2D(nn.Module):
     bias).  ``kernel_init(gen, hwio_shape)`` draws the kernel in the Keras
     layout."""
     frozen = False   # set by the Trainer's freeze policy (read by the gates)
+    band = None      # set by parallel/spatial.py's ``banded``
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
                  rate: int = 1, use_bias: bool = False, gen=None,
@@ -122,15 +135,16 @@ class Conv2D(nn.Module):
     def forward(self, x, policy: Policy):
         if self.padding == "fixed":
             return conv2d_fixed(x, self.kernel, policy, self.stride,
-                                self.rate)
+                                self.rate, band=self.band)
         return conv2d(x, self.kernel, policy, stride=self.stride,
-                      rate=self.rate, bias=self.bias)
+                      rate=self.rate, bias=self.bias, band=self.band)
 
 
 class DepthwiseConv2D(nn.Module):
     """Keras DepthwiseConv2D; ``padding="fixed"`` pads ``manual_pads`` and
     runs VALID (the strided SepConv_BN)."""
     frozen = False
+    band = None
 
     def __init__(self, channels: int, kernel_size: int = 3, stride: int = 1,
                  rate: int = 1, gen=None, padding: str = "same"):
@@ -146,7 +160,7 @@ class DepthwiseConv2D(nn.Module):
         pads = manual_pads(k, self.rate) if self.padding == "fixed" else None
         return depthwise_conv2d(x, self.depthwise_kernel, policy,
                                 stride=self.stride, rate=self.rate,
-                                explicit_pads=pads)
+                                explicit_pads=pads, band=self.band)
 
 
 def build_sep_conv_bn(add, gen, prefix: str, cin: int, filters: int,
@@ -184,8 +198,10 @@ def sep_conv_bn(net, x, policy: Policy, prefix: str,
     pointwise -> BN -> [ReLU]."""
     dw = getattr(net, prefix + "_depthwise")
     if use_fused_sepconv(net, policy, dw.stride):
-        return FM.fused_sepconv_apply(net, x, prefix, dw.rate,
-                                      depth_activation, policy)
+        return spatial.on_halo(
+            lambda t: FM.fused_sepconv_apply(net, t, prefix, dw.rate,
+                                             depth_activation, policy),
+            x, getattr(net, "band", None), dw.rate)
     if not depth_activation:
         x = relu(x)
     x = getattr(net, prefix + "_depthwise_BN")(dw(x, policy))

@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from deeplab_tpu_torch.parallel import spatial
+
 
 @functools.lru_cache(maxsize=None)
 def _bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -43,14 +45,38 @@ def resize_nearest_tf1(x: torch.Tensor, size) -> torch.Tensor:
     return x[..., ih.to(x.device), :][..., iw.to(x.device)]
 
 
-def resize_bilinear_tf1(x: torch.Tensor, size) -> torch.Tensor:
+def _band_matrix(x: torch.Tensor, band, out_h: int):
+    """Under ``band``: the band's rows of the whole map's row matrix, and
+    ``x`` extended to the input rows they read (output row ``d`` reads
+    ``floor(d * in / out)`` and the row after, clamped), fetched from the
+    band's neighbours."""
+    s_in, s_out = band.level(x.shape[-2]), band.level_of_size(out_h)
+    m = _bilinear_matrix(band.size(s_in), out_h)
+
+    def need(j):
+        a, b = band.rows(s_out, j)
+        cols = np.nonzero(m[a:b].any(axis=0))[0]
+        return int(cols[0]), int(cols[-1]) + 1
+    g0, g1 = need(band.index)
+    a, b = band.rows(s_out)
+    return (spatial.exchange(x, band, s_in, need),
+            np.ascontiguousarray(m[a:b, g0:g1]))
+
+
+def resize_bilinear_tf1(x: torch.Tensor, size, band=None) -> torch.Tensor:
     """Resize an NCHW tensor to ``size=(H_out, W_out)`` with TF1 semantics.
-    Computes in float32 and returns ``x``'s dtype, like the JAX op."""
+    Computes in float32 and returns ``x``'s dtype, like the JAX op.  Under
+    ``band`` (``parallel/spatial.py``) ``x`` is a band of the map and
+    ``size`` the whole output's; the result is the band's rows of it."""
     out_h, out_w = int(size[0]), int(size[1])
-    in_h, in_w = x.shape[-2], x.shape[-1]
+    in_h, in_w = spatial.map_height(x, band), x.shape[-1]
     if (in_h, in_w) == (out_h, out_w):
         return x
-    mh = torch.from_numpy(_bilinear_matrix(in_h, out_h)).to(x.device)
+    if band is None:
+        mh = _bilinear_matrix(in_h, out_h)
+    else:
+        x, mh = _band_matrix(x, band, out_h)
+    mh = torch.from_numpy(mh).to(x.device)
     mw = torch.from_numpy(_bilinear_matrix(in_w, out_w)).to(x.device)
     y = torch.matmul(mh, x.float())          # (..., out_h, in_w)
     y = torch.matmul(y, mw.t())               # (..., out_h, out_w)

@@ -5,8 +5,13 @@ augmentation and streamed file serving (``predict_files``).
 With a ``mesh`` (``parallel/mesh.py``: the process group, one process per
 device) each process serves its own images on its own device and returns
 its own masks; JAX's data-parallel serving shards one batch the same way.
-Spatial sharding raises ``NotImplementedError`` (ROADMAP A10s, spatial
-sharding).
+With ``spatial=True`` over a mesh whose data slots hold several processes
+(``get_mesh(space=S)``) the ``S`` processes of a slot are given the slot's
+whole images and each runs the net on one band of their rows
+(``parallel/spatial.py``); the raw labels are gathered over the slot, and
+the CRF runs on whole images: spread over the slot's processes when its
+batch divides by ``S`` (as JAX spreads it over both mesh axes), else on
+each.  Every process of the slot returns the slot's masks.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from deeplab_tpu_torch import core
 from deeplab_tpu_torch.crf import dense_crf
 from deeplab_tpu_torch.ops.resize import resize_bilinear_tf1
+from deeplab_tpu_torch.parallel import spatial as SP
 
 
 def _resize_nhwc(x: torch.Tensor, size) -> torch.Tensor:
@@ -39,7 +45,10 @@ class Predictor:
     CRF) returns ``(raw, refined)`` from one model forward.
 
     ``mesh``: a ``parallel.mesh.Mesh``; the net runs on its device (this
-    process's), on this process's images.
+    process's), on this process's images.  ``spatial``: over a mesh with
+    ``space > 1``, on this process's band of its data slot's images (the
+    module docstring); without a mesh, or with ``space == 1``, the plain
+    path, as in JAX.
 
     ``tta_scales`` / ``tta_flip``: multi-scale and horizontal-flip
     test-time augmentation (the upstream DeepLab evaluation protocol): the
@@ -61,13 +70,9 @@ class Predictor:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError("mesh must be a deeplab_tpu_torch.parallel.mesh"
                             ".Mesh (get_mesh())")
-        if spatial:
-            raise NotImplementedError(
-                "spatial=True (height sharding) is not ported: it needs "
-                "convolution halos exchanged between processes (ROADMAP "
-                "A10s, spatial sharding)")
         self.crf = crf
         self.mesh = mesh
+        self.spatial = bool(spatial and mesh is not None and mesh.space > 1)
         self.return_raw = return_raw and crf is not None
         self.n_classes = n_classes or getattr(net, "n_classes", 21)
         self.device = (mesh.device if mesh is not None and device is None
@@ -113,17 +118,40 @@ class Predictor:
                 acc = acc + probs
         return acc
 
+    def _band_preds(self, img):
+        """The raw labels of the data slot's images ``img``, this process
+        running its band and the bands gathered over the slot."""
+        band = SP.Band.of(self.mesh, img.shape[1], SP.unit_of(self.net))
+        with SP.banded(self.net, band):
+            raw = self.net.predict_ids(band.take(img), self.policy)
+        return band.gather(raw)
+
+    def _crf(self, img, raw):
+        """The CRF on whole images (it sees the raw 0-255 image, as in the
+        JAX pipeline); under spatial sharding each space process refines
+        its share of the slot's images where the batch divides, and the
+        masks are gathered."""
+        refine = lambda i, r: dense_crf.mean_field_batched(
+            i, r, self.crf, self.n_classes)
+        m = self.mesh
+        if not self.spatial or img.shape[0] % m.space:
+            return refine(img, raw)
+        per = img.shape[0] // m.space
+        mine = slice(m.space_index * per, (m.space_index + 1) * per)
+        return m.space_gather(refine(img[mine], raw[mine]))
+
     def _run(self, images):
         """Enqueue the pipeline on the device; returns the label tensors
-        (a ``(raw, refined)`` pair with ``return_raw``) without waiting."""
+        (a ``(raw, refined)`` pair with ``return_raw``) without waiting
+        (under spatial sharding the gathers wait for the slot's
+        processes)."""
         img = torch.as_tensor(images).to(self.device, torch.float32)
         with torch.inference_mode():
-            raw = self._model_preds(img)
+            raw = (self._band_preds(img) if self.spatial
+                   else self._model_preds(img))
             preds = raw
             if self.crf is not None:
-                # the CRF sees the raw 0-255 image, as in the JAX pipeline
-                preds = dense_crf.mean_field_batched(img, raw, self.crf,
-                                                     self.n_classes)
+                preds = self._crf(img, raw)
         return (raw, preds) if self.return_raw else preds
 
     def __call__(self, images):

@@ -35,10 +35,22 @@ one process per device, each fed its local rows as JAX's processes are):
   process's local statistics, the kernels per process, the same global
   loss and all-reduces, and the moving statistics averaged.
 
-In both, dropout comes from a generator seeded with the rank folded in
-(JAX's SPMD step draws one mask over the global batch: the same
-distribution, other draws).  Spatial sharding raises
-``NotImplementedError`` (ROADMAP A10s, spatial sharding).
+In both, dropout comes from a generator seeded with the data index folded
+in (JAX's SPMD step draws one mask over the global batch: the same
+distribution, other draws).
+
+- ``Trainer(mesh=get_mesh(space=S), spatial=True)`` is JAX's SPMD step
+  with the image height sharded over the mesh's 'space' axis
+  (``parallel/spatial.py``).  Each process takes its data slot's whole
+  images and keeps its band's rows of ``X``, ``Y`` and ``SW``; the net
+  exchanges the rows its convs and resizes read across bands.  BN
+  normalizes over the whole mesh (each pixel once); the image pool's BN,
+  whose input the space group shares, over the data axis (each image
+  once).  The loss, the gradients and the pixel accuracy sum over the
+  mesh; the per-image Jaccard sums each image's counts over the space
+  group first.  Every space process of a data slot draws the slot's
+  dropout mask over the whole map.  Without a mesh, or with ``space ==
+  1``, ``spatial=True`` is the plain step, as in JAX.
 """
 
 from __future__ import annotations
@@ -56,17 +68,19 @@ from deeplab_tpu_torch.losses import (
     sparse_crossentropy_ignoring_last_label,
     sparse_logits_crossentropy_ignoring_last_label)
 from deeplab_tpu_torch.metrics import (accuracy_sums_from_ids,
+                                       jaccard_counts_from_ids,
                                        jaccard_from_sums,
-                                       jaccard_sums_from_ids)
+                                       jaccard_sums_from_counts)
 from deeplab_tpu_torch.ops.bn import BatchNorm, moving_statistics
+from deeplab_tpu_torch.parallel import spatial as SP
 from deeplab_tpu_torch.parallel.mesh import Mesh, get_mesh, is_coordinator
 from deeplab_tpu_torch.train.optimizer import KerasAdam, freeze_set
 
 
 def fold_seed(seed: int, rank: int) -> int:
-    """The dropout seed of process ``rank``: ``seed`` itself on rank 0 (so
-    a one-process mesh draws as the plain Trainer does), a distinct 63-bit
-    value on the others."""
+    """The dropout seed of data slot ``rank``: ``seed`` itself on slot 0
+    (so a one-process mesh draws as the plain Trainer does), a distinct
+    63-bit value on the others."""
     if rank == 0:
         return seed
     return (seed * 6364136223846793005 + rank * 1442695040888963407) % (
@@ -101,11 +115,6 @@ class Trainer:
         if ddp and spatial:
             raise ValueError("ddp=True is data-parallel only; it cannot be "
                              "combined with spatial=True")
-        if spatial:
-            raise NotImplementedError(
-                "spatial=True (height sharding) is not ported: it needs "
-                "convolution halos exchanged between processes (ROADMAP "
-                "A10s, spatial sharding)")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError("mesh must be a deeplab_tpu_torch.parallel.mesh"
                             ".Mesh (get_mesh())")
@@ -113,6 +122,8 @@ class Trainer:
             mesh = get_mesh(device=device)
         self.mesh = mesh
         self.ddp = ddp
+        # height sharding only where a data slot has several processes
+        self.spatial = bool(spatial and mesh is not None and mesh.space > 1)
         self.model = model
         self.epochs = epochs
         self.callbacks = list(callbacks)
@@ -171,21 +182,40 @@ class Trainer:
             [p for p in net.parameters() if p.requires_grad],
             self.base_lr, self.epsilon, self.decay)
         mesh = self.mesh
-        rank = mesh.rank if mesh is not None else 0
+        slot = mesh.data_index if mesh is not None else 0
         self.gen = torch.Generator(self.device).manual_seed(
-            fold_seed(self.seed, rank))
+            fold_seed(self.seed, slot))
         # the SPMD mode over several processes: BN over the global batch
         sync = mesh if (mesh is not None and not self.ddp
                         and mesh.world > 1) else None
         for m in net.modules():
             if isinstance(m, BatchNorm):
                 m.group = sync
+        pool_bn = getattr(net, "image_pooling_BN", None)
+        if self.spatial and pool_bn is not None:
+            # its input is the whole image's pool, the same on every space
+            # process of a slot: each image once
+            pool_bn.group = mesh.data_axis()
         net.train()
 
     def _put(self, X, Y, SW):
         dev = self.device
         return (torch.as_tensor(X).to(dev, torch.float32),
                 torch.as_tensor(Y).to(dev), torch.as_tensor(SW).to(dev))
+
+    def _band(self, X, Y, SW):
+        """Under spatial sharding: this process's band of the images ``X``
+        (B, H, W, 3), and its rows of ``Y`` (B, H*W, 1) and ``SW`` (B,
+        H*W); else None and the batch.  The space processes of a data
+        slot must hold the same images (``ValueError`` otherwise)."""
+        if not self.spatial:
+            return None, X, Y, SW
+        b, H, W = X.shape[:3]
+        band = SP.Band.of(self.mesh, H, SP.unit_of(self.model))
+        SP.check_same_images(self.mesh, X, Y)
+        rows = lambda t: band.take(t.reshape((b, H, W) + t.shape[2:])
+                                   ).reshape((b, -1) + t.shape[2:])
+        return band, band.take(X), rows(Y), rows(SW)
 
     def _all_sum(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_sum(t) if self.mesh is not None else t
@@ -211,11 +241,20 @@ class Trainer:
         with torch.no_grad():
             den = self._all_sum(torch.sum((sw != 0).to(per_px.dtype)))
             preds = out.argmax(-1)
-            iou_sum, n_legal = jaccard_sums_from_ids(labels, preds, n)
             correct, legal = accuracy_sums_from_ids(labels, preds, n)
+            counts = jaccard_counts_from_ids(labels, preds, n)
             if self.mesh is not None:
-                flat = self._all_sum(torch.cat([iou_sum, n_legal,
-                                                correct[None], legal[None]]))
+                # each image's counts over its bands (the identity at
+                # space 1), then its IoU; the sums over the data axis
+                flat = self.mesh.space_sum(torch.cat(
+                    [torch.cat(counts, dim=1).reshape(-1), correct[None],
+                     legal[None]]))
+                counts = flat[:-2].reshape(b, 3 * n).split(n, dim=1)
+                correct, legal = flat[-2], flat[-1]
+            iou_sum, n_legal = jaccard_sums_from_counts(*counts)
+            if self.mesh is not None:
+                flat = self.mesh.data_axis().all_sum(torch.cat(
+                    [iou_sum, n_legal, correct[None], legal[None]]))
                 iou_sum, n_legal = flat[:n], flat[n:2 * n]
                 correct, legal = flat[2 * n], flat[2 * n + 1]
             metrics = {"Jaccard": jaccard_from_sums(iou_sum, n_legal),
@@ -281,8 +320,9 @@ class Trainer:
         """One step on a host or device batch; returns the step metrics as
         device tensors.  The gradients stay in ``p.grad`` until the next
         step."""
-        X, Y, SW = self._put(X, Y, SW)
-        with core.precision_flags(self.policy):
+        band, X, Y, SW = self._band(*self._put(X, Y, SW))
+        with core.precision_flags(self.policy), \
+                SP.banded(self.model, band):
             out = self._forward(X)
             after = self.gen.get_state() if self.remat else None
             loss, metrics = self._loss_and_metrics(out, Y, SW)
@@ -300,10 +340,10 @@ class Trainer:
         """Validation at ``eval_dtype`` (f32 by default: val_Jaccard drives
         the callbacks' decisions), with the moving statistics."""
         net = self.model
-        X, Y, SW = self._put(X, Y, SW)
+        band, X, Y, SW = self._band(*self._put(X, Y, SW))
         net.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), SP.banded(net, band):
                 out = (net.logits(X, self.eval_policy) if self.fused
                        else net.apply(X, self.eval_policy))
                 loss, metrics = self._loss_and_metrics(out, Y, SW)
@@ -450,7 +490,7 @@ class Trainer:
         """Over a mesh of several processes, every process must serve the
         same number of batches of the same sizes, or the collectives of
         the steps would pair up the wrong calls (JAX's global batch is
-        the local rows times the process count).  Checked once a fit
+        the local rows times the data count).  Checked once a fit
         from each generator's metadata; raises ``ValueError``."""
         self._sizes = None
         if self.mesh is None or self.mesh.world == 1:
@@ -470,15 +510,17 @@ class Trainer:
 
     def _check_batch_divides(self, X):
         """JAX ``_check_batch_divides``: each process's batch must divide
-        its share of the mesh (one device a process here, so a nonempty
-        batch) and, over several processes, be one of the sizes every
-        process agreed on (:meth:`_agree_batch_sizes`)."""
+        its share of the mesh's data axis (each process holds its data
+        slot's whole images here, so a nonempty batch) and, over several
+        processes, be one of the sizes every process agreed on
+        (:meth:`_agree_batch_sizes`)."""
         n = len(X)
         if n == 0 or (self._sizes is not None and n not in self._sizes):
-            world = self.mesh.world if self.mesh is not None else 1
+            world = self.mesh.data if self.mesh is not None else 1
             raise ValueError(
                 f"local batch of {n} rows does not match this process's "
-                f"share of the mesh ({world} processes, one device each; "
+                f"share of the mesh ({world} data slots, each process "
+                f"holding its slot's images; "
                 f"agreed sizes {sorted(self._sizes or [])}): make every "
                 f"process's batches, the final one included, the same "
                 f"nonempty size")
@@ -487,11 +529,23 @@ class Trainer:
     def predict(self, X, batch_size: int = 16):
         """Batched float32 inference (JAX ``Trainer.predict``): the eval-
         mode probabilities of ``X`` (this process's rows; each process runs
-        its own on its own device), (N, H*W, n) as a numpy array."""
+        its own on its own device), (N, H*W, n) as a numpy array.  Under
+        spatial sharding each space process runs its band and returns its
+        data slot's whole rows."""
         net = self.model.to(self.device)
         outs = []
         for i in range(0, len(X), batch_size):
             xb = torch.as_tensor(X[i:i + batch_size]).to(self.device,
                                                           torch.float32)
-            outs.append(net.apply(xb).cpu().numpy())
+            band = None
+            if self.spatial:
+                band = SP.Band.of(self.mesh, xb.shape[1], SP.unit_of(net))
+                xb = band.take(xb)
+            with SP.banded(net, band):
+                probs = net.apply(xb)
+            if band is not None:           # the rows of every band
+                b, n = xb.shape[0], probs.shape[-1]
+                probs = band.gather(probs.reshape(b, -1, xb.shape[2], n))
+                probs = probs.reshape(b, -1, n)
+            outs.append(probs.cpu().numpy())
         return np.concatenate(outs, axis=0)

@@ -188,8 +188,8 @@ def test_one_f32_train_step_matches_jax_trainer(monkeypatch):
     monkeypatch.setattr(JD, "dropout", lambda ctx, x, rate: jnp.where(
         jnp.asarray(mask), x / 0.9, 0.0).astype(x.dtype))
     tmask = torch.from_numpy(mask).permute(0, 3, 1, 2)
-    monkeypatch.setattr(D, "dropout", lambda x, rate, gen: torch.where(
-        tmask, x / 0.9, 0.0).to(x.dtype))
+    monkeypatch.setattr(D, "dropout", lambda x, rate, gen, band=None:
+                        torch.where(tmask, x / 0.9, 0.0).to(x.dtype))
 
     jnet, params, state, net = _pair(sz, n_cls, seed=1)
     assert not hasattr(jnet, "apply_logits")

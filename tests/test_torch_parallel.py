@@ -15,8 +15,9 @@ CPU devices the conftest gives it.
   against the single-process port on the whole batch.
 - The generator's host shard (``host_id``/``num_hosts`` left to the group)
   against JAX's file lists; the checkpoints, the weight file and the JSONL
-  log written by rank 0 only; ``spatial=True`` raising; processes that
-  serve different batches raising.
+  log written by rank 0 only; ``spatial=True`` at ``space == 1`` equal to
+  the SPMD step, with ddp or test-time augmentation raising; processes
+  that serve different batches raising.
 - At world size 1 (no group): the mesh helpers are the identity, and the
   CLI's torchrun path trains through a gloo group of one.
 """
@@ -121,8 +122,8 @@ def _jax_step(monkeypatch, jnet, params, state, cfg, ddp):
 def _port_grads(monkeypatch, cfg, rows):
     """The single-process port's gradient of the loss on ``rows``."""
     tmask = torch.from_numpy(cfg["mask"][rows]).permute(0, 3, 1, 2)
-    monkeypatch.setattr(D, "dropout", lambda x, rate, gen: torch.where(
-        tmask, x / 0.9, 0.0).to(x.dtype))
+    monkeypatch.setattr(D, "dropout", lambda x, rate, gen, band=None:
+                        torch.where(tmask, x / 0.9, 0.0).to(x.dtype))
     net = params_from_jax(SegNet((SZ, SZ), N_CLS, alpha=ALPHA),
                           cfg["params"], cfg["state"])
     tr = Trainer(net, device="cpu", verbose=0)
@@ -225,11 +226,21 @@ def test_only_the_coordinator_writes(setup):
 
 
 def test_what_raises_in_a_group(setup):
+    """ddp and test-time augmentation with spatial sharding raise, as do
+    processes serving different batches; ``spatial=True`` over a mesh
+    with ``space == 1`` trains: its step equals the SPMD step bit for bit
+    (history, weights, BN buffers), as in JAX."""
     *_, res = setup
     for r in res:
-        kind, msg = r["raises"]["spatial"]
-        assert kind == "NotImplementedError" and "A10" in msg
+        sp, spmd = r["raises"]["spatial"], r["spmd"]
+        assert sp["hist"] == spmd["hist"]
+        for tree in ("params", "state"):
+            for layer, vars_ in spmd[tree].items():
+                for var, want in vars_.items():
+                    np.testing.assert_array_equal(sp[tree][layer][var], want)
         assert r["raises"]["ddp_spatial"][0] == "ValueError"
+        kind, msg = r["raises"]["tta_spatial"]
+        assert kind == "ValueError" and "TTA" in msg
         assert "different batches" in r["raises"]["unequal"]
 
 
@@ -254,6 +265,18 @@ def test_cli_train_under_torchrun_variables(tmp_path, monkeypatch, capsys,
     """``cli train`` with torchrun's variables set (world size 1) starts a
     gloo group itself, trains data-parallel, writes its weights on rank 0
     and ends the group."""
+    _cli_train(tmp_path, monkeypatch, capsys, ddp)
+
+
+def test_cli_train_spatial_under_torchrun_variables(tmp_path, monkeypatch,
+                                                    capsys):
+    """``cli train`` with ``spatial: true`` in its config trains: under
+    torchrun the mesh has ``space == 1``, as JAX's CLI builds it, so the
+    step is the SPMD step."""
+    _cli_train(tmp_path, monkeypatch, capsys, False, spatial=True)
+
+
+def _cli_train(tmp_path, monkeypatch, capsys, ddp, spatial=False):
     import socket
     from deeplab_tpu_torch import cli
     from deeplab_tpu_torch.config import Config
@@ -274,6 +297,7 @@ def test_cli_train_under_torchrun_variables(tmp_path, monkeypatch, capsys,
     cfg.train.epochs = 1
     cfg.train.batch_size = 4
     cfg.train.checkpoint_dir = str(tmp_path / "ckpt")
+    cfg.train.spatial = spatial
     path = str(tmp_path / "config.json")
     cfg.save(path)
     cli.main(["train", "--config", path, "--device", "cpu"]

@@ -63,14 +63,20 @@ def test_predictor_masks_match_jax(tiles, jax_masks, policy, floor):
     dict(mesh=object()), dict(spatial=True),
     dict(tta_scales=(0.5, 1.0), spatial=True),
     dict(tta_flip=True, spatial=True)])
-def test_later_slices_raise(kw):
-    """A mesh must be a ``parallel.mesh.Mesh`` (TypeError); spatial
-    sharding is not ported and names its ROADMAP item; test-time
+def test_later_slices_raise(kw, tiles):
+    """A mesh must be a ``parallel.mesh.Mesh`` (TypeError); test-time
     augmentation is served, but with spatial sharding it raises ValueError
-    as in JAX."""
+    as in JAX.  ``spatial=True`` without a mesh is the plain path, as in
+    JAX: its masks equal the plain Predictor's."""
+    if kw == dict(spatial=True):
+        net = load_keras_h5(H5, SegNet((SZ, SZ), 3))
+        got = Predictor(net, device="cpu", compute_dtype="float32",
+                        **kw)(tiles)
+        want = Predictor(net, device="cpu", compute_dtype="float32")(tiles)
+        np.testing.assert_array_equal(got, want)
+        return
     err, match = ((ValueError, "TTA") if "tta_scales" in kw
-                  or "tta_flip" in kw else (TypeError, "Mesh")
-                  if "mesh" in kw else (NotImplementedError, "A10"))
+                  or "tta_flip" in kw else (TypeError, "Mesh"))
     with pytest.raises(err, match=match):
         Predictor(SegNet((16, 16), 3), device="cpu", **kw)
 

@@ -1,8 +1,8 @@
 """``deeplab_tpu_torch.train.Trainer.fit`` on tiny in-memory arrays, on the
 CPU: the loss falls, the history keys are the JAX Trainer's, two runs from
 the same seed are identical, frozen layers do not move, the callbacks act,
-and the parts of the JAX constructor that belong to the multi-GPU slice
-raise.
+the constructor's argument checks raise, and ``spatial=True`` without a
+mesh is the plain fit.
 
 The task: 32x32 images of a colored disc on a flat background, labels disc /
 background (2 classes; 2 = void, on the top row), so a few steps learn it.
@@ -111,12 +111,20 @@ def test_prefetcher_yields_the_batches_in_order():
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(spatial=True),
                                 dict(ddp=True, spatial=True)])
 def test_later_slices_raise(kw):
-    """A mesh must be a ``parallel.mesh.Mesh``; spatial sharding is not
-    ported and names its ROADMAP item; ``ddp`` with ``spatial`` raises
-    JAX's ValueError."""
+    """A mesh must be a ``parallel.mesh.Mesh``; ``ddp`` with ``spatial``
+    raises JAX's ValueError.  ``spatial=True`` without a mesh has no space
+    axis to shard over: it is the plain fit, as in JAX (its history and
+    weights equal the plain fit's bit for bit)."""
+    if kw == dict(spatial=True):
+        net, tr, hist = _fit(epochs=2, spatial=True)
+        plain, _, want = _fit(epochs=2)
+        assert not tr.spatial and hist == want
+        for a, b in zip(net.state_dict().values(),
+                        plain.state_dict().values()):
+            assert torch.equal(a, b)
+        return
     err, match = ((TypeError, "Mesh") if "mesh" in kw else
-                  (ValueError, "ddp") if "ddp" in kw else
-                  (NotImplementedError, "A10"))
+                  (ValueError, "ddp"))
     with pytest.raises(err, match=match):
         Trainer(SegNet((SZ, SZ), N_CLS, alpha=0.35), device="cpu", **kw)
 

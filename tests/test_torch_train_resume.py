@@ -176,8 +176,8 @@ def test_resumed_fit_matches_jax_resumed_fit(tmp_path, monkeypatch):
     monkeypatch.setattr(JD, "dropout", lambda ctx, x, rate: jnp.where(
         jnp.asarray(mask), x / 0.9, 0.0).astype(x.dtype))
     tmask = torch.from_numpy(mask).permute(0, 3, 1, 2)
-    monkeypatch.setattr(D, "dropout", lambda x, rate, gen: torch.where(
-        tmask, x / 0.9, 0.0).to(x.dtype))
+    monkeypatch.setattr(D, "dropout", lambda x, rate, gen, band=None:
+                        torch.where(tmask, x / 0.9, 0.0).to(x.dtype))
     X, Y = _tiles(sz, 2 * B, n_cls)
     freeze = "concat_projection"
 

@@ -272,8 +272,8 @@ def test_one_f32_train_step_matches_jax_trainer(monkeypatch):
     monkeypatch.setattr(JD, "dropout", lambda ctx, x, rate: jnp.where(
         jnp.asarray(mask), x / 0.9, 0.0).astype(x.dtype))
     tmask = torch.from_numpy(mask).permute(0, 3, 1, 2)
-    monkeypatch.setattr(D, "dropout", lambda x, rate, gen: torch.where(
-        tmask, x / 0.9, 0.0).to(x.dtype))
+    monkeypatch.setattr(D, "dropout", lambda x, rate, gen, band=None:
+                        torch.where(tmask, x / 0.9, 0.0).to(x.dtype))
 
     jnet = JSegNet((sz, sz), n_cls, "mobilenetv2", "original", alpha=alpha)
     params, state = jnet.init(jax.random.key(1))

@@ -67,8 +67,8 @@ def _batch(sz, B, stride, monkeypatch):
         jnp.asarray(mask), x / 0.9, 0.0).astype(x.dtype) if ctx.training
         else x)
     tmask = torch.from_numpy(mask).permute(0, 3, 1, 2)
-    monkeypatch.setattr(D, "dropout", lambda x, rate, gen: torch.where(
-        tmask, x / 0.9, 0.0).to(x.dtype))
+    monkeypatch.setattr(D, "dropout", lambda x, rate, gen, band=None:
+                        torch.where(tmask, x / 0.9, 0.0).to(x.dtype))
     return X, Y, SW
 
 

@@ -10,7 +10,7 @@ import pickle
 import numpy as np
 
 
-def _steps(rank, cfg, mesh, ddp):
+def _steps(rank, cfg, mesh, ddp, spatial=False):
     """One ``Trainer.fit`` step on this process's rows from the shared
     initial weights; the loss, metrics, gradients, weights and BN
     buffers after it."""
@@ -26,14 +26,15 @@ def _steps(rank, cfg, mesh, ddp):
     sz, n_cls = cfg["sz"], cfg["n_cls"]
     mask = torch.from_numpy(local_batch_rows(cfg["mask"], mesh)).permute(
         0, 3, 1, 2)
-    D.dropout = lambda x, rate, gen: torch.where(mask, x / 0.9, 0.0).to(
-        x.dtype)
+    D.dropout = lambda x, rate, gen, band=None: torch.where(
+        mask, x / 0.9, 0.0).to(x.dtype)
     net = params_from_jax(SegNet((sz, sz), n_cls, alpha=cfg["alpha"]),
                           cfg["params"], cfg["state"])
     rows = [local_batch_rows(cfg[k], mesh) for k in ("X", "Y", "SW")]
     gen = ArrayBatcher(rows[0], rows[1], len(rows[0]), n_classes=n_cls,
                        sample_weights=rows[2])
-    tr = Trainer(net, epochs=1, mesh=mesh, ddp=ddp, workers=0, verbose=0)
+    tr = Trainer(net, epochs=1, mesh=mesh, ddp=ddp, workers=0, verbose=0,
+                 spatial=spatial)
     hist = tr.fit(net, gen)
     grads = {layer: {var: to_keras_layout(var, p.grad)
                      for var, p in mod.named_parameters(recurse=False)}
@@ -96,19 +97,24 @@ def _files(rank, cfg, mesh):
 
 
 def _raises(rank, cfg, mesh):
-    """What must raise in a group: spatial sharding (naming its ROADMAP
-    item), ddp with spatial, and processes that serve different
-    batches."""
+    """What must raise in a group: ddp with spatial, test-time
+    augmentation with spatial, and processes that serve different
+    batches; and ``spatial=True`` over this mesh, whose data slots hold
+    one process each (``space == 1``), training as the SPMD step does."""
+    from deeplab_tpu_torch import Predictor
     from deeplab_tpu_torch.data.generator import ArrayBatcher
     from deeplab_tpu_torch.models.seg_model import SegNet
     from deeplab_tpu_torch.train import Trainer
 
-    out = {}
+    out = {"spatial": _steps(rank, cfg, mesh, ddp=False, spatial=True)}
     net = SegNet((cfg["sz"], cfg["sz"]), cfg["n_cls"], alpha=cfg["alpha"])
-    for name, kw in (("spatial", dict(spatial=True)),
-                     ("ddp_spatial", dict(ddp=True, spatial=True))):
+    for name, make in (
+            ("ddp_spatial", lambda: Trainer(net, mesh=mesh, ddp=True,
+                                            spatial=True)),
+            ("tta_spatial", lambda: Predictor(net, mesh=mesh, spatial=True,
+                                              tta_flip=True))):
         try:
-            Trainer(net, mesh=mesh, **kw)
+            make()
         except Exception as e:      # noqa: BLE001 - the type is the result
             out[name] = (type(e).__name__, str(e))
     n = 2 if rank == 0 else 1       # rank 0 serves two batches, rank 1 one
