@@ -210,7 +210,24 @@ Phases, each of which fails the run (exit code 1, no result line):
    0.5 and 0.77, at the stem's alone 1e-2 and 0.11), then 2 bf16 steps
    whose loss falls (no kernel launches: BN over the mesh keeps the
    composition); the band forward's ms and its exchanges' ms (CUDA
-   events) beside one process's forward, and the steps' ms.
+   events) beside one process's forward, and the steps' ms;
+15. the production grade (``deeplab_tpu_torch.grade``, the port of the JAX
+   repo's ``tools/grade_production.py``): ``grade_runs(split="eval")`` runs
+   the parity stack (float32, ``CrfConfig()``) and the production stack
+   ("mixed", ``PRODUCTION_CONFIG``) over the 64 held-out real-photo tiles
+   of ``tests/data/mini_voc_eval`` at 512x512, B=8, with the 3-class
+   trained weights ``tests/data/mini_voc_trained.npz``, and prints the
+   record beside the JAX package's TPU record (constants from
+   ``BENCH_r05.json``) and each stack's launches a batch (parity: the CRF's
+   6/1/5/5; production: also 14 ``fused_mbconv`` and 1
+   ``fused_dw_bn_relu6``), every batch's counted exactly; the parity stack
+   run again after the production stack must give the same masks bit for
+   bit (TF32 stays off for float32); each CRF kernel of each stack on one
+   batch of the tiles, at 3 labels, against its plain version (the
+   ``PLAIN_*_REL`` tolerances), with its ms a launch beside its bound and
+   the step's form; both stacks on the host's CPU (plain versions) on the
+   first 4 tiles against the card's masks (floor 0.99); the phase fails if
+   production scores more than 0.1 pt below parity on either metric.
 
 In phase 6 an element of F2's or B34's outputs over tolerance passes only
 where C3's rule (``fused_mbconv_train.unexplained``, shared with
@@ -245,7 +262,8 @@ at B=8, output stride 16 and 8, beside its bound and the cuDNN composition,
 with the build's registers and spills (public API only, so a copy run from
 a parent checkout times the parent's kernel); ``--sepconv-plan-sweep``
 times every chunk and pass width that ``sepconv_plan`` may choose at those
-shapes.  ``--spatial`` runs the build and phase 14 alone.  ``--train-step``
+shapes.  ``--spatial`` runs the build and phase 14 alone, ``--grade`` the
+build and phase 15.  ``--train-step``
 times only the bf16 train step at B=16 (img/s,
 peak memory, device busy share), public API only, for parent and change in
 turns.  ``--crf-fallbacks`` times ``slice_planes`` (per launch and per
@@ -542,6 +560,27 @@ SPATIAL_SEAM, SPATIAL_TENSOR_REL, SPATIAL_SEAM_REL = 32, 5e-2, 5e-2
 SPATIAL_TIMEOUT, SPATIAL_TIMES = 300, 2
 SPATIAL_PER_FORWARD = {"fused_mbconv": FUSED_PER_FORWARD,
                        "fused_dw_bn_relu6": 1}
+# phase 15, the production grade (deeplab_tpu_torch/grade.py): both stacks
+# over the 64 held-out tiles at 512x512 with the 3-class trained weights, B=8;
+# the card's masks against the CPU's on the first GRADE_CPU_TILES tiles (the
+# card's CRF-mask floor); the shortfall against grade.CRITERION_PT
+GRADE_B, GRADE_CPU_TILES, GRADE_TIMES = 8, 4, 20
+# per batch: the parity stack is float32 (no model kernel), the production
+# stack "mixed"; the spatial blur is the row kernel or the y and x passes
+GRADE_PER_BATCH = {
+    "parity": dict(CRF_PER_REQUEST),
+    "production": dict(CRF_PER_REQUEST, fused_mbconv=FUSED_PER_FORWARD,
+                       fused_dw_bn_relu6=1)}
+# The JAX package's grade on a TPU, 512x512, the same 64 tiles and weights
+# (BENCH_r05.json, the "production-vs-parity mIoU shortfall" line): a
+# quality yardstick, printed beside the card's record
+JAX_TPU_GRADE = {
+    "miou_published_parity": 0.4582, "miou_published_production": 0.4585,
+    "delta_published_pt": 0.031, "ci95_delta_published_pt": [-0.03, 0.095],
+    "miou_std_parity": 0.2514, "miou_std_production": 0.2517,
+    "delta_std_pt": 0.032, "images": 64, "split": "eval",
+    "size": "512x512", "production_policy": "mixed+cs1.5nnlsst2",
+    "shortfall_pt": 0.0}
 # two NCCL ranks on one device: what NCCL says (it refuses them)
 NCCL_PROBE = r"""
 import sys, datetime, torch, torch.distributed as dist
@@ -977,6 +1016,56 @@ def crf_bound_ms(CK, name, args, kw, out):
             ops += 20 * n_pl                  # messages, unary, softmax
     t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def check_crf_calls(CK, calls, what):
+    """Each plane-engine CRF kernel on every call recorded by
+    ``CK.plain_versions``, held to its plain version's output at the
+    ``PLAIN_*_REL`` tolerances; the fused step also to its two-kernel form
+    and the row blur to the chained y and x plain passes, both bit for bit.
+    Prints a line a kernel; returns {kernel: largest abs error}."""
+    worst = {}
+    for name in CK.KERNELS:
+        kernel = getattr(CK, name)
+        errs = []
+        for args, kw, want in calls[name]:
+            with torch.inference_mode():
+                got = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            err, ok = CK.max_err_vs_plain(name, got, want)
+            errs.append(err)
+            if not ok:
+                raise AssertionError(f"{name} disagrees at {what}: {err}")
+            if (name == "mf_step_planes" and CK.step_plan(
+                    args[0].shape[0], args[0].shape[2], kw["nc"],
+                    kw["L"]).fused):
+                # the two-kernel form sums in the fused one's order
+                with torch.inference_mode():
+                    two = CK.mf_step_with_plan(
+                        CK.two_kernel_step_plan(kw["nc"], kw["L"]),
+                        *args, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, two)):
+                    raise AssertionError(f"the step's two forms differ at "
+                                         f"{what}")
+            if name == "gaussian_blur_planes":
+                # tap order and exact products, as the y and x plain
+                # versions: their chain, bit for bit
+                with torch.inference_mode():
+                    chain = CK.gaussian_blur_x_planes_reference(
+                        CK.gaussian_blur_y_planes_reference(*args, **kw),
+                        **kw)
+                if not torch.equal(got, chain):
+                    raise AssertionError(f"row blur differs from the chained "
+                                         f"plain passes at {what}")
+        worst[name] = max(errs)
+        print(f"  {what} {name:20s} {len(errs)} calls: max_abs "
+              f"{max(errs):.3e} (rel tol: f32 {CK.PLAIN_F32_REL}, bf16 "
+              f"{CK.PLAIN_BF16_REL:.4g}, step Q {CK.PLAIN_STEP_REL:.4g}) ok"
+              + ("; equal bit for bit to the chained y and x plain passes"
+                 if name == "gaussian_blur_planes" else "")
+              + ("; the two-kernel form equal bit for bit"
+                 if name == "mf_step_planes" else ""))
+    return worst
 
 
 def seeded_net(image_size, seed, device, backbone="mobilenetv2",
@@ -2000,11 +2089,13 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
     # --last-modules: the build, the training-kernel check (C3) and phase
-    # 13 alone; --spatial: the build and phase 14
+    # 13 alone; --spatial: the build and phase 14; --grade: phase 15
     run = Run(("build", "seeded 512x512 net", "training kernels vs plain",
                "the last modules") if "--last-modules" in sys.argv[1:]
               else ("build", "seeded 512x512 net", "spatial sharding")
-              if "--spatial" in sys.argv[1:] else None)
+              if "--spatial" in sys.argv[1:]
+              else ("build", "seeded 512x512 net", "grade")
+              if "--grade" in sys.argv[1:] else None)
     kernel_report = {}
     CRF_KERNELS = CK.KERNELS + CK.BLUR_PASSES + ("slice_planes",)
     crf_report = {n: {"max_abs_err": 0.0} for n in CRF_KERNELS}
@@ -2020,6 +2111,7 @@ def main() -> int:
     sepconv_report = {}
     xc = {}
     last = {}
+    grade_report = {}
     root_dir = os.path.dirname(os.path.abspath(__file__))
 
     def zero_counts():
@@ -2128,52 +2220,10 @@ def main() -> int:
             with torch.inference_mode(), CK.plain_versions() as calls:
                 CRF.mean_field_batched(imgs, masks, getattr(CRF, cfg_name),
                                        CLASSES)
-            for name in CK.KERNELS:
-                kernel = getattr(CK, name)
-                errs = []
-                for args, kw, want in calls[name]:
-                    with torch.inference_mode():
-                        got = kernel(*args, **kw)
-                    torch.cuda.synchronize()
-                    err, ok = CK.max_err_vs_plain(name, got, want)
-                    errs.append(err)
-                    if not ok:
-                        raise AssertionError(f"{name} disagrees at "
-                                             f"{cfg_name} B={B}: {err}")
-                    if (name == "mf_step_planes" and CK.step_plan(
-                            args[0].shape[0], args[0].shape[2], kw["nc"],
-                            kw["L"]).fused):
-                        # the two-kernel form sums in the fused one's order
-                        with torch.inference_mode():
-                            two = CK.mf_step_with_plan(
-                                CK.two_kernel_step_plan(kw["nc"], kw["L"]),
-                                *args, **kw)
-                        if not all(torch.equal(a, b)
-                                   for a, b in zip(got, two)):
-                            raise AssertionError(
-                                f"the step's two forms differ at {cfg_name} "
-                                f"B={B}")
-                    if name == "gaussian_blur_planes":
-                        # tap order and exact products, as the y and x
-                        # plain versions: their chain, bit for bit
-                        with torch.inference_mode():
-                            chain = CK.gaussian_blur_x_planes_reference(
-                                CK.gaussian_blur_y_planes_reference(
-                                    *args, **kw), **kw)
-                        if not torch.equal(got, chain):
-                            raise AssertionError(
-                                f"row blur differs from the chained plain "
-                                f"passes at {cfg_name} B={B}")
+            for name, err in check_crf_calls(
+                    CK, calls, f"{cfg_name:20s} B={B}").items():
                 rep = crf_report[name]
-                rep["max_abs_err"] = max(rep["max_abs_err"], max(errs))
-                print(f"  {cfg_name:20s} B={B} {name:20s} {len(errs)} calls: "
-                      f"max_abs {max(errs):.3e} (rel tol: f32 "
-                      f"{CK.PLAIN_F32_REL}, bf16 {CK.PLAIN_BF16_REL:.4g}, "
-                      f"step Q {CK.PLAIN_STEP_REL:.4g}) ok"
-                      + ("; equal bit for bit to the chained y and x plain "
-                         "passes" if name == "gaussian_blur_planes" else "")
-                      + ("; the two-kernel form equal bit for bit"
-                         if name == "mf_step_planes" else ""))
+                rep["max_abs_err"] = max(rep["max_abs_err"], err)
             if cfg_name == "PRODUCTION_CONFIG" and B == SERVE_B:
                 crf_b8.update(calls)
     run.phase("CRF kernels vs plain versions", check_crf_kernels)
@@ -4772,6 +4822,120 @@ def main() -> int:
     run.phase("spatial sharding: two processes on the card, data 1 x "
               "space 2", spatial_sharding)
 
+    # 15. the production grade -------------------------------------------
+    def production_grade():
+        """The quality criterion of the JAX repo's
+        tools/grade_production.py through deeplab_tpu_torch.grade: both
+        stacks over the 64 held-out tiles; each CRF kernel of the path held
+        to its plain version at L = 3 on one batch of them and timed; the
+        parity stack repeated after the production stack (TF32 is process
+        state); 4 tiles against the CPU; the shortfall against 0.1 pt."""
+        from deeplab_tpu_torch import grade as G
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        zero_counts()
+        t0 = time.perf_counter()
+        rec, runs = G.grade_runs(size=(SIZE, SIZE), batch=GRADE_B,
+                                 split="eval")
+        grade_s = time.perf_counter() - t0
+        launched = {k: n for k, n in counts().items() if n}
+        short = G.shortfall(rec)
+        print(f"  the card's grade ({grade_s:.1f} s: tiles, weights, both "
+              f"stacks) [{card}]: {json.dumps(rec)}", flush=True)
+        print(f"  the JAX package's on a TPU (BENCH_r05.json; quality only): "
+              f"{json.dumps(JAX_TPU_GRADE)}")
+        print(f"  production-vs-parity mIoU shortfall: {short:.3f} pt "
+              f"({'MEETS' if short <= G.CRITERION_PT else 'MISSES'} the "
+              f"{G.CRITERION_PT} pt criterion)", flush=True)
+        total, per_stack = {}, {}
+        for name, r in runs.items():
+            per = r["launches"]
+            per_stack[name] = mine = {}
+            print(f"  {name}: launches a batch of {GRADE_B}: {per[0]} "
+                  f"({len(per)} batches, all equal: "
+                  f"{all(p == per[0] for p in per)})")
+            for p in per:
+                got = dict(p)
+                if "gaussian_blur_planes" not in got:   # the y and x passes
+                    y = got.pop("gaussian_blur_y_planes", 0)
+                    assert got.pop("gaussian_blur_x_planes", 0) == y, p
+                    got["gaussian_blur_planes"] = y
+                assert got == GRADE_PER_BATCH[name], (name, p)
+                for k, n in p.items():
+                    total[k] = total.get(k, 0) + n
+                    mine[k] = mine.get(k, 0) + n
+            m = r["masks"]
+            assert m.shape == (64, SIZE, SIZE) and m.dtype == np.int32
+            assert 0 <= m.min() and m.max() < G.N_CLASSES
+        # the counters moved in the grade's batches and nowhere else
+        assert launched == total, (launched, total)
+        assert rec["images"] == 64 and rec["fused_kernels_available"]
+        for k in ("miou_published_parity", "miou_published_production",
+                  "miou_std_parity", "miou_std_production"):
+            assert 0.0 < rec[k] <= 1.0, k
+        lo, hi = rec["ci95_delta_published_pt"]
+        assert lo <= rec["delta_published_pt"] <= hi
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == tf32
+
+        X, _ = G._load_tiles((SIZE, SIZE), G.DATA_EVAL)
+        stacks = G._stacks(G._net((SIZE, SIZE)))
+        # parity after production: TF32 stays off for the f32 stack
+        again = stacks["parity"](X[:GRADE_B])
+        same = bool(np.array_equal(again, runs["parity"]["masks"][:GRADE_B]))
+        print(f"  the parity stack after the production stack: masks equal "
+              f"bit for bit {same}")
+        assert same
+        for name, pred in stacks.items():
+            with torch.inference_mode(), CK.plain_versions() as calls:
+                pred(X[:GRADE_B])
+            errs = check_crf_calls(CK, calls, f"grade {name:10s} L=3")
+            for k in CK.KERNELS:
+                args, kw, out = calls[k][-1]
+                with torch.inference_mode():
+                    ms = cuda_ms(lambda: getattr(CK, k)(*args, **kw),
+                                 GRADE_TIMES)
+                bound, by = crf_bound_ms(CK, k, args, kw, out)
+                form = ""
+                if k == "mf_step_planes":
+                    plan = CK.step_plan(args[0].shape[0], args[0].shape[2],
+                                        kw["nc"], kw["L"])
+                    form = (f" ({'fused' if plan.fused else 'two kernels'}, "
+                            f"nc {kw['nc']}, {plan.lb} labels a blur round, "
+                            f"smem {plan.smem} B)")
+                if k == "gaussian_blur_planes":
+                    form = (" (row kernel)" if CK.row_kernel_fits(
+                        kw["taps"], kw["cs_x"], args[1].shape[0]
+                        != kw["ny"] * kw["nx"]) else " (y and x passes)")
+                grade_report.setdefault(k, {})[name] = {
+                    "ms": ms, "bound_ms": bound, "bound_by": by,
+                    "max_abs_err": errs[k],
+                    "launches": per_stack[name].get(k, 0)}
+                print(f"  grade {name:10s} L=3 {k:20s}{form}: {ms:.4f} ms a "
+                      f"launch (events) against bound {bound:.4f} ms "
+                      f"({by}) [{card}]")
+        for k in ("fused_mbconv", "fused_dw_bn_relu6"):
+            grade_report[k] = {"launches": total[k]}
+        t_cpu = time.perf_counter()
+        cpu = G._stacks(G._net((SIZE, SIZE)), device="cpu")
+        for name, pred in cpu.items():
+            got = pred(X[:GRADE_CPU_TILES])
+            agree = float((got == runs[name]["masks"][:GRADE_CPU_TILES])
+                          .mean())
+            print(f"  {name}: the card's masks against the CPU's (plain "
+                  f"versions) on {GRADE_CPU_TILES} tiles: {agree:.6f} "
+                  f"(floor {CRF_PATH_FLOOR})", flush=True)
+            assert agree >= CRF_PATH_FLOOR, (name, agree)
+        print(f"  the CPU's stacks on {GRADE_CPU_TILES} tiles: "
+              f"{time.perf_counter() - t_cpu:.1f} s")
+        assert short <= G.CRITERION_PT, (short, rec)
+        print(f"  the production grade: {time.perf_counter() - t_phase:.1f} "
+              f"s", flush=True)
+    run.phase("grade: the production stack against the parity stack over "
+              "the 64 held-out tiles", production_grade)
+
     if run.failed:
         print(f"FAILED phases: {run.failed}")
         return 1
@@ -4859,6 +5023,11 @@ def main() -> int:
         if n in ("f1", "f3"):
             entry["composition_ms"] = rep["composition_ms"]
         line.append(entry)
+    # phase 15: launches over the grade's two stacks (8 batches of 8 eval
+    # tiles each), and the CRF kernels at L = 3 per stack (ms a launch)
+    for entry in line:
+        if entry["name"] in grade_report:
+            entry["grade"] = grade_report[entry["name"]]
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,10 @@ native host image library (``data/native.py`` over
 training and serving over ``torch.distributed`` (``parallel/mesh.py``,
 ``Trainer(mesh=..., ddp=...)``, ``Predictor(mesh=...)``).
 
+And the production grade of the JAX repo's ``tools/grade_production.py``
+(``grade.py``: the float32 parity stack against the "mixed" production
+stack in mIoU points over committed real-photo tiles).
+
 The public names mirror the JAX package's (``Deeplabv3``, ``SegModel``,
 ``losses``, ``metrics``) beside ``SegNet`` and ``Predictor``.  Each is
 imported when first named, so that loading a serving artifact imports no
