@@ -227,7 +227,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``PLAIN_*_REL`` tolerances), with its ms a launch beside its bound and
    the step's form; both stacks on the host's CPU (plain versions) on the
    first 4 tiles against the card's masks (floor 0.99); the phase fails if
-   production scores more than 0.1 pt below parity on either metric.
+   production scores more than 0.1 pt below parity on either metric;
+16. the reference notebook's workflow and the region tables: the port's
+   ``examples/segmentation_workflow.py`` on ``tests/data/mini_voc`` at
+   512x512, batch 2, 2 epochs (its three result lines; its ``.npz``
+   checkpoint reloaded into a fresh net equal to the workflow's weights and
+   reproducing the checkpointed val_Jaccard within 0.05, the contract of
+   ``.claude/skills/verify/drive_e2e.py``; no model kernel in its float32
+   evaluation, the CRF's 6/1/5/5 per ``do_crf`` image of more than one
+   label); ``tools/make_gallery.py`` at 512x512 (its CRF masks equal the
+   grade's production stack's on the same four tiles bit for bit, its raw
+   masks the argmax of the same "mixed" forward; 14 ``fused_mbconv`` and 1
+   ``fused_dw_bn_relu6`` a forward); then the region tables of
+   ``tools/profile_train.py`` (the bf16 step at B=16, 3 traced steps, and
+   ``Deeplabv3``'s at B=2, whose ``head`` is labelled),
+   ``tools/profile_xception.py`` (B=16, 3 calls, with the CRF) and
+   ``tools/profile_crf.py`` (``CrfConfig()`` and ``PRODUCTION_CONFIG`` at
+   B=8): every region the program labels above 0 ms (the ``SegNet``
+   programs label no ``head``, as in JAX), the rows summing to the trace's
+   total within 1e-6, the train table's total within 1% of the union of
+   its kernels' intervals and printed beside the step's CUDA-event time,
+   each table's unscoped share and top 8 kernels of "other", each
+   program's launches counted.
 
 In phase 6 an element of F2's or B34's outputs over tolerance passes only
 where C3's rule (``fused_mbconv_train.unexplained``, shared with
@@ -263,7 +284,11 @@ with the build's registers and spills (public API only, so a copy run from
 a parent checkout times the parent's kernel); ``--sepconv-plan-sweep``
 times every chunk and pass width that ``sepconv_plan`` may choose at those
 shapes.  ``--spatial`` runs the build and phase 14 alone, ``--grade`` the
-build and phase 15.  ``--train-step``
+build and phase 15, ``--workflow`` the build and phase 16.
+``--model-times`` times only the model-only forward of the seeded 512x512
+MobileNetV2 net under "mixed" at B=16 (img/s) and B=1 (latency, CUDA
+events and the host clock), public API only, for parent and change in
+turns.  ``--train-step``
 times only the bf16 train step at B=16 (img/s,
 peak memory, device busy share), public API only, for parent and change in
 turns.  ``--crf-fallbacks`` times ``slice_planes`` (per launch and per
@@ -274,8 +299,9 @@ batch, public API only, so a copy run from a parent checkout times the
 parent's kernels; it prints a digest of ``slice_planes``' outputs on its
 seeded inputs, to compare two checkouts bit for bit.
 
-The last three lines of standard output are the kernels' JSON line, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without
+The last three lines of standard output are the kernels' JSON line (each
+kernel that phase 16 launched also under ``workflow``), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.  Without
 CUDA, or without the port beside it, the script exits non-zero and prints
 no result.
 """
@@ -505,7 +531,8 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
     res["wall_ms"] = (time.perf_counter() - t0) / 3 * 1e3
 res["busy_ms"] = sum(e.self_device_time_total for e in pr.key_averages()
                      if e.self_device_time_total > 0
-                     and str(e.device_type).endswith("CUDA")) / 3e3
+                     and str(e.device_type).endswith("CUDA")
+                     and not getattr(e, "is_user_annotation", False)) / 3e3
 res["modules"] = sorted(m for m in mods if m.split(".")[0] in (
     "jax", "deeplab_tpu") or m.startswith((
     "deeplab_tpu_torch.models", "deeplab_tpu_torch.crf",
@@ -581,6 +608,16 @@ JAX_TPU_GRADE = {
     "delta_std_pt": 0.032, "images": 64, "split": "eval",
     "size": "512x512", "production_policy": "mixed+cs1.5nnlsst2",
     "shortfall_pt": 0.0}
+# phase 16, the notebook workflow and the region tables: the workflow on
+# the 20 mini_voc tiles at 512x512 (17 train, 3 validate), batch 2, 2
+# epochs; the reloaded checkpoint's val_Jaccard against the checkpointed
+# one (drive_e2e.py's contract: the validation generator augments at
+# random); the region tables' sums against their totals, and the train
+# table's against the union of its kernels' intervals
+WF_B, WF_EPOCHS, WF_RELOAD_TOL = 2, 2, 0.05
+TABLE_SUM_REL, TABLE_BUSY_REL = 1e-6, 0.01
+TABLE_B, TABLE_CRF_B, TABLE_DV3_B = 16, 8, 2
+MODEL_TIMES_ITERS = 20
 # two NCCL ranks on one device: what NCCL says (it refuses them)
 NCCL_PROBE = r"""
 import sys, datetime, torch, torch.distributed as dist
@@ -1498,6 +1535,17 @@ def train_composition(name, args):
     return run
 
 
+def device_rows(pr):
+    """The rows of a ``torch.profiler`` run that are the card's own work:
+    device events with device time, not an aten op's row (which repeats
+    its kernels' time) nor a user annotation's range (the models' region
+    labels, whose device time spans their kernels' and the gaps
+    between)."""
+    return [e for e in pr.key_averages() if e.self_device_time_total > 0
+            and str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_table(fn, what, calls=3, top=12):
     """Where ``fn``'s device time goes: ``torch.profiler`` over ``calls``
     calls, the busy share of the wall time and the top kernels per call."""
@@ -1511,10 +1559,7 @@ def device_table(fn, what, calls=3, top=12):
         wall = 1e3 * (time.perf_counter() - t0) / calls
     # kernel rows only: an aten op's row repeats its kernels' time
     rows = [(e.key, e.self_device_time_total / (1e3 * calls),
-             e.count // calls)
-            for e in pr.key_averages()
-            if e.self_device_time_total > 0
-            and str(e.device_type).endswith("CUDA")]
+             e.count // calls) for e in device_rows(pr)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"  {what} per call under torch.profiler: device busy {busy:.3f} "
@@ -1810,14 +1855,48 @@ def train_step_times(card, runs: int = 10) -> int:
             t.train_step(X, Y, SW)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / 3
-    busy = sum(e.self_device_time_total for e in pr.key_averages()
-               if e.self_device_time_total > 0
-               and str(e.device_type).endswith("CUDA")) / 3e3
+    busy = sum(e.self_device_time_total for e in device_rows(pr)) / 3e3
     print(f"  train step bf16, block kernels B={TRAIN_B}: {ms:.3f} ms/step, "
           f"{1e3 * TRAIN_B / ms:.1f} img/s, peak device memory {peak:.2f} "
           f"GiB; under torch.profiler device busy {busy:.3f} ms of "
           f"{wall:.3f} ms wall (idle share {1 - busy / wall:.3f}) [{card}]",
           flush=True)
+    return 0
+
+
+def model_times(card) -> int:
+    """``--model-times``: the model-only forward of the seeded full-width
+    512x512 MobileNetV2 net under "mixed" with its kernels (14
+    ``fused_mbconv``, 1 ``fused_dw_bn_relu6``): img/s at B=16 and the
+    latency of one image (CUDA events, and the host clock numpy to numpy
+    through ``Predictor``), each over ``MODEL_TIMES_ITERS`` calls after
+    warm-up.  Only the public API is used, so a copy of this file run from
+    the root of a parent checkout times that checkout, for parent and
+    change in turns in one call."""
+    import numpy as np
+    from deeplab_tpu_torch import Predictor
+    from deeplab_tpu_torch.kernels import build
+    build.build(["fused_mbconv", "fused_dw"])
+    dev = torch.device("cuda")
+    net = seeded_net((SIZE, SIZE), SEED + 7, dev)
+    gen = torch.Generator().manual_seed(SEED + 70)
+    out = {}
+    for b in (BENCH_B, 1):
+        x = (torch.rand((b, SIZE, SIZE, 3), generator=gen) * 255).to(dev)
+        ms = cuda_ms(lambda: net.predict_ids(x, "mixed"), MODEL_TIMES_ITERS)
+        out[b] = ms
+    pred = Predictor(net, compute_dtype="mixed")
+    host = np.asarray(x.cpu())
+    for _ in range(3):
+        pred(host)
+    t0 = time.perf_counter()
+    for _ in range(MODEL_TIMES_ITERS):
+        pred(host)
+    host_ms = 1e3 * (time.perf_counter() - t0) / MODEL_TIMES_ITERS
+    print(f"  model-only mixed: B={BENCH_B} {out[BENCH_B]:.3f} ms "
+          f"({1e3 * BENCH_B / out[BENCH_B]:.1f} img/s); B=1 {out[1]:.3f} ms "
+          f"(events), {host_ms:.3f} ms (host clock, numpy to numpy) "
+          f"[{card}]", flush=True)
     return 0
 
 
@@ -2059,6 +2138,8 @@ def main() -> int:
         return train_plan_sweep(card_line(), *([named] if named else []))
     if "--train-step" in sys.argv[1:]:
         return train_step_times(card_line())
+    if "--model-times" in sys.argv[1:]:
+        return model_times(card_line())
     if "--train-phases" in sys.argv[1:]:
         from deeplab_tpu_torch.kernels import build
         card = card_line()
@@ -2089,13 +2170,16 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
     # --last-modules: the build, the training-kernel check (C3) and phase
-    # 13 alone; --spatial: the build and phase 14; --grade: phase 15
+    # 13 alone; --spatial: the build and phase 14; --grade: phase 15;
+    # --workflow: phase 16
     run = Run(("build", "seeded 512x512 net", "training kernels vs plain",
                "the last modules") if "--last-modules" in sys.argv[1:]
               else ("build", "seeded 512x512 net", "spatial sharding")
               if "--spatial" in sys.argv[1:]
               else ("build", "seeded 512x512 net", "grade")
-              if "--grade" in sys.argv[1:] else None)
+              if "--grade" in sys.argv[1:]
+              else ("build", "seeded 512x512 net", "workflow")
+              if "--workflow" in sys.argv[1:] else None)
     kernel_report = {}
     CRF_KERNELS = CK.KERNELS + CK.BLUR_PASSES + ("slice_planes",)
     crf_report = {n: {"max_abs_err": 0.0} for n in CRF_KERNELS}
@@ -3863,9 +3947,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0) / 2
         rows = [(e.key, e.self_device_time_total / 2e3, e.count // 2)
-                for e in pr.key_averages()
-                if e.self_device_time_total > 0
-                and str(e.device_type).endswith("CUDA")]
+                for e in device_rows(pr)]
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
         print(f"  bf16 train step B={TRAIN_B} under torch.profiler: device "
@@ -4127,9 +4209,7 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        busy = sum(e.self_device_time_total for e in pr.key_averages()
-                   if e.self_device_time_total > 0
-                   and str(e.device_type).endswith("CUDA")) / 1e3
+        busy = sum(e.self_device_time_total for e in device_rows(pr)) / 1e3
         return wall, busy
 
     def training_surface():
@@ -4936,6 +5016,240 @@ def main() -> int:
     run.phase("grade: the production stack against the parity stack over "
               "the 64 held-out tiles", production_grade)
 
+    # 16. the notebook workflow, the gallery and the region tables -------
+    wf_launches = {}
+
+    def moved_counts(want_blur=True):
+        """The launches since the last zero, launched kernels only, the
+        spatial blur's y and x passes counted as one blur (the row kernel
+        or the passes, by geometry); added to phase 16's totals."""
+        got = {k: n for k, n in counts().items() if n}
+        for k, n in got.items():
+            wf_launches[k] = wf_launches.get(k, 0) + n
+        if want_blur and "gaussian_blur_planes" not in got:
+            y = got.pop("gaussian_blur_y_planes", 0)
+            assert got.pop("gaussian_blur_x_planes", 0) == y, got
+            if y:
+                got["gaussian_blur_planes"] = y
+        return got
+
+    def times(per, n):
+        return {k: v * n for k, v in per.items()}
+
+    def table_sums(what, regions, ops, calls, labelled):
+        """Every labelled region above 0 ms, and the rows' sum equal to the
+        trace's total; returns the total (ms a call)."""
+        total = sum(o[2] for o in ops) / 1e3 / calls
+        rows = sum(regions.values())
+        for r in labelled:
+            assert regions.get(r, 0.0) > 0.0, (what, r, regions)
+        assert abs(rows - total) <= TABLE_SUM_REL * total, (what, rows,
+                                                            total)
+        unlaunched = sum(1 for o in ops if not o[3]["launched"])
+        print(f"  {what}: {len(regions)} rows sum to {rows:.6f} ms, the "
+              f"trace's total {total:.6f} ms; every labelled region above "
+              f"0 ({len(labelled)}); {unlaunched} device ops without a "
+              f"launch event [{card}]", flush=True)
+        return total
+
+    def workflow():
+        """The port's examples/segmentation_workflow.py and
+        tools/make_gallery.py on the committed tiles, and the region tables
+        of tools/profile_{train,xception,crf}.py."""
+        import io
+        import random
+        import tempfile
+        from deeplab_tpu_torch import grade as G
+        from deeplab_tpu_torch.examples import segmentation_workflow as WF
+        from deeplab_tpu_torch.models.deeplabv3p import Deeplabv3
+        from deeplab_tpu_torch.models.seg_model import SegNet
+        from deeplab_tpu_torch.params import load_weights
+        from deeplab_tpu_torch.tools import make_gallery as MG
+        from deeplab_tpu_torch.tools import profile_crf as PC
+        from deeplab_tpu_torch.tools import profile_train as PT
+        from deeplab_tpu_torch.tools import profile_xception as PX
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        model_kernels = {"fused_mbconv", "fused_sepconv",
+                         "fused_dw_bn_relu6"} | {"train_" + n
+                                                 for n in FMT.PHASES}
+        os.makedirs(os.path.join(root_dir, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(root_dir, "build")) as tmp:
+            # (a) the workflow ------------------------------------------
+            zero_counts()
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                res = WF.main([
+                    "--dataset", os.path.join(root_dir, "tests", "data",
+                                              "mini_voc"),
+                    "--image-size", str(SIZE), str(SIZE), "--batch-size",
+                    str(WF_B), "--epochs", str(WF_EPOCHS), "--out-dir",
+                    os.path.join(tmp, "w"), "--seed", str(SEED)])
+            torch.cuda.synchronize()
+            wf_s = time.perf_counter() - t0
+            text = text.getvalue()
+            print("\n".join("  | " + ln for ln in text.splitlines()))
+            for line in ("sample mIOU (no CRF):", "sample mIOU (+CRF):",
+                         'Published-metric "Mean IOU":'):
+                assert line in text, line
+            got = moved_counts()
+            assert not model_kernels & set(got), got
+            n_labels = len(np.unique(res["sample"][2]))
+            assert got == (dict(CRF_PER_REQUEST) if n_labels > 1 else {}), (
+                n_labels, got)
+            hist = res["history"]
+            print(f"  workflow: {wf_s:.1f} s; losses {hist['loss']}, "
+                  f"val_loss {hist['val_loss']}, val_Jaccard "
+                  f"{hist['val_Jaccard']}; sample mIOU {res['miou_raw']} "
+                  f"(+CRF {res['miou_crf']}; {n_labels} labels in the "
+                  f"sample's prediction), published mean IoU "
+                  f"{res['mean_iou']:.4f}; launches {got} (no model kernel: "
+                  f"float32 evaluation) [{card}]", flush=True)
+            # the checkpoint, reloaded into a fresh net
+            path = res["modelpath"]
+            assert os.path.exists(path), path
+            fresh = load_weights(path, SegNet(
+                (SIZE, SIZE), res["n_classes"], seed=SEED + 61)).to(dev)
+            a, b = fresh.state_dict(), res["model"].state_dict()
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in a)
+            best = max(hist["val_Jaccard"])
+            tr = Trainer(fresh, device=dev, verbose=0)
+            tr.setup(fresh)
+            vg = res["valid_generator"]
+            random.seed(SEED)
+            js = []
+            for i in range(len(vg)):
+                X, Y, sw = vg[i]
+                js.append(float(tr.eval_step(X, Y, sw["pred_mask"])[
+                    "Jaccard"]))
+            reload_j = float(np.mean(js))
+            print(f"  checkpoint {os.path.basename(path)} "
+                  f"({os.path.getsize(path) / 2 ** 20:.1f} MB): reloaded "
+                  f"weights equal the workflow's bit for bit; val_Jaccard "
+                  f"{reload_j:.4f} against the checkpointed {best:.4f} "
+                  f"(tolerance {WF_RELOAD_TOL})", flush=True)
+            assert abs(reload_j - best) < WF_RELOAD_TOL, (reload_j, best)
+            del tr, fresh, res
+            torch.cuda.empty_cache()
+
+            # (b) the gallery -------------------------------------------
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                gal = MG.render(os.path.join(tmp, "gallery"), (SIZE, SIZE))
+            gal_s = time.perf_counter() - t0
+            got = moved_counts()
+            assert got == dict(CRF_PER_REQUEST, fused_mbconv=2 *
+                               FUSED_PER_FORWARD, fused_dw_bn_relu6=2), got
+            X, _ = G._load_tiles((SIZE, SIZE))
+            batch = X[list(MG.PICKS)]
+            gnet = G._net((SIZE, SIZE))
+            prod = G._stacks(gnet)["production"](batch)
+            with torch.inference_mode():
+                raw = gnet.predict_ids(torch.from_numpy(batch).to(dev),
+                                       "mixed").cpu().numpy()
+            assert np.array_equal(gal["crf"], prod)
+            assert np.array_equal(gal["raw"], raw)
+            print(f"  gallery: {len(gal['paths'])} files in {gal_s:.1f} s; "
+                  f"+CRF masks equal the grade's production stack's bit for "
+                  f"bit, raw masks the mixed forward's argmax; the CRF moved "
+                  f"{float((gal['crf'] != gal['raw']).mean()):.4f} of the "
+                  f"pixels; launches {got}", flush=True)
+            del gnet
+            torch.cuda.empty_cache()
+
+            # (c), (d) the region tables --------------------------------
+            t0 = time.perf_counter()
+            tr, tnet, batches = PT.program(os.path.join(tmp, "train"),
+                                           bs=TABLE_B, size=(SIZE, SIZE),
+                                           device=dev)
+            zero_counts()
+            tr.fit(tnet, batches)
+            steps = PT.STEPS[1] - PT.STEPS[0]
+            got = moved_counts()
+            assert got == {"train_" + n: TRAIN_PER_STEP * PT.STEPS[1]
+                           for n in FMT.PHASES}, got
+            print(f"== train-step region table (bf16, B={TABLE_B}, "
+                  f"{SIZE}x{SIZE}, steps {PT.STEPS}) [{card}]")
+            rec = PT.itemize(tr.profiler.path, bs=TABLE_B)
+            labelled = [r for r, _ in PT.RULES if r != "head"]
+            total = table_sums("train table", rec["_regions"], rec["_ops"],
+                               steps, labelled)
+            X, Y, sw = batches[0]
+            SW = sw["pred_mask"] if isinstance(sw, dict) else sw
+            step_ms = cuda_ms(lambda: tr.train_step(X, Y, SW), 5)
+            busy = rec["busy_ms"]
+            print(f"  train step: table total {total:.3f} ms, device busy "
+                  f"(union of kernel intervals) {busy:.3f} ms, CUDA events "
+                  f"{step_ms:.3f} ms a step; unscoped share "
+                  f"{rec['unscoped_share']:.4f}; launches {got} [{card}]")
+            assert abs(total - busy) <= TABLE_BUSY_REL * busy, (total, busy)
+            print("  top kernels of 'other':")
+            for k, v in rec["_tops"].get("other", [])[:8]:
+                print(f"    {v / steps:8.3f} ms  {k[:100]}")
+            del tr, tnet, batches, rec
+            torch.cuda.empty_cache()
+            # Deeplabv3 labels its head: every RULES region
+            dv3 = Deeplabv3(input_shape=(SIZE, SIZE, 3), classes=CLASSES,
+                            seed=SEED)
+            zero_counts()
+            path = PT.run(os.path.join(tmp, "dv3"), bs=TABLE_DV3_B,
+                          size=(SIZE, SIZE), device=dev, net=dv3)
+            got = moved_counts()
+            rec = PT.itemize(path, bs=TABLE_DV3_B, quiet=True)
+            print(f"  Deeplabv3 bf16 step, B={TABLE_DV3_B}: "
+                  f"{json.dumps({k: round(v, 3) for k, v in rec['_regions'].items()})}"
+                  f" ms a step; launches {got}")
+            table_sums("Deeplabv3 train table", rec["_regions"], rec["_ops"],
+                       steps, [r for r, _ in PT.RULES])
+            del dv3, rec
+            torch.cuda.empty_cache()
+
+            zero_counts()
+            path = PX.run(os.path.join(tmp, "xception"), bs=TABLE_B,
+                          size=(SIZE, SIZE), device=dev)
+            got = moved_counts()
+            n = PX.CALLS + 1
+            assert got == dict(times(CRF_PER_REQUEST, n),
+                               fused_sepconv=SEPCONV_PER_FORWARD * n), got
+            print(f"== Xception serving region table (mixed + CRF, "
+                  f"B={TABLE_B}) [{card}]; launches {got}")
+            rec = PX.itemize(path, bs=TABLE_B)
+            table_sums("Xception table", rec["_regions"], rec["_ops"],
+                       PX.CALLS, [r for r, _ in PX.RULES if r != "head"])
+            print(f"  Xception: unscoped share {rec['unscoped_share']:.4f}; "
+                  f"top kernels of '{PX.DEFAULT}':")
+            for k, v in rec["_tops"].get(PX.DEFAULT, [])[:8]:
+                print(f"    {v / PX.CALLS:8.3f} ms  {k[:100]}")
+            del rec
+            torch.cuda.empty_cache()
+
+            for cfg_name in ("mirror", "production"):
+                zero_counts()
+                path = PC.run(os.path.join(tmp, "crf_" + cfg_name), cfg_name,
+                              TABLE_CRF_B, (SIZE, SIZE), device=dev)
+                got = moved_counts()
+                assert got == times(CRF_PER_REQUEST, PC.CALLS + 1), got
+                print(f"== CRF family table ({cfg_name}, B={TABLE_CRF_B}) "
+                      f"[{card}]; launches {got}")
+                rec = PC.itemize(path, cfg_name, TABLE_CRF_B, (SIZE, SIZE))
+                fams = {k: r["ms"] for k, r in rec["_rows"].items()}
+                table_sums(f"CRF table ({cfg_name})", fams, rec["_ops"],
+                           PC.CALLS, PC.FAMILIES[:6])
+                glue = fams.get("glue", 0.0) + fams.get("reshapes/copies",
+                                                         0.0)
+                print(f"  CRF {cfg_name}: share outside a kernel family "
+                      f"(glue, reshapes/copies) "
+                      f"{glue / max(sum(fams.values()), 1e-12):.4f}")
+            print(f"  tables: {time.perf_counter() - t0:.1f} s")
+        print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    run.phase("workflow: the notebook's workflow, the gallery and the region "
+              "tables", workflow)
+
     if run.failed:
         print(f"FAILED phases: {run.failed}")
         return 1
@@ -5028,6 +5342,12 @@ def main() -> int:
     for entry in line:
         if entry["name"] in grade_report:
             entry["grade"] = grade_report[entry["name"]]
+        # phase 16: launches over the workflow, the gallery and the tables
+        key = ("train_" + entry["name"][len("block_train_"):]
+               if entry["name"].startswith("block_train_")
+               else entry["name"])
+        if key in wf_launches:
+            entry["workflow"] = {"launches": wf_launches[key]}
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

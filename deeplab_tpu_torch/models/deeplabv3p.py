@@ -30,6 +30,7 @@ from deeplab_tpu_torch.ops.conv import (Conv2D, build_sep_conv_bn, relu,
                                         sep_conv_bn)
 from deeplab_tpu_torch.ops.resize import resize_bilinear_tf1
 from deeplab_tpu_torch.parallel import spatial
+from deeplab_tpu_torch.train.profiling import annotate
 
 DECODER_SKIP = 256  # entry block 2's channels, the decoder's stride-4 skip
 
@@ -143,7 +144,8 @@ def deeplabv3_forward(net, img, policy, gen=None):
     identity.  The heads are the caller's: ``SegNet``'s or
     ``Deeplabv3``'s ``logits_semantic``.  Under a band (``net.band``,
     ``parallel/spatial.py``) ``img`` holds the band's rows of the
-    image."""
+    image.  ASPP and its dropout are the trace region ``aspp``; the
+    Xception decoder, as in JAX, has no region."""
     input_hw = image_hw(net, img)
     x = img.to(policy.dtype) / 127.5 - 1.0
     x = x.permute(0, 3, 1, 2)          # NCHW view, channels-last memory
@@ -153,12 +155,13 @@ def deeplabv3_forward(net, img, policy, gen=None):
     else:
         OS = 8                         # forced for this trunk
         x = mobilenetv2.backbone(net, x, policy)
-    x = aspp(net, x, policy, input_hw, OS)
-    if net.training and not net.calibrating:
-        if gen is None:
-            raise ValueError("a training forward needs a torch.Generator "
-                             "for dropout")
-        x = dropout(x, 0.1, gen, band=net.band)
+    with annotate("aspp"):
+        x = aspp(net, x, policy, input_hw, OS)
+        if net.training and not net.calibrating:
+            if gen is None:
+                raise ValueError("a training forward needs a "
+                                 "torch.Generator for dropout")
+            x = dropout(x, 0.1, gen, band=net.band)
     if net.backbone == "xception":
         x = decoder(net, x, skip1, policy, input_hw)
     return x
@@ -265,8 +268,9 @@ class Deeplabv3(DeepLabNet):
 
     def _logits_nchw(self, img, policy, gen=None):
         feats = deeplabv3_forward(self, img, policy, gen)
-        x = getattr(self, self.head_name)(feats, policy)
-        return resize_bilinear_tf1(x, image_hw(self, img), self.band)
+        with annotate("head"):          # JAX deeplabv3p.py's "head" scope
+            x = getattr(self, self.head_name)(feats, policy)
+            return resize_bilinear_tf1(x, image_hw(self, img), self.band)
 
     def apply(self, img, compute_dtype="float32", training: bool = False,
               gen=None, infer=None):

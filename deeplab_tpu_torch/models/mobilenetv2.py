@@ -27,6 +27,7 @@ from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 from deeplab_tpu_torch.ops.bn import BatchNorm, bn_scale_shift
 from deeplab_tpu_torch.ops.conv import Conv2D, DepthwiseConv2D, relu6
 from deeplab_tpu_torch.parallel import spatial
+from deeplab_tpu_torch.train.profiling import annotate
 
 
 def make_divisible(v, divisor, min_value=None):
@@ -151,8 +152,13 @@ def inverted_res_block(net, x, policy, stride: int, block_id: int,
 
 
 def backbone(net, x, policy):
-    """Stem + 17 blocks on the normalized NCHW image; output stride 8."""
-    x = relu6(net.Conv_BN(net.Conv(x, policy)))
+    """Stem + 17 blocks on the normalized NCHW image; output stride 8.  The
+    regions ``stem`` and ``mb{block_id:02d}s{stride}`` are the JAX
+    package's trace labels (``train/profiling.annotate``)."""
+    with annotate("stem"):
+        x = relu6(net.Conv_BN(net.Conv(x, policy)))
     for _, stride, _, block_id, skip, rate in BLOCK_TABLE:
-        x = inverted_res_block(net, x, policy, stride, block_id, skip, rate)
+        with annotate(f"mb{block_id:02d}s{stride}"):
+            x = inverted_res_block(net, x, policy, stride, block_id, skip,
+                                   rate)
     return x

@@ -13,6 +13,22 @@ from __future__ import annotations
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.conv import (Conv2D, build_sep_conv_bn, relu,
                                         sep_conv_bn)
+from deeplab_tpu_torch.train.profiling import annotate
+
+# the JAX package's trace label of each block (its ``jax.named_scope``)
+_ENTRY_EXIT_LABELS = {"entry_flow_block1": "xentry1",
+                      "entry_flow_block2": "xentry2",
+                      "entry_flow_block3": "xentry3",
+                      "exit_flow_block1": "xexit1",
+                      "exit_flow_block2": "xexit2"}
+
+
+def region(prefix: str) -> str:
+    """The trace label of block ``prefix``: ``xentry1``-``3``,
+    ``xmid01``-``16`` or ``xexit1``-``2``."""
+    if prefix.startswith("middle_flow_unit_"):
+        return f"xmid{int(prefix.rsplit('_', 1)[1]):02d}"
+    return _ENTRY_EXIT_LABELS[prefix]
 
 
 def rate_table(OS: int):
@@ -84,14 +100,19 @@ def xception_block(net, x, policy, prefix: str, skip: str,
 def backbone(net, x, policy, OS: int = 16):
     """Stem and blocks on the normalized NCHW image; returns ``(features,
     skip1)``: the trunk's output at stride ``OS`` and entry block 2's second
-    SepConv output at stride 4."""
-    x = relu(net.entry_flow_conv1_1_BN(net.entry_flow_conv1_1(x, policy)))
-    x = relu(net.entry_flow_conv1_2_BN(net.entry_flow_conv1_2(x, policy)))
+    SepConv output at stride 4.  The stem is the trace region ``xstem``,
+    each block the region :func:`region` names."""
+    with annotate("xstem"):
+        x = relu(net.entry_flow_conv1_1_BN(net.entry_flow_conv1_1(x,
+                                                                   policy)))
+        x = relu(net.entry_flow_conv1_2_BN(net.entry_flow_conv1_2(x,
+                                                                   policy)))
     skip1 = None
     for prefix, _, skip, _, _, depth_act in block_table(OS):
-        if prefix == "entry_flow_block2":
-            x, skip1 = xception_block(net, x, policy, prefix, skip, depth_act,
-                                      return_skip=True)
-        else:
-            x = xception_block(net, x, policy, prefix, skip, depth_act)
+        with annotate(region(prefix)):
+            if prefix == "entry_flow_block2":
+                x, skip1 = xception_block(net, x, policy, prefix, skip,
+                                          depth_act, return_skip=True)
+            else:
+                x = xception_block(net, x, policy, prefix, skip, depth_act)
     return x, skip1

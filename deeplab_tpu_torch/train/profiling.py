@@ -6,7 +6,12 @@
   window's aggregate rate is the true one).
 - ``trace``: a ``torch.profiler`` trace of a block, CPU and (where there is
   one) CUDA activity, written as a Chrome trace into a directory.
-- ``annotate``: a named range inside a trace.
+- ``annotate``: a named region inside a trace (the JAX package's
+  ``jax.named_scope`` labels: ``stem``, ``mb{id:02d}s{stride}``, ``aspp``,
+  ``head``, the Xception flow's, ``loss``, ``optimizer``,
+  ``step_metrics``), which ``tools/trace.py`` buckets device time by.
+  With no profiler running it is a shared no-op context, so a labelled
+  forward computes and records nothing more than an unlabelled one.
 - ``StepWindowProfiler``: the trace of train steps ``[start, stop)``, wired
   into ``Trainer.fit`` by ``Trainer(profile_dir=...)``.  The window's edges
   synchronize the device, so no step outside it leaks into the trace;
@@ -92,8 +97,17 @@ def trace(logdir: str):
         _write(prof, logdir, "trace")
 
 
+_NO_REGION = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region inside a trace (a ``record_function`` range)."""
+    """Named region inside a trace: a ``record_function`` range while a
+    profiler runs, else a shared no-op context (no ``record_function`` is
+    created); also while a graph is traced or exported, so a program holds
+    no profiler operator."""
+    if (not torch.autograd.profiler._is_profiler_enabled
+            or torch.compiler.is_compiling()):
+        return _NO_REGION
     return torch.profiler.record_function(name)
 
 

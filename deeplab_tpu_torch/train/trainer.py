@@ -75,6 +75,7 @@ from deeplab_tpu_torch.ops.bn import BatchNorm, moving_statistics
 from deeplab_tpu_torch.parallel import spatial as SP
 from deeplab_tpu_torch.parallel.mesh import Mesh, get_mesh, is_coordinator
 from deeplab_tpu_torch.train.optimizer import KerasAdam, freeze_set
+from deeplab_tpu_torch.train.profiling import annotate
 
 
 def fold_seed(seed: int, rank: int) -> int:
@@ -220,13 +221,13 @@ class Trainer:
     def _all_sum(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_sum(t) if self.mesh is not None else t
 
-    def _loss_and_metrics(self, out, Y, SW):
+    def _loss(self, out, Y, SW):
         """The loss part of this process, ``sum(ce * sw) / count`` with the
         nonzero-weight count over every process (the Keras temporal-weight
         mean of the global batch once the parts are summed; one process:
-        ``losses.weighted_loss``), and the step metrics from the sums over
-        every process.  ``out``: (B, H, W, n) logits, or probabilities of
-        any shape (B, ..., n) for a net without ``apply_logits``."""
+        ``losses.weighted_loss``).  ``out``: (B, H, W, n) logits, or
+        probabilities of any shape (B, ..., n) for a net without
+        ``apply_logits``."""
         b, n = out.shape[0], out.shape[-1]
         labels = Y[..., 0].reshape(b, -1)
         sw = SW.reshape(b, -1)
@@ -240,27 +241,33 @@ class Trainer:
         num = torch.sum(per_px * sw)
         with torch.no_grad():
             den = self._all_sum(torch.sum((sw != 0).to(per_px.dtype)))
-            preds = out.argmax(-1)
-            correct, legal = accuracy_sums_from_ids(labels, preds, n)
-            counts = jaccard_counts_from_ids(labels, preds, n)
-            if self.mesh is not None:
-                # each image's counts over its bands (the identity at
-                # space 1), then its IoU; the sums over the data axis
-                flat = self.mesh.space_sum(torch.cat(
-                    [torch.cat(counts, dim=1).reshape(-1), correct[None],
-                     legal[None]]))
-                counts = flat[:-2].reshape(b, 3 * n).split(n, dim=1)
-                correct, legal = flat[-2], flat[-1]
-            iou_sum, n_legal = jaccard_sums_from_counts(*counts)
-            if self.mesh is not None:
-                flat = self.mesh.data_axis().all_sum(torch.cat(
-                    [iou_sum, n_legal, correct[None], legal[None]]))
-                iou_sum, n_legal = flat[:n], flat[n:2 * n]
-                correct, legal = flat[2 * n], flat[2 * n + 1]
-            metrics = {"Jaccard": jaccard_from_sums(iou_sum, n_legal),
-                       "sparse_accuracy": correct / torch.clamp(legal,
-                                                                min=1.0)}
-        return num / torch.clamp(den, min=1.0), metrics
+        return num / torch.clamp(den, min=1.0)
+
+    @torch.no_grad()
+    def _metrics(self, out, Y):
+        """The step metrics of ``out`` (as :meth:`_loss` takes it) from the
+        sums over every process."""
+        b, n = out.shape[0], out.shape[-1]
+        labels = Y[..., 0].reshape(b, -1)
+        preds = out.reshape(b, -1, n).argmax(-1)
+        correct, legal = accuracy_sums_from_ids(labels, preds, n)
+        counts = jaccard_counts_from_ids(labels, preds, n)
+        if self.mesh is not None:
+            # each image's counts over its bands (the identity at space 1),
+            # then its IoU; the sums over the data axis
+            flat = self.mesh.space_sum(torch.cat(
+                [torch.cat(counts, dim=1).reshape(-1), correct[None],
+                 legal[None]]))
+            counts = flat[:-2].reshape(b, 3 * n).split(n, dim=1)
+            correct, legal = flat[-2], flat[-1]
+        iou_sum, n_legal = jaccard_sums_from_counts(*counts)
+        if self.mesh is not None:
+            flat = self.mesh.data_axis().all_sum(torch.cat(
+                [iou_sum, n_legal, correct[None], legal[None]]))
+            iou_sum, n_legal = flat[:n], flat[n:2 * n]
+            correct, legal = flat[2 * n], flat[2 * n + 1]
+        return {"Jaccard": jaccard_from_sums(iou_sum, n_legal),
+                "sparse_accuracy": correct / torch.clamp(legal, min=1.0)}
 
     def _reduce_grads(self):
         """Sum every trainable gradient over the processes (one
@@ -319,19 +326,25 @@ class Trainer:
     def train_step(self, X, Y, SW):
         """One step on a host or device batch; returns the step metrics as
         device tensors.  The gradients stay in ``p.grad`` until the next
-        step."""
+        step.  The trace regions ``loss``, ``optimizer`` (the update with
+        its lr scaling) and ``step_metrics`` are the JAX step's, in its
+        order."""
         band, X, Y, SW = self._band(*self._put(X, Y, SW))
         with core.precision_flags(self.policy), \
                 SP.banded(self.model, band):
             out = self._forward(X)
             after = self.gen.get_state() if self.remat else None
-            loss, metrics = self._loss_and_metrics(out, Y, SW)
+            with annotate("loss"):
+                loss = self._loss(out, Y, SW)
             self.opt.zero_grad()
             loss.backward()
             if after is not None:        # where the plain step leaves it
                 self.gen.set_state(after)
             self._reduce_grads()
-            self.opt.step(self.lr_scale)
+            with annotate("optimizer"):
+                self.opt.step(self.lr_scale)
+            with annotate("step_metrics"):
+                metrics = self._metrics(out.detach(), Y)
         if self.ddp and self.mesh is not None:
             self._average_moving_statistics()
         return {"loss": self._all_sum(loss.detach()), **metrics}
@@ -346,7 +359,8 @@ class Trainer:
             with torch.no_grad(), SP.banded(net, band):
                 out = (net.logits(X, self.eval_policy) if self.fused
                        else net.apply(X, self.eval_policy))
-                loss, metrics = self._loss_and_metrics(out, Y, SW)
+                loss = self._loss(out, Y, SW)
+                metrics = self._metrics(out, Y)
         finally:
             net.train()
         return {"loss": self._all_sum(loss), **metrics}
