@@ -1,0 +1,8 @@
+"""Device: 1 - the union of device op intervals over the traced window,
+in %, while training."""
+
+from portbench import readers as R
+
+
+def read(run):
+    return R.idle_share(run)
