@@ -45,7 +45,7 @@ stack in mIoU points over committed real-photo tiles).
 And what drives the package and reads its behaviour: the reference
 notebook's workflow as a script (``examples/segmentation_workflow.py``),
 the gallery (``tools/make_gallery.py``), the JAX package's trace region
-labels (``train/profiling.annotate``, a no-op without a profiler), the
+labels (``core.annotate``, a no-op without a profiler), the
 trace reader ``tools/trace.py`` and the region tables of the train step,
 the Xception serving forward and the CRF (``tools/profile_train.py``,
 ``profile_xception.py``, ``profile_crf.py``).

@@ -1,4 +1,5 @@
-"""Compute policies and device resolution (counterpart of deeplab_tpu/core.py).
+"""Compute policies, device resolution and program spans (counterpart of
+deeplab_tpu/core.py).
 
 Three policies, as in the JAX package (``core.resolve_compute_dtype``):
 
@@ -66,3 +67,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+_NO_REGION = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """Named span inside a trace: a ``record_function`` range while a
+    profiler runs, else a shared no-op context (no ``record_function`` is
+    created); also while a graph is traced or exported, so a program holds
+    no profiler operator.  The spans are listed in ``train/profiling.py``."""
+    if (not torch.autograd.profiler._is_profiler_enabled
+            or torch.compiler.is_compiling()):
+        return _NO_REGION
+    return torch.profiler.record_function(name)

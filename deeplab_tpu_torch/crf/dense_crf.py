@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from deeplab_tpu_torch import core
+from deeplab_tpu_torch.core import annotate
 from deeplab_tpu_torch.kernels import crf_fused as K
 from deeplab_tpu_torch.kernels.crf_fused import band_matrix_np
 
@@ -447,7 +448,9 @@ def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
     from the caller's energies ``unary_c`` (B*Z, L, P) f32 with zero
     labels; ``rgb`` (B*Z, 3, P) f32 0-255; ``plan`` from :func:`cell_plan`.
     Returns Q (B*Z, L, P) bf16.  The Q state, messages and the unary stream
-    are bf16; every kernel computes in f32."""
+    are bf16; every kernel computes in f32.  Spans: ``crf.norm`` (the norm
+    pass and the attribute slice), then per iteration ``crf.blur``,
+    ``crf.splat`` and ``crf.step``."""
     L = n_labels
     B = rgb.shape[0] // plan.Z
     if unary_c is None:
@@ -474,46 +477,56 @@ def _mean_field_planes(plan: CellPlan, cfg: CrfConfig, n_labels: int,
         return plan.cells_v(_sep_conv_bwh_to_bhw(
             plan.uncells_v_wh(Q * gn_bf, L), taps))
 
-    valid = plan.cells_v(torch.ones((B, 1, plan.h, plan.w),
-                                    dtype=torch.float32, device=dev))
     geo = dict(nc=plan.nc, inv_step=plan.inv_step)
     s = plan.stride
 
     # norm pass: splat the valid mask (f32 grid: the rsqrt(ksum - b_self)
     # cancellation needs it), cross-cell blur, then one kernel slices it
     # and emits the packed attrs planes, Q0 and their subsampled copies
-    if s > 1:
-        Gn = K.splat_planes(plan.subsample(rgb, 3), plan.subsample(valid, 1),
-                            L=1, out_dtype=torch.float32, **geo)
-        Gn = Gn * float(s * s)
-    else:
-        Gn = K.splat_planes(rgb, valid, L=1, out_dtype=torch.float32, **geo)
-    Gn = plan.z_blur(Gn)
-    outs = K.slice_attrs_planes(
-        rgb, Gn, gn_small, labels_c, L=L, ctaps=plan.bb_taps, stride=s,
-        cs_y=plan.cs_y, cs_x=plan.cs_x, h=plan.h, w=plan.w, nx=plan.nx,
-        Z=plan.Z, gt_prob=float(cfg.gt_prob), **geo)
-    attrs, Q = outs[0], outs[1]
-    attrs_sub, Q_sub = (outs[2], outs[3]) if s > 1 else (attrs, None)
-    unary_b = None
-    if unary_c is not None:
-        # Q0 = softmax(-U) in f32, stored bf16, in place of the closed form
-        Q = torch.softmax(-unary_c.float(), dim=1).to(torch.bfloat16)
-        Q_sub = plan.subsample(Q, L) if s > 1 else None
-        unary_b = unary_c.to(torch.bfloat16).contiguous()
+    with annotate("crf.norm"):
+        valid = plan.cells_v(torch.ones((B, 1, plan.h, plan.w),
+                                        dtype=torch.float32, device=dev))
+        if s > 1:
+            Gn = K.splat_planes(plan.subsample(rgb, 3),
+                                plan.subsample(valid, 1), L=1,
+                                out_dtype=torch.float32, **geo)
+            Gn = Gn * float(s * s)
+        else:
+            Gn = K.splat_planes(rgb, valid, L=1, out_dtype=torch.float32,
+                                **geo)
+        Gn = plan.z_blur(Gn)
+        outs = K.slice_attrs_planes(
+            rgb, Gn, gn_small, labels_c, L=L, ctaps=plan.bb_taps, stride=s,
+            cs_y=plan.cs_y, cs_x=plan.cs_x, h=plan.h, w=plan.w, nx=plan.nx,
+            Z=plan.Z, gt_prob=float(cfg.gt_prob), **geo)
+        attrs, Q = outs[0], outs[1]
+        attrs_sub, Q_sub = (outs[2], outs[3]) if s > 1 else (attrs, None)
+        unary_b = None
+        if unary_c is not None:
+            # Q0 = softmax(-U) in f32, stored bf16, in place of the closed
+            # form
+            Q = torch.softmax(-unary_c.float(), dim=1).to(torch.bfloat16)
+            Q_sub = plan.subsample(Q, L) if s > 1 else None
+            unary_b = unary_c.to(torch.bfloat16).contiguous()
 
+    # each iteration's spans: the spatial message, the splat of Q onto the
+    # bilateral grid with the grid's cross-cell blur, and the step
     for i in range(cfg.n_iters):
         last = i == cfg.n_iters - 1
-        f_gauss = spatial(Q)
-        G = K.splat_planes(attrs_sub, Q_sub if s > 1 else Q, L=L,
-                           out_dtype=torch.bfloat16, **geo)
-        G = plan.z_blur(G)
-        out = K.mf_step_planes(
-            attrs, G, f_gauss, Q, unary_b, L=L, ctaps=plan.bb_taps,
-            cg=float(cfg.compat_gaussian), cb=float(cfg.compat_bilateral),
-            n_energy=n_energy, p_energy=p_energy,
-            sub_stride=1 if last else s, cs_y=plan.cs_y, cs_x=plan.cs_x,
-            **geo)
+        with annotate("crf.blur"):
+            f_gauss = spatial(Q)
+        with annotate("crf.splat"):
+            G = K.splat_planes(attrs_sub, Q_sub if s > 1 else Q, L=L,
+                               out_dtype=torch.bfloat16, **geo)
+            G = plan.z_blur(G)
+        with annotate("crf.step"):
+            out = K.mf_step_planes(
+                attrs, G, f_gauss, Q, unary_b, L=L, ctaps=plan.bb_taps,
+                cg=float(cfg.compat_gaussian),
+                cb=float(cfg.compat_bilateral),
+                n_energy=n_energy, p_energy=p_energy,
+                sub_stride=1 if last else s, cs_y=plan.cs_y, cs_x=plan.cs_x,
+                **geo)
         Q, Q_sub = (out[0], None) if len(out) == 1 else out
     return Q
 

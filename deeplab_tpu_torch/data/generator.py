@@ -292,7 +292,9 @@ class _PipelineError:
 class Prefetcher:
     """Background-thread prefetch queue over a generator, so the host
     pipeline stays ahead of the device step.  Batches are copied before
-    they are queued (a generator may reuse its buffers)."""
+    they are queued (a generator may reuse its buffers).  Under a profiler
+    the consumer's wait for a batch is the span ``prefetch.wait``
+    (``train/profiling.py``)."""
 
     def __init__(self, gen, max_queue_size: int = 10):
         self.gen = gen
@@ -331,6 +333,8 @@ class Prefetcher:
         self._put(q, stop, None)
 
     def __iter__(self):
+        # imported here: the module imports no torch (see above)
+        from deeplab_tpu_torch.core import annotate
         self._stop.set()
         if self._thread is not None and self._thread.is_alive():
             self._thread.join(timeout=5)
@@ -341,7 +345,8 @@ class Prefetcher:
                                        range(len(self.gen))), daemon=True)
         self._thread.start()
         while True:
-            item = self.q.get()
+            with annotate("prefetch.wait"):
+                item = self.q.get()
             if item is None:
                 return
             if isinstance(item, _PipelineError):

@@ -24,13 +24,13 @@ import torch
 from torch import nn
 
 from deeplab_tpu_torch import core
+from deeplab_tpu_torch.core import annotate
 from deeplab_tpu_torch.models import mobilenetv2, xception
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.conv import (Conv2D, build_sep_conv_bn, relu,
                                         sep_conv_bn)
 from deeplab_tpu_torch.ops.resize import resize_bilinear_tf1
 from deeplab_tpu_torch.parallel import spatial
-from deeplab_tpu_torch.train.profiling import annotate
 
 DECODER_SKIP = 256  # entry block 2's channels, the decoder's stride-4 skip
 

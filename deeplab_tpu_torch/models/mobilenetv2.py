@@ -21,13 +21,13 @@ from __future__ import annotations
 
 import torch
 
+from deeplab_tpu_torch.core import annotate
 from deeplab_tpu_torch.kernels import fused_dw as FDW
 from deeplab_tpu_torch.kernels import fused_mbconv as FM
 from deeplab_tpu_torch.kernels import fused_mbconv_train as FMT
 from deeplab_tpu_torch.ops.bn import BatchNorm, bn_scale_shift
 from deeplab_tpu_torch.ops.conv import Conv2D, DepthwiseConv2D, relu6
 from deeplab_tpu_torch.parallel import spatial
-from deeplab_tpu_torch.train.profiling import annotate
 
 
 def make_divisible(v, divisor, min_value=None):
@@ -154,7 +154,7 @@ def inverted_res_block(net, x, policy, stride: int, block_id: int,
 def backbone(net, x, policy):
     """Stem + 17 blocks on the normalized NCHW image; output stride 8.  The
     regions ``stem`` and ``mb{block_id:02d}s{stride}`` are the JAX
-    package's trace labels (``train/profiling.annotate``)."""
+    package's trace labels (``core.annotate``)."""
     with annotate("stem"):
         x = relu6(net.Conv_BN(net.Conv(x, policy)))
     for _, stride, _, block_id, skip, rate in BLOCK_TABLE:

@@ -10,10 +10,10 @@ eval-mode stride-1 SepConvs take the fused kernel (ops/conv.py's gate).
 
 from __future__ import annotations
 
+from deeplab_tpu_torch.core import annotate
 from deeplab_tpu_torch.ops.bn import BatchNorm
 from deeplab_tpu_torch.ops.conv import (Conv2D, build_sep_conv_bn, relu,
                                         sep_conv_bn)
-from deeplab_tpu_torch.train.profiling import annotate
 
 # the JAX package's trace label of each block (its ``jax.named_scope``)
 _ENTRY_EXIT_LABELS = {"entry_flow_block1": "xentry1",

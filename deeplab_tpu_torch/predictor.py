@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from deeplab_tpu_torch import core
+from deeplab_tpu_torch.core import annotate
 from deeplab_tpu_torch.crf import dense_crf
 from deeplab_tpu_torch.ops.resize import resize_bilinear_tf1
 from deeplab_tpu_torch.parallel import spatial as SP
@@ -144,24 +145,32 @@ class Predictor:
         """Enqueue the pipeline on the device; returns the label tensors
         (a ``(raw, refined)`` pair with ``return_raw``) without waiting
         (under spatial sharding the gathers wait for the slot's
-        processes)."""
-        img = torch.as_tensor(images).to(self.device, torch.float32)
+        processes).  Spans: ``predict.copy_in`` (the images to the
+        device), ``predict.model`` and ``predict.crf``."""
+        with annotate("predict.copy_in"):
+            img = torch.as_tensor(images).to(self.device, torch.float32)
         with torch.inference_mode():
-            raw = (self._band_preds(img) if self.spatial
-                   else self._model_preds(img))
+            with annotate("predict.model"):
+                raw = (self._band_preds(img) if self.spatial
+                       else self._model_preds(img))
             preds = raw
             if self.crf is not None:
-                preds = self._crf(img, raw)
+                with annotate("predict.crf"):
+                    preds = self._crf(img, raw)
         return (raw, preds) if self.return_raw else preds
 
     def __call__(self, images):
         """images: (B, H, W, 3) raw 0-255 BGR (numpy or tensor) -> (B, H, W)
         int32 label maps as a numpy array, CRF-refined when configured; with
-        ``return_raw`` a ``(raw, refined)`` pair of them."""
-        out = self._run(images)
-        if self.return_raw:
-            return out[0].cpu().numpy(), out[1].cpu().numpy()
-        return out.cpu().numpy()
+        ``return_raw`` a ``(raw, refined)`` pair of them.  Under a profiler
+        the call is the span ``predict``, the label copies back
+        ``predict.copy_out``."""
+        with annotate("predict"):
+            out = self._run(images)
+            with annotate("predict.copy_out"):
+                if self.return_raw:
+                    return out[0].cpu().numpy(), out[1].cpu().numpy()
+                return out.cpu().numpy()
 
     def predict_files(self, paths, batch_size: int = 16, workers: int = 4):
         """Stream image files through the pipeline, overlapping host decode
@@ -196,12 +205,15 @@ class Predictor:
 
         def emit(bp, out):
             n = len(bp)
+            with annotate("predict.copy_out"):
+                if self.return_raw:
+                    raw, ref = (t[:n].cpu().numpy() for t in out)
+                else:
+                    arr = out[:n].cpu().numpy()
             if self.return_raw:
-                raw, ref = (t[:n].cpu().numpy() for t in out)
                 for i, p in enumerate(bp):
                     yield p, (raw[i], ref[i])
             else:
-                arr = out[:n].cpu().numpy()
                 for i, p in enumerate(bp):
                     yield p, arr[i]
 

@@ -16,7 +16,11 @@ Endpoints:
     PNG, ...).  Response: a PNG label mask (mode L, one byte a pixel) at the
     model's size, with ``X-Classes`` listing the classes present.
   - ``GET /healthz``: JSON meta (image size, batch limits, anything given
-    in ``meta``).
+    in ``meta``) and, under ``stats``, the dispatcher's counters since it
+    started (:meth:`_Dispatcher.stats`): requests, device calls, real and
+    padded images, the gather windows' summed seconds and each request's
+    wait in the queue (sum and max), from which an operator reads the mean
+    batch, the padded share and where a request's latency goes.
 
 Serve a live Predictor on the card::
 
@@ -67,7 +71,8 @@ def _encode_mask_png(mask: np.ndarray) -> bytes:
 
 
 class _Dispatcher:
-    """Collect queued images, run one batched device call, fan results out."""
+    """Collect queued images, run one batched device call, fan results out;
+    the counters of :meth:`stats` are always kept."""
 
     def __init__(self, predict_fn: Callable, max_batch: int,
                  max_wait_ms: float):
@@ -79,17 +84,33 @@ class _Dispatcher:
         self._closed = False
         # serializes the closed-check+enqueue against shutdown, so no item
         # can land in the queue after the _stop sentinel (an unserviced
-        # enqueue would block its submit() forever)
+        # enqueue would block its submit() forever); it guards the
+        # counters too
         self._lock = threading.Lock()
+        self._counts = {"requests": 0, "calls": 0, "images": 0,
+                        "padded_images": 0, "gather_s": 0.0,
+                        "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
         self.thread = threading.Thread(target=self._loop, daemon=True)
         self.thread.start()
 
+    def stats(self) -> dict:
+        """The counters since the dispatcher started: ``requests``
+        submitted, device ``calls``, real ``images`` and
+        ``padded_images`` in them, ``gather_s`` (the gather windows'
+        summed seconds, from the first image's pickup to the padded
+        batch), ``queue_wait_s`` and ``queue_wait_max_s`` (each served
+        request's time from ``submit`` to its pickup, summed and the
+        largest)."""
+        with self._lock:
+            return dict(self._counts)
+
     def submit(self, img: np.ndarray):
         """Blocking: returns this image's (H, W) mask."""
-        slot = {"event": threading.Event()}
+        slot = {"event": threading.Event(), "t": time.monotonic()}
         with self._lock:
             if self._closed:
                 raise RuntimeError("dispatcher is shut down")
+            self._counts["requests"] += 1
             self.q.put((img, slot))
         slot["event"].wait()
         if "error" in slot:
@@ -102,11 +123,13 @@ class _Dispatcher:
             self.q.put(self._stop)
         self.thread.join(timeout=5)
 
-    def _gather(self):
-        item = self.q.get()
-        if item is self._stop:
-            return None
-        batch = [item]
+    def _gather(self, first):
+        """The batch that starts with the queued item ``first``: what
+        else arrives within ``max_wait`` of its pickup, up to
+        ``max_batch``; and each item's seconds from ``submit`` to its
+        pickup."""
+        batch = [first]
+        waits = [time.monotonic() - first[1]["t"]]
         t_end = time.monotonic() + self.max_wait
         while len(batch) < self.max_batch:
             remaining = t_end - time.monotonic()
@@ -119,8 +142,9 @@ class _Dispatcher:
             if nxt is self._stop:
                 self.q.put(self._stop)  # re-queue for the outer loop
                 break
+            waits.append(time.monotonic() - nxt[1]["t"])
             batch.append(nxt)
-        return batch
+        return batch, waits
 
     def _bucket(self, n: int) -> int:
         """Pad gathered batches up to a power-of-2 bucket (at most
@@ -132,16 +156,29 @@ class _Dispatcher:
             b *= 2
         return min(b, self.max_batch)
 
+    def _count(self, n: int, pad: int, gather_s: float, waits):
+        c = self._counts
+        with self._lock:
+            c["calls"] += 1
+            c["images"] += n
+            c["padded_images"] += pad
+            c["gather_s"] += gather_s
+            c["queue_wait_s"] += sum(waits)
+            c["queue_wait_max_s"] = max(c["queue_wait_max_s"], max(waits))
+
     def _loop(self):
         while True:
-            batch = self._gather()
-            if batch is None:
+            first = self.q.get()
+            if first is self._stop:
                 break
+            t0 = time.monotonic()
+            batch, waits = self._gather(first)
             imgs = np.stack([b[0] for b in batch])
             pad = self._bucket(len(batch)) - len(batch)
             if pad > 0:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad,
                                                        axis=0)])
+            self._count(len(batch), pad, time.monotonic() - t0, waits)
             try:
                 masks = self.predict_fn(imgs)
                 for i, (_, slot) in enumerate(batch):
@@ -196,8 +233,10 @@ class BatchingServer:
 
             def do_GET(self):
                 if self.path.rstrip("/") in ("", "/healthz"):
-                    body = json.dumps({"status": "ok", **server.meta},
-                                      default=str).encode()
+                    body = json.dumps(
+                        {"status": "ok", **server.meta,
+                         "stats": server.dispatcher.stats()},
+                        default=str).encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
                     self.send_header("Content-Length", str(len(body)))

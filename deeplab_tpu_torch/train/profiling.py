@@ -1,64 +1,43 @@
-"""Step timing and profiler traces (deeplab_tpu/train/profiling.py), over
-``torch.profiler``.
+"""Profiler traces and program spans (deeplab_tpu/train/profiling.py),
+over ``torch.profiler``.
 
-- ``StepTimer``: a rolling window of step wall times and items per second
-  (the time to dispatch a step: device steps run asynchronously, so the
-  window's aggregate rate is the true one).
 - ``trace``: a ``torch.profiler`` trace of a block, CPU and (where there is
   one) CUDA activity, written as a Chrome trace into a directory.
-- ``annotate``: a named region inside a trace (the JAX package's
-  ``jax.named_scope`` labels: ``stem``, ``mb{id:02d}s{stride}``, ``aspp``,
-  ``head``, the Xception flow's, ``loss``, ``optimizer``,
-  ``step_metrics``), which ``tools/trace.py`` buckets device time by.
-  With no profiler running it is a shared no-op context, so a labelled
-  forward computes and records nothing more than an unlabelled one.
+- ``annotate`` (``core.annotate``, re-exported): a named span inside a
+  trace, which ``tools/trace.py`` buckets device time by.  With no profiler
+  running it is a shared no-op context, so a labelled forward computes and
+  records nothing more than an unlabelled one.  The spans:
+
+  - the JAX package's ``jax.named_scope`` labels: ``stem``,
+    ``mb{id:02d}s{stride}``, ``aspp``, ``head``, the Xception flow's
+    (``xstem``, ``xentry*``, ``xmid*``, ``xexit*``), ``loss``,
+    ``optimizer``, ``step_metrics``;
+  - the port's layer boundaries, named with ``.`` and never ``/`` (a trace
+    reader's scope separator), none holding a label above:
+    ``predict`` (one ``Predictor`` call) with ``predict.copy_in``,
+    ``predict.model``, ``predict.crf`` and ``predict.copy_out``;
+    ``crf.norm`` and, each mean-field iteration, ``crf.blur``,
+    ``crf.splat`` and ``crf.step``; ``train_step`` with ``train.put``,
+    ``train.forward``, ``loss``, ``train.backward``, ``optimizer`` and
+    ``step_metrics``; ``prefetch.wait`` (the step loop's wait for a
+    batch).  Each is read by a per-layer metric of ``portbench/metrics``.
 - ``StepWindowProfiler``: the trace of train steps ``[start, stop)``, wired
   into ``Trainer.fit`` by ``Trainer(profile_dir=...)``.  The window's edges
   synchronize the device, so no step outside it leaks into the trace;
   between them the steps stay asynchronous.
+
+A profiler records the spans of the thread that started it (and of the
+autograd engine's threads), so every span opens on the calling thread.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import deque
-from typing import Optional
 
 import torch
 
-
-class StepTimer:
-    """Rolling window of step wall times with throughput accounting."""
-
-    def __init__(self, window: int = 50):
-        self.times = deque(maxlen=window)
-        self._t0: Optional[float] = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int = 1):
-        assert self._t0 is not None
-        self.times.append((time.perf_counter() - self._t0, items))
-        self._t0 = None
-
-    @property
-    def mean_step_s(self) -> float:
-        if not self.times:
-            return 0.0
-        return sum(t for t, _ in self.times) / len(self.times)
-
-    @property
-    def items_per_s(self) -> float:
-        total_t = sum(t for t, _ in self.times)
-        total_i = sum(i for _, i in self.times)
-        return total_i / total_t if total_t else 0.0
-
-    def summary(self) -> str:
-        return (f"{self.mean_step_s * 1e3:.1f} ms/step, "
-                f"{self.items_per_s:.1f} items/s")
+from deeplab_tpu_torch.core import annotate  # noqa: F401  (the spans)
 
 
 def _activities():
@@ -95,20 +74,6 @@ def trace(logdir: str):
         _sync()
         prof.stop()
         _write(prof, logdir, "trace")
-
-
-_NO_REGION = contextlib.nullcontext()
-
-
-def annotate(name: str):
-    """Named region inside a trace: a ``record_function`` range while a
-    profiler runs, else a shared no-op context (no ``record_function`` is
-    created); also while a graph is traced or exported, so a program holds
-    no profiler operator."""
-    if (not torch.autograd.profiler._is_profiler_enabled
-            or torch.compiler.is_compiling()):
-        return _NO_REGION
-    return torch.profiler.record_function(name)
 
 
 class StepWindowProfiler:

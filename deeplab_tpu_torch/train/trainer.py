@@ -64,6 +64,7 @@ import torch
 import torch.utils.checkpoint
 
 from deeplab_tpu_torch import core
+from deeplab_tpu_torch.core import annotate
 from deeplab_tpu_torch.losses import (
     sparse_crossentropy_ignoring_last_label,
     sparse_logits_crossentropy_ignoring_last_label)
@@ -75,7 +76,6 @@ from deeplab_tpu_torch.ops.bn import BatchNorm, moving_statistics
 from deeplab_tpu_torch.parallel import spatial as SP
 from deeplab_tpu_torch.parallel.mesh import Mesh, get_mesh, is_coordinator
 from deeplab_tpu_torch.train.optimizer import KerasAdam, freeze_set
-from deeplab_tpu_torch.train.profiling import annotate
 
 
 def fold_seed(seed: int, rank: int) -> int:
@@ -328,26 +328,33 @@ class Trainer:
         device tensors.  The gradients stay in ``p.grad`` until the next
         step.  The trace regions ``loss``, ``optimizer`` (the update with
         its lr scaling) and ``step_metrics`` are the JAX step's, in its
-        order."""
-        band, X, Y, SW = self._band(*self._put(X, Y, SW))
-        with core.precision_flags(self.policy), \
-                SP.banded(self.model, band):
-            out = self._forward(X)
-            after = self.gen.get_state() if self.remat else None
-            with annotate("loss"):
-                loss = self._loss(out, Y, SW)
-            self.opt.zero_grad()
-            loss.backward()
-            if after is not None:        # where the plain step leaves it
-                self.gen.set_state(after)
-            self._reduce_grads()
-            with annotate("optimizer"):
-                self.opt.step(self.lr_scale)
-            with annotate("step_metrics"):
-                metrics = self._metrics(out.detach(), Y)
-        if self.ddp and self.mesh is not None:
-            self._average_moving_statistics()
-        return {"loss": self._all_sum(loss.detach()), **metrics}
+        order; the step is the span ``train_step``, and ``train.put`` (the
+        batch to the device), ``train.forward`` and ``train.backward`` (the
+        gradients and their reduction) are the port's."""
+        with annotate("train_step"):
+            with annotate("train.put"):
+                batch = self._put(X, Y, SW)
+            band, X, Y, SW = self._band(*batch)
+            with core.precision_flags(self.policy), \
+                    SP.banded(self.model, band):
+                with annotate("train.forward"):
+                    out = self._forward(X)
+                after = self.gen.get_state() if self.remat else None
+                with annotate("loss"):
+                    loss = self._loss(out, Y, SW)
+                with annotate("train.backward"):
+                    self.opt.zero_grad()
+                    loss.backward()
+                    if after is not None:    # where the plain step leaves it
+                        self.gen.set_state(after)
+                    self._reduce_grads()
+                with annotate("optimizer"):
+                    self.opt.step(self.lr_scale)
+                with annotate("step_metrics"):
+                    metrics = self._metrics(out.detach(), Y)
+            if self.ddp and self.mesh is not None:
+                self._average_moving_statistics()
+            return {"loss": self._all_sum(loss.detach()), **metrics}
 
     def eval_step(self, X, Y, SW):
         """Validation at ``eval_dtype`` (f32 by default: val_Jaccard drives
@@ -424,8 +431,7 @@ class Trainer:
         the whole train state there after each epoch's callbacks.
         ``resume_from``: where that file exists, continue from it (its
         epoch, optimizer, dropout generator and callbacks' state)."""
-        from deeplab_tpu_torch.train.profiling import (StepTimer,
-                                                       StepWindowProfiler)
+        from deeplab_tpu_torch.train.profiling import StepWindowProfiler
         self.stop_training = False
         self.setup(net)
         self._agree_batch_sizes(train_gen, valid_gen)
@@ -442,21 +448,27 @@ class Trainer:
         self.profiler = (StepWindowProfiler(self.profile_dir,
                                             *self.profile_steps)
                          if self.profile_dir is not None else None)
-        timer = StepTimer()
         try:
             for epoch in range(initial_epoch, self.epochs):
-                t0 = time.time()
-                logs = self._epoch(pipes[0], self.train_step, timer)
+                t0 = time.perf_counter()
+                logs, steps, items = self._epoch(pipes[0], self.train_step,
+                                                 train=True)
+                train_s = time.perf_counter() - t0
                 if valid_gen is not None:
                     logs.update({f"val_{k}": v for k, v in
-                                 self._epoch(pipes[1], self.eval_step).items()})
+                                 self._epoch(pipes[1],
+                                             self.eval_step)[0].items()})
                 for k, v in logs.items():
                     history.setdefault(k, []).append(v)
                 if self.verbose:
+                    # steps run asynchronously and the training pass ends in
+                    # the host read of its metrics: only its whole time
+                    # gives a true rate
                     msg = " - ".join(f"{k}: {v:.4f}" for k, v in logs.items())
                     print(f"Epoch {epoch + 1}/{self.epochs} "
-                          f"({time.time() - t0:.1f}s, {timer.summary()}) - "
-                          f"{msg}")
+                          f"({time.perf_counter() - t0:.1f}s, "
+                          f"{1e3 * train_s / max(steps, 1):.1f} ms/step, "
+                          f"{items / train_s:.1f} items/s) - {msg}")
                 train_gen.on_epoch_end()
                 for cb in self.callbacks:
                     cb.on_epoch_end(epoch, logs)
@@ -475,28 +487,29 @@ class Trainer:
                 self.profiler.close()
         return history
 
-    def _epoch(self, pipe, step, timer=None):
-        """Run ``step`` over one pass of ``pipe``; mean of each metric (one
-        host read per metric per epoch).  Train steps (with ``timer``) are
-        timed and counted, and open and close the profiler's window."""
-        sums, n = {}, 0
-        prof = self.profiler if timer is not None else None
+    def _epoch(self, pipe, step, train: bool = False):
+        """Run ``step`` over one pass of ``pipe``; returns the mean of
+        each metric (one host read per metric per epoch, which waits for
+        the epoch's last step), the steps and the images.  Train steps
+        (``train``) are counted and open and close the profiler's
+        window."""
+        sums, n, items = {}, 0, 0
+        prof = self.profiler if train else None
         for X, Y, sw in pipe:
             SW = sw["pred_mask"] if isinstance(sw, dict) else sw
             self._check_batch_divides(X)
             if prof is not None:
                 prof.before_step(self.step)
-            if timer is not None:
-                timer.start()
             for k, v in step(X, Y, SW).items():
                 sums[k] = sums.get(k, 0.0) + v
-            if timer is not None:
-                timer.stop(len(X))
+            if train:
                 if prof is not None:
                     prof.after_step(self.step)
                 self.step += 1
             n += 1
-        return {k: float(v) / max(n, 1) for k, v in sums.items()}
+            items += len(X)
+        return ({k: float(v) / max(n, 1) for k, v in sums.items()}, n,
+                items)
 
     # ------------------------------------------------- data parallelism ----
 

@@ -1,0 +1,9 @@
+"""CRF (``crf/dense_crf.py::_mean_field_planes``): device ms a traced call
+of the ops launched inside the span ``crf.norm`` (the norm pass: the
+valid mask's splat, its cross-cell blur and the attribute slice)."""
+
+from portbench import spans as S
+
+
+def read(run):
+    return S.scope_ms_per_call(run, "crf.norm")

@@ -2,7 +2,8 @@
 labels, and the trace reader (``deeplab_tpu_torch/tools/trace.py``), on the
 CPU at 32x32 on one torch thread.
 
-- The labels, as names and in order of first appearance: the JAX side read
+- The labels, as names and in order of first appearance (the port's own
+  spans, which JAX has no counterpart of, set apart): the JAX side read
   from each function's jaxpr name stacks (``transpose(jvp(...))`` and the
   other transformation wrappers stripped, sub-jaxprs walked in place), the
   port's from the ``record_function`` calls of one call under an active
@@ -171,9 +172,14 @@ def test_labels_equal_jax(case, monkeypatch):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         call()
-    got = rec.first_seen()
+    seen = rec.first_seen()
+    got = [n for n in seen if LABEL.match(n)]
     assert got == want
-    assert all(LABEL.match(n) for n in got)
+    # the rest are the port's own spans at its layer boundaries, whose tree
+    # tests/test_torch_spans.py holds
+    assert [n for n in seen if not LABEL.match(n)] == (
+        ["train_step", "train.put", "train.forward", "train.backward"]
+        if case == "train_step" else [])
 
 
 @pytest.mark.parametrize("case", ("segnet", "train_step"))

@@ -165,6 +165,53 @@ def test_dispatcher_propagates_errors():
     d.shutdown()
 
 
+def test_dispatcher_counters_for_a_known_mix():
+    """One image alone (bucket 1), then three that queued behind it while
+    its call ran (bucket 4, one padded image): the counters read two
+    calls, four real and one padded image, two gather windows and the
+    three queued requests' wait."""
+    entered, go = threading.Event(), threading.Event()
+    calls = []
+
+    def pipeline(batch):
+        calls.append(batch.shape[0])
+        if len(calls) == 1:
+            entered.set()
+            go.wait(timeout=10)
+        return _fake_pipeline(batch)
+
+    d = _Dispatcher(pipeline, max_batch=4, max_wait_ms=50.0)
+    assert d.stats() == {"requests": 0, "calls": 0, "images": 0,
+                         "padded_images": 0, "gather_s": 0.0,
+                         "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
+    img = lambda v: np.full(SZ + (3,), float(v), np.float32)
+    first = threading.Thread(target=d.submit, args=(img(1),))
+    first.start()
+    assert entered.wait(timeout=10)
+    rest = [threading.Thread(target=d.submit, args=(img(v),))
+            for v in (2, 3, 4)]
+    for t in rest:
+        t.start()
+    while d.q.qsize() < 3:
+        threading.Event().wait(0.005)
+    threading.Event().wait(0.1)
+    go.set()
+    for t in [first] + rest:
+        t.join(timeout=10)
+    st = d.stats()
+    d.shutdown()
+    assert calls == [1, 4]
+    assert {k: st[k] for k in ("requests", "calls", "images",
+                               "padded_images")} == {
+        "requests": 4, "calls": 2, "images": 4, "padded_images": 1}
+    # each call waited out its 50-ms window (nothing more came)
+    assert 0.1 <= st["gather_s"] < 5.0
+    # the three queued behind the first call's 0.1 s or more; the first
+    # was picked up at once
+    assert st["queue_wait_max_s"] >= 0.1
+    assert 3 * 0.1 <= st["queue_wait_s"] <= 3 * st["queue_wait_max_s"] + 0.05
+
+
 @pytest.fixture(scope="module")
 def server():
     srv = BatchingServer(_fake_pipeline, SZ, max_batch=4, max_wait_ms=5.0,
@@ -182,6 +229,25 @@ def test_healthz(server):
     assert body["status"] == "ok"
     assert body["image_size"] == list(SZ)
     assert body["pipeline"] == "test"
+    assert body["stats"] == server[0].dispatcher.stats()
+
+
+def test_healthz_stats_count_served_requests():
+    srv = BatchingServer(_fake_pipeline, SZ, max_batch=4, max_wait_ms=1.0)
+    port = srv.start(port=0)
+    try:
+        for seed in (0, 1):
+            _post(port, _png_bytes(seed)[0])
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            stats = json.loads(r.read())["stats"]
+    finally:
+        srv.stop()
+    assert {k: stats[k] for k in ("requests", "calls", "images",
+                                  "padded_images")} == {
+        "requests": 2, "calls": 2, "images": 2, "padded_images": 0}
+    assert stats["gather_s"] > 0 and stats["queue_wait_s"] >= 0
+    assert stats["queue_wait_max_s"] <= stats["queue_wait_s"]
 
 
 def test_predict_endpoint_round_trip(server):

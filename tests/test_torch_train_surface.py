@@ -1,5 +1,5 @@
 """The rest of the training surface on the CPU, against the JAX package where
-it has a counterpart: remat, the profiler window, ``StepTimer``,
+it has a counterpart: remat, the profiler window, the epoch line's rate,
 ``calibrate_bn``, the multi-process pipeline, ``ArrayBatcher``'s adaptive
 weights, ``CityscapesGenerator``, ``TensorBoard``, the ``SegModel`` training
 methods and ``cli train``.
@@ -44,7 +44,7 @@ from deeplab_tpu_torch.params import params_from_jax, trees_from_net
 from deeplab_tpu_torch.train import (EarlyStopping, ModelCheckpoint,
                                      ReduceLROnPlateau, TensorBoard, Trainer,
                                      calibrate_bn)
-from deeplab_tpu_torch.train.profiling import StepTimer, StepWindowProfiler
+from deeplab_tpu_torch.train.profiling import StepWindowProfiler
 
 import torch_pipeline_gens as G
 
@@ -163,16 +163,27 @@ def test_profiler_close_recovers_an_open_window(tmp_path):
         StepWindowProfiler(d, 3, 3)
 
 
-def test_step_timer():
-    t = StepTimer(window=3)
-    assert t.mean_step_s == 0.0 and t.items_per_s == 0.0
-    for items in (2, 4, 6, 8):
-        t.start()
-        t.stop(items)
-    assert len(t.times) == 3 and [i for _, i in t.times] == [4, 6, 8]
-    assert t.items_per_s == pytest.approx(
-        18 / sum(s for s, _ in t.times))
-    assert t.summary().endswith("items/s") and "ms/step" in t.summary()
+def test_epoch_line_rate_is_images_over_the_epoch(monkeypatch, capsys):
+    """The verbose epoch line's rate is the epoch's images (and steps) over
+    its wall time, which ends in the host read of its metrics: the clock is
+    read at the epoch's start, after its training pass and at the line."""
+    import re
+    from deeplab_tpu_torch.train import trainer as TR
+    X, Y = _disc_data(n=6)
+    reads = iter([100.0, 102.4, 103.0])
+    monkeypatch.setattr(TR, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(reads)))
+    net = SegNet((SZ, SZ), N_CLS, alpha=0.35)
+    Trainer(net, epochs=1, device="cpu", verbose=1).fit(
+        net, ArrayBatcher(X, Y, 2, n_classes=N_CLS))
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("Epoch 1/1"))
+    m = re.search(r"\(([\d.]+)s, ([\d.]+) ms/step, ([\d.]+) items/s\)",
+                  line)
+    assert m, line
+    assert float(m.group(1)) == pytest.approx(3.0)
+    assert float(m.group(2)) == pytest.approx(2400.0 / 3, abs=0.05)
+    assert float(m.group(3)) == pytest.approx(6 / 2.4, abs=0.05)
 
 
 # --------------------------------------------------------- BN calibration ---
