@@ -4,12 +4,13 @@ on the CPU at 32x32 on one torch thread.
 - The span tree, in order, of one ``Predictor`` call with the production
   CRF (``predict`` over ``predict.copy_in``, ``predict.model`` around the
   model labels, ``predict.crf`` around ``crf.norm`` and each iteration's
-  ``crf.blur``, ``crf.splat`` and ``crf.step``, ``predict.copy_out``), of
-  one ``Trainer.train_step`` (``train_step`` over ``train.put``,
-  ``train.forward``, ``loss``, ``train.backward``, ``optimizer``,
-  ``step_metrics``) and of one ``Prefetcher`` batch (``prefetch.wait`` on
-  the consumer's thread, nothing on the loader's), read from the
-  profiler's events with their absolute times.
+  ``crf.blur``, ``crf.splat`` and ``crf.step``, ``predict.copy_out``; with
+  ``return_raw`` a ``predict.copy_out`` between ``predict.model`` and
+  ``predict.crf``), of one ``Trainer.train_step`` (``train_step`` over
+  ``train.put``, ``train.forward``, ``loss``, ``train.backward``,
+  ``optimizer``, ``step_metrics``) and of one ``Prefetcher`` batch
+  (``prefetch.wait`` on the consumer's thread, nothing on the loader's),
+  read from the profiler's events with their absolute times.
 - No ``record_function`` without a profiler; the masks equal bit for bit
   with the spans on.  One CRF ``Predictor`` call, plain and traced, serves
   these tests.
@@ -123,6 +124,26 @@ def test_predictor_span_tree(crf_call):
     assert labels and all(LABEL.match(n) and d > model[0]
                           for d, n in labels)
     assert [n for _, n in labels][:2] == ["stem", "mb00s1"]
+
+
+def test_predictor_span_tree_return_raw(crf_call):
+    """With ``return_raw`` the model's labels leave under a
+    ``predict.copy_out`` between ``predict.model`` and ``predict.crf`` (on
+    the card their copy overlaps the CRF), the same tree on every device;
+    the pair's refined masks are the plain call's."""
+    torch.manual_seed(0)
+    pred = Predictor(SegNet(SZ, N, alpha=0.35), crf=PRODUCTION_CONFIG,
+                     compute_dtype="float32", device="cpu", return_raw=True)
+    (raw, refined), tree = _profile(lambda: pred(_images()))
+    np.testing.assert_array_equal(refined, crf_call["plain"])
+    assert raw.shape == refined.shape and raw.dtype == np.int32
+    it = PRODUCTION_CONFIG.n_iters
+    assert _program(tree) == (
+        [(0, "predict"), (1, "predict.copy_in"), (1, "predict.model"),
+         (1, "predict.copy_out"), (1, "predict.crf"), (2, "crf.norm")]
+        + [(2, n) for _ in range(it)
+           for n in ("crf.blur", "crf.splat", "crf.step")]
+        + [(1, "predict.copy_out")])
 
 
 def test_train_step_span_tree():
